@@ -1,0 +1,71 @@
+"""The PyTorch port imports nothing the GPU machine lacks, and carries
+the same VTPConfig as the JAX package."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+import vtp_tpu.config as jax_config
+import vtp_tpu_torch.config as torch_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REFUSED = ("jax", "jaxlib", "vtp_tpu", "PIL", "safetensors", "regex", "ftfy", "omegaconf")
+
+
+def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, pkgutil, sys
+        REFUSED = {REFUSED!r}
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in REFUSED:
+                    raise ImportError("refused import: " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import vtp_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(vtp_tpu_torch.__path__, "vtp_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+        assert not leaked, leaked
+        print(" ".join(sorted(names)))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    imported = set(res.stdout.split())
+    for mod in ("vtp_tpu_torch.ops.flash_attention", "vtp_tpu_torch.models.vtp_model",
+                "vtp_tpu_torch._build", "vtp_tpu_torch.config"):
+        assert mod in imported
+
+
+def test_chip_smoke_without_a_card_exits_nonzero_with_no_result():
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def _fields(mod):
+    return [(f.name, str(f.type), f.default) for f in dataclasses.fields(mod.VTPConfig)]
+
+
+def test_config_fields_identical():
+    assert _fields(torch_config) == _fields(jax_config)
+
+
+@pytest.mark.parametrize("preset", sorted(jax_config.PRESETS))
+def test_config_presets_identical(preset):
+    j = jax_config.PRESETS[preset]()
+    t = torch_config.PRESETS[preset]()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for prop in ("vision_head_dim", "decoder_head_dim", "latent_grid"):
+        assert getattr(t, prop) == getattr(j, prop)
+    assert sorted(torch_config.PRESETS) == sorted(jax_config.PRESETS)

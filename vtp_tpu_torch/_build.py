@@ -1,0 +1,92 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every source under ``csrc/`` is compiled for ``sm_90a`` into one shared
+library with a plain C interface (no PyTorch header, no
+``torch.utils.cpp_extension``): a build takes seconds. The library goes
+into ``vtp_tpu_torch/_build/`` under a name that carries a hash of the
+sources and flags, so a stale library is never loaded; it is written
+under a temporary name and moved into place, so a build cut short
+leaves nothing that a later run would load.
+
+The first kernel launch on a CUDA tensor builds; nothing is built when
+the package is imported or when a CPU tensor takes the plain path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+BUILD_TIMEOUT_S = 600
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from PATH, else ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or in /usr/local/cuda/bin")
+
+
+def library_path(srcs: Optional[List[Path]] = None) -> Path:
+    """Where the library built from ``srcs`` lives: the name carries a
+    hash of every source (``*.cu`` and ``*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(srcs if srcs is not None else sources()) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libvtp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(out: Path, srcs: List[Path]) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists;
+    return its path. Raises with nvcc's output if the build fails."""
+    srcs = sources()
+    lib = library_path(srcs)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    try:
+        res = subprocess.run(nvcc_command(tmp, srcs), capture_output=True, text=True,
+                             timeout=BUILD_TIMEOUT_S)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}{res.stdout}")
+        os.replace(tmp, lib)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib

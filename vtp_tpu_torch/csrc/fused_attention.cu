@@ -1,0 +1,336 @@
+// Fused qkv-split + qk-RMSNorm + RoPE + softmax attention for Hopper (sm_90a).
+//
+// Replaces the TPU kernel vtp_tpu/ops/flash_attention.py::_fused_kernel_call
+// (pallas_call at :617), entered through fused_qkv_rope_attention (:398).
+// Its plain PyTorch version is
+// vtp_tpu_torch/ops/flash_attention.py::fused_qkv_rope_attention_reference.
+//
+// What it computes, per (batch b, head h), from the packed qkv GEMM output
+// (B, N, 3*H*64) laid out [Q | K | V], head h at columns h*64 of each third:
+//   q, k = optional RMSNorm over the head dim (eps 1e-5, (64,) fp32 scales),
+//          rounded to the input dtype after the normalisation and again after
+//          the scale;
+//   q, k = optional RoPE rotate-half: inputs rounded to bf16, then
+//          bf16(bf16(x*cos) + bf16(rot(x)*sin)), every product and the sum
+//          rounded to bf16 as the reference's eager bf16 arithmetic does;
+//   s    = q.k * 64^-1/2 in fp32; key columns >= n_valid masked; optional
+//          causal mask (column > row);
+//   p    = exp(s - max) / sum in fp32, rounded to the value dtype;
+//   out  = p.v accumulated in fp32, rounded to the output dtype (B, N, H*64).
+// Two arms by dtype: bf16 in/out (fp32 scores and softmax), and fp32 with
+// plain fp32 FMAs (no TF32, no tensor cores).
+//
+// Design. One block per (query tile of 64 rows, head, batch row); 256
+// threads, four per row, each owning 16 of the row's 64 head-dim columns
+// (the pairs j and j+32, so rotate-half stays inside the thread). The block
+// reads Q, K and V straight from the packed input, so no split copy exists.
+// The Q tile is normalised and roped once into shared memory; each key
+// tile of 64 is normalised and roped on load into shared memory too. Each
+// thread keeps 16 scores in flight, one per key column it owns. Softmax
+// takes two passes over the key tiles: the first finds the row max and the
+// fp32 sum of exp(s - max), the second forms p, rounds it to the value dtype
+// as the reference does and accumulates p.v. Keys are masked by bounds, so N needs
+// no padding and has no cap. The lane roll with sign-folded sin tables and
+// the block-diagonal statistics matrix of the TPU kernel were workarounds for
+// its vector unit: here rotate-half is an index and the RMS is a reduction
+// over four lanes.
+//
+// Bound on an H100: at the VTP-L shapes (B=8, N=257, H=16) the bf16 arm
+// moves 16.8 MB and does 2.2 GFLOP (bytes-bound, 5 us); the fp32 arm moves
+// 33.6 MB and does 2.15 GFLOP of fp32 FMAs (operations-bound at the 67
+// TFLOP/s non-tensor rate, 32 us). This first version computes the scores
+// twice and uses scalar FMAs from shared memory; wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kHeadDim = 64;
+constexpr int kTile = 64;             // query rows per block, key rows per tile
+constexpr int kThreads = 256;         // four threads per row
+constexpr int kStride = kHeadDim + 4; // padded shared-memory row, float4-aligned
+constexpr size_t kSmemBytes = 4 * kTile * kStride * sizeof(float);
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  __device__ static void load8(const float* p, float* dst) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+    dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+  }
+  __device__ static float round(float x) { return x; }
+  __device__ static float store_value(float x) { return x; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  __device__ static void load8(const __nv_bfloat16* p, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(v[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static float round(float x) { return bf16_round(x); }
+  __device__ static __nv_bfloat16 store_value(float x) { return __float2bfloat16_rn(x); }
+};
+
+// Loads token row `n` of one head's Q or K (or V, with no prologue) into
+// `dst`, a padded shared-memory row. Thread quarter `c` owns columns
+// [8c, 8c+8) and [32+8c, 32+8c+8). Rows at or past N load as zeros.
+template <typename T>
+__device__ void load_row(const T* __restrict__ row, bool in_range,
+                         const float* __restrict__ norm_w,
+                         const __nv_bfloat16* __restrict__ sin_row,
+                         const __nv_bfloat16* __restrict__ cos_row,
+                         float* __restrict__ dst, int c) {
+  float x[16];
+  if (in_range) {
+    Io<T>::load8(row + 8 * c, x);
+    Io<T>::load8(row + 32 + 8 * c, x + 8);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = 0.f;
+  }
+  if (norm_w != nullptr) {
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ss += x[i] * x[i];
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+    const float inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = (i < 8 ? 8 * c : 32 + 8 * c) + (i & 7);
+      x[i] = Io<T>::round(Io<T>::round(x[i] * inv) * norm_w[col]);
+    }
+  }
+  if (sin_row != nullptr && in_range) {
+    float s[16], co[16];
+    Io<__nv_bfloat16>::load8(sin_row + 8 * c, s);
+    Io<__nv_bfloat16>::load8(sin_row + 32 + 8 * c, s + 8);
+    Io<__nv_bfloat16>::load8(cos_row + 8 * c, co);
+    Io<__nv_bfloat16>::load8(cos_row + 32 + 8 * c, co + 8);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float lo = bf16_round(x[i]);
+      const float hi = bf16_round(x[i + 8]);
+      // rotate-half: rot[j] = -x[j+32] for j < 32, x[j-32] for j >= 32
+      x[i] = bf16_round(bf16_round(lo * co[i]) + bf16_round(-hi * s[i]));
+      x[i + 8] = bf16_round(bf16_round(hi * co[i + 8]) + bf16_round(lo * s[i + 8]));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    dst[8 * c + i] = x[i];
+    dst[32 + 8 * c + i] = x[i + 8];
+  }
+}
+
+// Scores of this thread's query row (`sq`, in shared memory) against key
+// columns c + 4j of the tile in `sk`, scaled and masked. The sixteen sums are
+// independent, and each runs over the head dim in order.
+__device__ __forceinline__ void tile_scores(const float* __restrict__ sq,
+                                            const float* __restrict__ sk, int c,
+                                            int k0, int qrow, int n_valid,
+                                            int causal, float (&s)[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[j] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < kHeadDim; i += 4) {
+    const float4 qv = *reinterpret_cast<const float4*>(sq + i);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(sk + (c + 4 * j) * kStride + i);
+      s[j] = fmaf(qv.x, kv.x, s[j]);
+      s[j] = fmaf(qv.y, kv.y, s[j]);
+      s[j] = fmaf(qv.z, kv.z, s[j]);
+      s[j] = fmaf(qv.w, kv.w, s[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = k0 + c + 4 * j;
+    s[j] = (col >= n_valid || (causal && col > qrow)) ? -INFINITY : s[j] * 0.125f;  // 64^-1/2
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_qkv_rope_attention_kernel(const T* __restrict__ qkv,
+                                const __nv_bfloat16* __restrict__ sin_t,
+                                const __nv_bfloat16* __restrict__ cos_t,
+                                const float* __restrict__ q_scale,
+                                const float* __restrict__ k_scale,
+                                T* __restrict__ out, int N, int H, int n_valid,
+                                int causal) {
+  extern __shared__ float4 smem4[];
+  float* s_q = reinterpret_cast<float*>(smem4);
+  float* s_k = s_q + kTile * kStride;
+  float* s_v = s_k + kTile * kStride;
+  float* s_p = s_v + kTile * kStride;
+
+  const int r = threadIdx.x >> 2;  // row within the tile
+  const int c = threadIdx.x & 3;   // quarter of the row
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int D = H * kHeadDim;
+  const size_t row_stride = 3 * static_cast<size_t>(D);
+  const T* base = qkv + static_cast<size_t>(b) * N * row_stride;
+  const int qrow = q0 + r;
+
+  auto tables = [&](int n, const __nv_bfloat16*& sr, const __nv_bfloat16*& cr) {
+    sr = sin_t == nullptr ? nullptr : sin_t + static_cast<size_t>(n) * kHeadDim;
+    cr = cos_t == nullptr ? nullptr : cos_t + static_cast<size_t>(n) * kHeadDim;
+  };
+
+  // Q tile: prologue into shared memory, where it stays.
+  {
+    const __nv_bfloat16 *sr, *cr;
+    tables(qrow, sr, cr);
+    load_row<T>(base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim,
+                qrow < N, q_scale, sr, cr, s_q + r * kStride, c);
+  }
+  const float* q = s_q + r * kStride;
+
+  // Key tiles that hold any unmasked column for this block's rows.
+  int n_kt = (n_valid + kTile - 1) / kTile;
+  if (causal) {
+    const int last_row = min(q0 + kTile, N) - 1;
+    n_kt = min(n_kt, last_row / kTile + 1);
+  }
+
+  auto load_k = [&](int k0) {
+    const int n = k0 + r;
+    const __nv_bfloat16 *sr, *cr;
+    tables(n, sr, cr);
+    load_row<T>(base + static_cast<size_t>(n) * row_stride + D + h * kHeadDim,
+                n < N, k_scale, sr, cr, s_k + r * kStride, c);
+  };
+
+  // Pass 1: row max and the fp32 sum of exp(s - max).
+  float m = -INFINITY, l = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    __syncthreads();
+    load_k(kt * kTile);
+    __syncthreads();
+    float s[16];
+    tile_scores(q, s_k, c, kt * kTile, qrow, n_valid, causal, s);
+    float mt = s[0];
+#pragma unroll
+    for (int j = 1; j < 16; ++j) mt = fmaxf(mt, s[j]);
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m, mt);
+    if (m_new != -INFINITY) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) part += expf(s[j] - m_new);
+      l = (m == -INFINITY ? 0.f : l * expf(m - m_new)) + part;
+      m = m_new;
+    }
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  // Pass 2: p = exp(s - max) / sum, rounded to the value dtype; out += p.v.
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    load_k(k0);
+    {
+      const int n = k0 + r;
+      load_row<T>(base + static_cast<size_t>(n) * row_stride + 2 * D + h * kHeadDim,
+                  n < N, nullptr, nullptr, nullptr, s_v + r * kStride, c);
+    }
+    __syncthreads();
+    float s[16];
+    tile_scores(q, s_k, c, k0, qrow, n_valid, causal, s);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p = s[j] == -INFINITY ? 0.f : Io<T>::round(expf(s[j] - m) / l);
+      s_p[r * kStride + c + 4 * j] = p;
+    }
+    __syncthreads();
+    const float* prow = s_p + r * kStride;
+    for (int kk = 0; kk < kTile; ++kk) {
+      const float p = prow[kk];
+      const float* vrow = s_v + kk * kStride;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(vrow + 4 * c + 16 * i);
+        acc[4 * i] = fmaf(p, v.x, acc[4 * i]);
+        acc[4 * i + 1] = fmaf(p, v.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(p, v.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(p, v.w, acc[4 * i + 3]);
+      }
+    }
+  }
+
+  if (qrow < N) {
+    T* orow = out + (static_cast<size_t>(b) * N + qrow) * D + h * kHeadDim;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) orow[4 * c + 16 * i + e] = Io<T>::store_value(acc[4 * i + e]);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* qkv, const void* sin_t, const void* cos_t,
+           const void* q_scale, const void* k_scale, void* out, int B, int N,
+           int H, int n_valid, int causal, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fused_qkv_rope_attention_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kTile - 1) / kTile, H, B);
+  fused_qkv_rope_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const __nv_bfloat16*>(sin_t),
+      static_cast<const __nv_bfloat16*>(cos_t),
+      static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
+      static_cast<T*>(out), N, H, n_valid, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// qkv: (B, N, 3*H*64) contiguous, bf16 or fp32; sin/cos: (N, 64) bf16 or
+// null; q_scale/k_scale: (64,) fp32 or null; out: (B, N, H*64), the dtype of
+// qkv; 1 <= n_valid <= N. Returns the cudaError_t of the launch.
+extern "C" int vtp_fused_qkv_rope_attention_bf16(
+    const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
+    const void* k_scale, void* out, int B, int N, int H, int n_valid,
+    int causal, int device, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(qkv, sin_t, cos_t, q_scale, k_scale, out, B, N,
+                               H, n_valid, causal, device, stream);
+}
+
+extern "C" int vtp_fused_qkv_rope_attention_f32(
+    const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
+    const void* k_scale, void* out, int B, int N, int H, int n_valid,
+    int causal, int device, cudaStream_t stream) {
+  return launch<float>(qkv, sin_t, cos_t, q_scale, k_scale, out, B, N, H,
+                       n_valid, causal, device, stream);
+}

@@ -1,0 +1,172 @@
+"""DINOv3 vision trunk with the optional feature bottleneck (port of
+``vtp_tpu/models/vit.py``: ``prepare_tokens`` :132, ``_rope_for`` :195,
+``_final_norms`` :212, ``_apply_bottleneck`` :233,
+``vit_forward_features`` :241).
+
+Patchify is a reshape + GEMM and the RoPE tables are built once per
+forward. The JAX package pads tokens to the TPU's sublane tile; the port
+does not, since the CUDA kernel masks keys by bounds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from vtp_tpu_torch.models.blocks import BlockConfig, Block, Norm, Rope, reset_block_parameters, run_blocks
+from vtp_tpu_torch.models.initializers import normal_, patch_embed_uniform_, trunc_normal_
+from vtp_tpu_torch.ops.patchify import patchify
+from vtp_tpu_torch.ops.rope import ROPE_DTYPES, pad_rope_prefix, rope_periods_init, rope_sincos
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    patch_size: int = 16
+    in_chans: int = 3
+    ffn_ratio: float = 4.0
+    ffn_layer: str = "swiglu"
+    norm_layer: str = "rmsnorm"
+    layerscale_init: Optional[float] = None
+    use_qk_norm: bool = False
+    qkv_bias: bool = True
+    proj_bias: bool = True
+    ffn_bias: bool = True
+    n_storage_tokens: int = 0
+    mask_k_bias: bool = False
+    untie_cls_and_patch_norms: bool = False
+    untie_global_and_local_cls_norm: bool = False
+    feature_bottleneck: Optional[int] = None  # None or == embed_dim -> no bottleneck
+    rope_base: Optional[float] = 100.0
+    rope_min_period: Optional[float] = None
+    rope_max_period: Optional[float] = None
+    rope_normalize_coords: str = "separate"
+    rope_dtype: str = "bf16"
+
+    @property
+    def block(self) -> BlockConfig:
+        return BlockConfig(
+            dim=self.embed_dim, num_heads=self.num_heads, ffn_ratio=self.ffn_ratio,
+            ffn_layer=self.ffn_layer, norm_kind=self.norm_layer, qkv_bias=self.qkv_bias,
+            proj_bias=self.proj_bias, ffn_bias=self.ffn_bias,
+            layerscale_init=self.layerscale_init, use_qk_norm=self.use_qk_norm,
+            mask_k_bias=self.mask_k_bias,
+        )
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def has_bottleneck(self) -> bool:
+        return self.feature_bottleneck is not None and self.feature_bottleneck != self.embed_dim
+
+
+class RopeEmbed(nn.Module):
+    """Holds the ``periods`` buffer of the reference's RopePositionEmbedding
+    (a persistent buffer in the rope dtype; checkpoints carry it)."""
+
+    def __init__(self, head_dim: int, base, min_period, max_period, dtype: str):
+        super().__init__()
+        self.args = (head_dim, base, min_period, max_period, ROPE_DTYPES[dtype])
+        self.register_buffer("periods", torch.empty(head_dim // 4, dtype=ROPE_DTYPES[dtype]))
+
+    def reset_parameters(self) -> None:
+        head_dim, base, lo, hi, dtype = self.args
+        self.periods.copy_(rope_periods_init(head_dim, base, lo, hi, dtype, self.periods.device))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, in_chans: int, dim: int, patch: int):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, dim, patch, stride=patch)  # weight holder only
+
+
+class VisionTransformer(nn.Module):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.in_chans, d, cfg.patch_size)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, d))
+        self.mask_token = nn.Parameter(torch.empty(1, d))
+        self.storage_tokens = (nn.Parameter(torch.empty(1, cfg.n_storage_tokens, d))
+                               if cfg.n_storage_tokens > 0 else None)
+        self.rope_embed = RopeEmbed(cfg.head_dim, cfg.rope_base, cfg.rope_min_period,
+                                    cfg.rope_max_period, cfg.rope_dtype)
+        self.blocks = nn.ModuleList(Block(cfg.block) for _ in range(cfg.depth))
+        self.norm = Norm(d, cfg.norm_layer)
+        if cfg.untie_cls_and_patch_norms:
+            self.cls_norm = Norm(d, cfg.norm_layer)
+        if cfg.untie_global_and_local_cls_norm:
+            self.local_cls_norm = Norm(d, cfg.norm_layer)
+        if cfg.has_bottleneck:
+            self.feature_bottleneck = nn.Linear(d, cfg.feature_bottleneck, bias=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        cfg = self.cfg
+        reset_block_parameters(self, generator)  # blocks, norms, bottleneck
+        pe = self.patch_embed.proj
+        patch_embed_uniform_(pe.weight, cfg.in_chans, cfg.patch_size, generator)
+        patch_embed_uniform_(pe.bias, cfg.in_chans, cfg.patch_size, generator)
+        normal_(self.cls_token, 0.02, generator)
+        nn.init.zeros_(self.mask_token)
+        if self.storage_tokens is not None:
+            normal_(self.storage_tokens, 0.02, generator)
+        self.rope_embed.reset_parameters()
+
+    def prepare_tokens(self, images: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+                       ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """Patchify + [cls | storage | patches]. images: (B, C, H, W)."""
+        cfg = self.cfg
+        B, _, H, W = images.shape
+        gh, gw = H // cfg.patch_size, W // cfg.patch_size
+        pe = self.patch_embed.proj
+        x = patchify(images, pe.weight, pe.bias, patch=cfg.patch_size, compute_dtype=compute_dtype)
+        pieces = [self.cls_token.to(x.dtype).expand(B, 1, cfg.embed_dim)]
+        if self.storage_tokens is not None:
+            pieces.append(self.storage_tokens.to(x.dtype).expand(B, -1, cfg.embed_dim))
+        pieces.append(x)
+        return torch.cat(pieces, dim=1), (gh, gw)
+
+    def rope_for(self, gh: int, gw: int) -> Rope:
+        sin, cos = rope_sincos(self.rope_embed.periods, gh, gw,
+                               normalize_coords=self.cfg.rope_normalize_coords)
+        return pad_rope_prefix(sin, cos, 1 + self.cfg.n_storage_tokens)
+
+    def final_norms(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cls_reg_normed, patch_normed), with the untied cls norm when
+        configured (the local-crop cls norm is training-only)."""
+        cfg = self.cfg
+        s = cfg.n_storage_tokens + 1
+        if cfg.untie_cls_and_patch_norms or cfg.untie_global_and_local_cls_norm:
+            cls_norm = self.cls_norm if cfg.untie_cls_and_patch_norms else self.norm
+            return cls_norm(x[:, :s]), self.norm(x[:, s:])
+        xn = self.norm(x)
+        return xn[:, :s], xn[:, s:]
+
+    def apply_bottleneck(self, t: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+        w = self.feature_bottleneck.weight
+        if compute_dtype is not None:
+            t, w = t.to(compute_dtype), w.to(compute_dtype)
+        return torch.matmul(t, w.t())
+
+    def forward_features(self, images: torch.Tensor, *, use_bottleneck: bool = True,
+                         compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """The reference's forward_features dict: x_norm_clstoken,
+        x_storage_tokens, x_norm_patchtokens, x_prenorm."""
+        x, (gh, gw) = self.prepare_tokens(images, compute_dtype)
+        x = run_blocks(self.blocks, x, self.rope_for(gh, gw), x.shape[1], compute_dtype)
+        cls_reg, patch = self.final_norms(x)
+        out = {"x_norm_clstoken": cls_reg[:, 0], "x_storage_tokens": cls_reg[:, 1:],
+               "x_norm_patchtokens": patch, "x_prenorm": x}
+        if use_bottleneck and self.cfg.has_bottleneck:
+            out["x_norm_clstoken"] = self.apply_bottleneck(out["x_norm_clstoken"], compute_dtype)
+            out["x_norm_patchtokens"] = self.apply_bottleneck(out["x_norm_patchtokens"], compute_dtype)
+        return out
