@@ -5,16 +5,25 @@
 
 1. builds the port's CUDA kernels from ``vtp_tpu_torch/csrc`` with nvcc;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's VTP-L shapes and on small cases for every flag;
-3. runs the main path once through the public API at full VTP-L width:
+   main paths' VTP-L shapes and on small cases for every flag: the fused
+   attention forward, its backward and the fused DINO/iBOT cross-entropy
+   (forward and backward);
+3. runs the roundtrip once through the public API at full VTP-L width:
    ``VTPModel.init`` with seeded random weights, a batch of 8 random 256x256
    images -> bf16 latents -> exact-fp32 images; checks the outputs and that
    every kernel of the path was launched, and compares them with the same
-   model run on the plain attention;
-4. times each kernel arm against its plain version, the PyTorch SDPA call
-   and its bound, and the roundtrip's images/s;
-5. with --profile, traces one roundtrip with torch.profiler and prints the
-   device time by kernel and the device's idle share.
+   model run on the plain versions;
+4. runs the VTP-L CLIP+SSL+rec train step (``init_state``,
+   ``build_train_step``; B = 8 images, each with a CLIP pair, a
+   reconstruction target and 2 global + 4 local SSL crops) once on the
+   kernels, counting their launches, and the same step from the same state
+   and batch on the plain versions; compares the losses and the grad norm,
+   checks that the state moved, then times steps (images/s, peak memory);
+5. times each kernel arm against its plain version, a PyTorch yardstick
+   call where there is one, and its bound, and the roundtrip's images/s;
+6. with --profile, traces one roundtrip and one train step with
+   torch.profiler and prints the device time by kernel and the device's
+   idle share.
 
 Prints the card's name and power limit, one JSON line {"kernels": [...]} and,
 as the last line, {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -25,7 +34,9 @@ when any phase fails. A watchdog ends the run if it outlasts WATCHDOG_S.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +50,21 @@ SEED = 0
 BATCH = 8
 SOURCE = "vtp_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "vtp_tpu/ops/flash_attention.py:423"
+BWD_SOURCE = "vtp_tpu_torch/csrc/fused_attention_bwd.cu"
+BWD_REPLACES = "vtp_tpu/ops/flash_attention.py:641"
+CE_SOURCE = "vtp_tpu_torch/csrc/fused_ce.cu"
+CE_REPLACES = {"fwd": "vtp_tpu/ops/fused_ce.py:148", "bwd": "vtp_tpu/ops/fused_ce.py:200"}
+# The train step's attention call sites (name, B, N, H, rope grid, prefix, causal) at
+# B = 8: the trunk on the global crops, on the CLIP/rec images and on the local
+# crops; the pixel decoder; the causal text tower
+TRAIN_ATTENTION = [("trunk_globals", 2 * BATCH, 257, 16, 16, 1, False),
+                   ("trunk_images", BATCH, 257, 16, 16, 1, False),
+                   ("trunk_locals", 4 * BATCH, 37, 16, 6, 1, False),
+                   ("decoder", BATCH, 256, 16, 16, 0, False),
+                   ("text", BATCH, 77, 12, 0, 0, True)]
+# The fused CE's rows (name, R, C): iBOT (upperbound 0.5 * 16 * 256), DINO globals, locals
+TRAIN_CE = [("ibot", 2048, 65536), ("dino_globals", 2 * BATCH, 65536),
+            ("dino_locals", 4 * BATCH, 65536)]
 # Published dense peaks (NVIDIA data sheets, SXM parts at 700 W): memory
 # bytes/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
 PEAKS = {"H100": (3.35e12, 989e12, 67e12), "H200": (4.8e12, 989e12, 67e12)}
@@ -80,17 +106,24 @@ def _time_ms(fn, iters: int = 10, samples: int = 7) -> float:
 
 
 @contextlib.contextmanager
-def _plain_attention():
-    """Run the model's blocks on the plain attention (the comparison run)."""
-    from vtp_tpu_torch.models import blocks
-    from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention_reference
+def _plain_kernels():
+    """Run the model on the kernels' plain versions (the comparison runs): the
+    differentiable attention and CE keep their autograd Functions, whose
+    forward and backward then go to the plain PyTorch versions."""
+    from vtp_tpu_torch.ops import flash_attention as fa
+    from vtp_tpu_torch.ops import fused_ce
 
-    kernel = blocks.fused_qkv_rope_attention
-    blocks.fused_qkv_rope_attention = fused_qkv_rope_attention_reference
+    saved = (fa._forward, fa.fused_qkv_rope_attention_bwd, fused_ce.fused_ce_fwd,
+             fused_ce.fused_ce_bwd)
+    fa._forward = fa.fused_qkv_rope_attention_reference
+    fa.fused_qkv_rope_attention_bwd = fa.fused_qkv_rope_attention_bwd_reference
+    fused_ce.fused_ce_fwd = fused_ce.fused_ce_fwd_reference
+    fused_ce.fused_ce_bwd = fused_ce.fused_ce_bwd_reference
     try:
         yield
     finally:
-        blocks.fused_qkv_rope_attention = kernel
+        (fa._forward, fa.fused_qkv_rope_attention_bwd, fused_ce.fused_ce_fwd,
+         fused_ce.fused_ce_bwd) = saved
 
 
 def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False):
@@ -161,7 +194,7 @@ def check_kernel(gen):
 
 
 def run_roundtrip(gen):
-    """Phase 3: the main path at full VTP-L width, once, counted."""
+    """Phase 3: the roundtrip at full VTP-L width, once, counted."""
     import torch
 
     from vtp_tpu_torch import VTPModel, vtp_large
@@ -193,18 +226,18 @@ def run_roundtrip(gen):
     if not (torch.isfinite(latents).all().item() and torch.isfinite(recon).all().item()):
         raise AssertionError("non-finite roundtrip output")
 
-    with _plain_attention():
+    with _plain_kernels():
         ref_latents = model.get_reconstruction_latents(images)
         ref_recon = model.get_latents_decoded_images(latents)
     torch.cuda.synchronize()
     lat_err = ((latents.float() - ref_latents.float()).abs().max()
                / ref_latents.float().abs().max()).item()
     img_err = (recon - ref_recon).abs().max().item()
-    print(f"roundtrip vs plain attention: latents max err {lat_err:.3e} of max|ref| (limit 5e-2), "
+    print(f"roundtrip vs plain versions: latents max err {lat_err:.3e} of max|ref| (limit 5e-2), "
           f"images max abs err {img_err:.3e} (limit 1e-3; max|ref| "
           f"{ref_recon.abs().max().item():.3e})", flush=True)
     if not (lat_err <= 5e-2 and img_err <= 1e-3):
-        raise AssertionError("roundtrip disagrees with the plain-attention run")
+        raise AssertionError("roundtrip disagrees with the plain-version run")
 
     samples = []
     for _ in range(5):
@@ -217,8 +250,258 @@ def run_roundtrip(gen):
     return counts, rt_s, model, images
 
 
+def check_train_kernels(gen):
+    """Phase 2, training kernels: the attention backward at every call site of
+    the train step plus flag cases (bf16 within 1e-2 of max|ref|, as the
+    forward), and the fused CE forward and backward at the step's rows plus
+    ragged cases (ce and stats within 1e-5 of max|ref|: fp32 sums of one row
+    in another order; ds within 1e-2 of max|ref| in bf16, 1e-5 in fp32).
+    Returns the error of each kernel at its main shape."""
+    import torch
+
+    from vtp_tpu_torch.ops import fused_ce
+    from vtp_tpu_torch.ops.flash_attention import (
+        fused_qkv_rope_attention_bwd,
+        fused_qkv_rope_attention_bwd_reference,
+    )
+
+    errs = {}
+    cases = [c + (0,) for c in TRAIN_ATTENTION] + [
+        ("n_valid", 2, 197, 4, 14, 1, False, 190),
+        ("causal_n_valid_rope", 2, 197, 4, 14, 1, True, 150),
+        ("causal_ragged", 3, 70, 4, 0, 0, True, 0)]
+    for name, B, N, H, grid, prefix, causal, n_valid in cases:
+        qkv, (sin, cos), _ = _attention_inputs(gen, B, N, H, torch.bfloat16, grid, prefix)
+        g = torch.randn((B, N, H * 64), generator=gen, device="cuda").bfloat16()
+        got = fused_qkv_rope_attention_bwd(qkv, g, sin, cos, H, n_valid, causal)
+        torch.cuda.synchronize()
+        want = fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, H, n_valid, causal)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
+        print(f"kernel attention_bwd {name:20s} B={B} N={N} H={H} causal={causal} "
+              f"n_valid={n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; limit 1e-2 rel) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"attention backward {name} disagrees with its plain version")
+        if name == "trunk_globals":
+            errs["attention_bwd"] = err
+    ragged = [("ragged_bf16", 5, 2051, torch.bfloat16), ("ragged_fp32", 37, 1000, torch.float32)]
+    for name, R, C, dtype in [c + (torch.bfloat16,) for c in TRAIN_CE] + ragged:
+        t = torch.randn((R, C), generator=gen, device="cuda").to(dtype)
+        s = torch.randn((R, C), generator=gen, device="cuda").to(dtype)
+        center = 0.1 * torch.randn(C, generator=gen, device="cuda")
+        g = torch.rand(R, generator=gen, device="cuda")
+        ce, stats = fused_ce.fused_ce_fwd(t, s, center, 0.07, 0.1)
+        ds = fused_ce.fused_ce_bwd(t, s, center, g, stats, 0.07, 0.1)
+        torch.cuda.synchronize()
+        ce0, stats0 = fused_ce.fused_ce_fwd_reference(t, s, center, 0.07, 0.1)
+        ds0 = fused_ce.fused_ce_bwd_reference(t, s, center, g, stats0, 0.07, 0.1)
+        fwd_err = max((a - b).abs().max().item() / b.abs().max().item()
+                      for a, b in zip((ce, *stats), (ce0, *stats0)))
+        bwd_err = (ds.float() - ds0.float()).abs().max().item()
+        bwd_scale = ds0.float().abs().max().item()
+        bwd_tol = 1e-2 if dtype is torch.bfloat16 else 1e-5
+        ok = (fwd_err <= 1e-5 and bwd_err <= bwd_tol * bwd_scale
+              and torch.isfinite(ce).all().item() and torch.isfinite(ds).all().item())
+        print(f"kernel fused_ce {name:14s} R={R} C={C} {str(dtype)[6:]}: fwd max rel err "
+              f"{fwd_err:.3e} (limit 1e-5), bwd max abs err {bwd_err:.3e} (max|ref| "
+              f"{bwd_scale:.3e}; limit {bwd_tol:g} rel) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"fused CE {name} disagrees with its plain version")
+        if name == "ibot":
+            errs["fused_ce_fwd"] = (ce - ce0).abs().max().item()
+            errs["fused_ce_bwd"] = bwd_err
+    return errs
+
+
+def _train_batch(gen, cfg):
+    """B images, each a CLIP pair (the image and 77 random token ids), a
+    reconstruction target (the same image, as bench.py) and its SSL crops."""
+    import torch
+
+    from vtp_tpu_torch.train.step import make_ssl_batch
+
+    size = cfg.image_size
+    images = torch.randn((BATCH, 3, size, size), generator=gen, device="cuda")
+    text = torch.randint(1, cfg.text_vocab_size - 1, (BATCH, cfg.text_context_length),
+                         generator=gen, device="cuda")
+    ssl = make_ssl_batch(gen, BATCH, global_size=size, patch=cfg.vision_patch_size)
+    return {"image": images, "text": text, "rec_image": images, "ssl": ssl}
+
+
+def expected_train_launches(cfg):
+    """Launches per train step at remat off. Forward (bf16 arm): the trunk on
+    the CLIP images, on the rec images and in the teacher (one launch a layer
+    each), the student's two crops (two a layer), the decoder and the text
+    tower. Backward: the same without the no-grad teacher. CE: DINO
+    globals, DINO locals, iBOT."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME
+    from vtp_tpu_torch.ops.fused_ce import BWD_NAME as CE_BWD
+    from vtp_tpu_torch.ops.fused_ce import FWD_NAME as CE_FWD
+
+    v, d, t = cfg.vision_depth, cfg.decoder_depth, cfg.text_depth
+    return {ARM_NAME[torch.bfloat16]: 5 * v + d + t, BWD_NAME: 4 * v + d + t, CE_FWD: 3, CE_BWD: 3}
+
+
+def run_train(gen):
+    """Phase 4: the VTP-L CLIP+SSL+rec train step, counted, against the same
+    step on the plain versions, then timed."""
+    import torch
+
+    from vtp_tpu_torch import vtp_large
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.train.step import TrainConfig, build_train_step, init_state
+
+    cfg = vtp_large()
+    # the recipe bench.py measured: TrainConfig defaults (dino_out_dim 65536,
+    # drop rates 0, bf16 compute) with warmup 0 and 1000 total steps
+    tcfg = TrainConfig(warmup_steps=0, total_steps=1000, remat=False)
+    state = init_state(cfg, tcfg, gen, device="cuda")
+    batch = _train_batch(gen, cfg)
+    step = build_train_step(cfg, tcfg)
+    plain_state = copy.deepcopy(state)
+    qkv_w = state.model.trunk.blocks[0].attn.qkv.weight.detach().clone()
+    teacher_w = state.teacher["trunk"].blocks[0].attn.qkv.weight.detach().clone()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expected_train_launches(cfg)
+    print(f"train step: first call {first_s:.3f} s; kernel launches per step {counts} "
+          f"(expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"train step launches {counts}, expected {want}")
+
+    with _plain_kernels():
+        plain_state, plain = step(plain_state, batch)
+    torch.cuda.synchronize()
+    del plain_state
+    torch.cuda.empty_cache()
+    for name in metrics:
+        got, ref = metrics[name].item(), plain[name].item()
+        limit = 2e-2 if name == "grad_norm" else 5e-3
+        rel = abs(got - ref) / abs(ref)
+        ok = rel <= limit and math.isfinite(got)
+        print(f"train {name:11s} kernels {got:.6f} plain {ref:.6f} rel diff {rel:.3e} "
+              f"(limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"train step {name} disagrees with the plain-version step")
+    moved = {
+        "params": not torch.equal(qkv_w, state.model.trunk.blocks[0].attn.qkv.weight),
+        "teacher": not torch.equal(teacher_w, state.teacher["trunk"].blocks[0].attn.qkv.weight),
+        "dino_center": state.dino_center.abs().sum().item() > 0,
+        "ibot_center": state.ibot_center.abs().sum().item() > 0,
+    }
+    print(f"train state moved: {moved}", flush=True)
+    if not all(moved.values()):
+        raise AssertionError(f"the train step left part of the state unchanged: {moved}")
+
+    torch.cuda.reset_peak_memory_stats()
+    samples = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v.item()) for v in metrics.values()):
+        raise AssertionError(f"non-finite train metrics {metrics}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return counts, samples, peak_gb, state, batch, step
+
+
+def time_train_kernels(gen, card, errs, counts):
+    """Phase 5, training kernels: the attention backward at each call site
+    (the JSON row at the trunk's global crops) against its plain version and
+    SDPA forward+backward on split, pre-roped q/k/v; the fused CE at each of
+    the step's row sets (the JSON rows at iBOT's), no one-call yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtp_tpu_torch.ops import fused_ce
+    from vtp_tpu_torch.ops.flash_attention import (
+        BWD_NAME,
+        fused_qkv_rope_attention_bwd,
+        fused_qkv_rope_attention_bwd_reference,
+    )
+    from vtp_tpu_torch.ops.rope import rope_apply
+
+    bw, bf16_peak, fp32_peak = next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+    rows = []
+    for name, B, N, H, grid, prefix, causal in TRAIN_ATTENTION:
+        qkv, (sin, cos), _ = _attention_inputs(gen, B, N, H, torch.bfloat16, grid, prefix)
+        g = torch.randn((B, N, H * 64), generator=gen, device="cuda").bfloat16()
+        kern = lambda: fused_qkv_rope_attention_bwd(qkv, g, sin, cos, H, 0, causal)
+        plain = lambda: fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, H, 0, causal)
+        q, k, v = qkv.reshape(B, N, 3, H, 64).unbind(2)
+        if sin is not None:
+            s, c = sin[None, :, None, :], cos[None, :, None, :]
+            q, k = rope_apply(q, s, c), rope_apply(k, s, c)
+        q, k, v = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        gt = g.reshape(B, N, H, 64).transpose(1, 2).contiguous()
+
+        def lib():
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            torch.autograd.grad(out, (q, k, v), gt)
+
+        ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
+        nbytes = B * N * 7 * H * 64 * 2
+        pairs = N * (N + 1) / 2 if causal else N * N
+        flops = 10 * B * H * pairs * 64
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+        print(f"timing attention_bwd {name} B={B} N={N} H={H} on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+              flush=True)
+        if name == "trunk_globals":
+            rows.append({
+                "name": BWD_NAME, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+                "launches": counts.get(BWD_NAME, 0), "max_abs_err": errs["attention_bwd"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+            })
+    for name, R, C in TRAIN_CE:
+        t = torch.randn((R, C), generator=gen, device="cuda").bfloat16()
+        s = torch.randn((R, C), generator=gen, device="cuda").bfloat16()
+        center = 0.1 * torch.randn(C, generator=gen, device="cuda")
+        g = torch.rand(R, generator=gen, device="cuda")
+        _, stats = fused_ce.fused_ce_fwd(t, s, center, 0.07, 0.1)
+        timed = {
+            "fwd": (lambda: fused_ce.fused_ce_fwd(t, s, center, 0.07, 0.1),
+                    lambda: fused_ce.fused_ce_fwd_reference(t, s, center, 0.07, 0.1),
+                    2 * R * C * 2 + C * 4 + 5 * R * 4),
+            "bwd": (lambda: fused_ce.fused_ce_bwd(t, s, center, g, stats, 0.07, 0.1),
+                    lambda: fused_ce.fused_ce_bwd_reference(t, s, center, g, stats, 0.07, 0.1),
+                    3 * R * C * 2 + C * 4 + 5 * R * 4),
+        }
+        for part, (kern, plain, nbytes) in timed.items():
+            ms, plain_ms = _time_ms(kern), _time_ms(plain)
+            # about a dozen fp32 operations an element (two exps), outside the tensor cores
+            t_bytes, t_ops = nbytes / bw * 1e3, 12 * R * C / fp32_peak * 1e3
+            print(f"timing fused_ce_{part} {name} R={R} C={C} on {card}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB)", flush=True)
+            if name == "ibot":
+                kname = fused_ce.FWD_NAME if part == "fwd" else fused_ce.BWD_NAME
+                rows.append({
+                    "name": kname, "route": "cuda", "source": CE_SOURCE,
+                    "replaces": CE_REPLACES[part], "launches": counts.get(kname, 0),
+                    "max_abs_err": errs[f"fused_ce_{part}"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+                })
+    return rows
+
+
 def time_kernels(gen, card, errs, counts):
-    """Phase 4: each arm at the main path's shapes."""
+    """Phase 5: each forward arm at the roundtrip's shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -261,8 +544,8 @@ def time_kernels(gen, card, errs, counts):
     return rows
 
 
-def profile_roundtrip(model, images) -> None:
-    """Phase 5 (--profile): device time of one roundtrip by kernel, by
+def profile_run(label: str, fn) -> None:
+    """Phase 6 (--profile): device time of one call of ``fn`` by kernel, by
     kind of kernel, and the device's idle share of the wall time."""
     import torch
     from torch.autograd import DeviceType
@@ -270,7 +553,7 @@ def profile_roundtrip(model, images) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.get_latents_decoded_images(model.get_reconstruction_latents(images))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -282,15 +565,18 @@ def profile_roundtrip(model, images) -> None:
     kinds = {}
     for name, (ms, _) in by_name.items():
         kind = ("fused attention" if "fused_qkv_rope_attention" in name else
+                "attention backward" if "attention_bwd" in name else
+                "fused CE" if "fused_ce" in name else
                 "GEMM" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass")) else
                 "elementwise and other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
-    print(f"profile: wall {wall_ms:.2f} ms (under the profiler), device busy {busy_ms:.2f} ms, "
-          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+    print(f"profile {label}: wall {wall_ms:.2f} ms (under the profiler), device busy "
+          f"{busy_ms:.2f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"profile: {kind:22s} {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%", flush=True)
+        print(f"profile {label}: {kind:22s} {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%", flush=True)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"profile: {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:<4d} {name[:90]}", flush=True)
+        print(f"profile {label}: {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{n:<4d} {name[:90]}",
+              flush=True)
 
 
 def main() -> int:
@@ -310,6 +596,7 @@ def main() -> int:
     card_line = smi.splitlines()[0]
     print(f"card: {card_line}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; python {sys.version.split()[0]}", flush=True)
+    profiling = "--profile" in sys.argv[1:]
 
     _set_phase("build")
     t0 = time.perf_counter()
@@ -320,6 +607,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     _set_phase("kernel vs plain")
     errs = check_kernel(gen)
+    errs.update(check_train_kernels(gen))
 
     _set_phase("roundtrip")
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -328,13 +616,33 @@ def main() -> int:
         raise AssertionError("the decode did not restore the TF32 settings")
     print(f"roundtrip VTP-L 256px B={BATCH} on {card_line}: {rt_s * 1e3:.2f} ms, "
           f"{BATCH / rt_s:.2f} images/s (host clock, median of 5)", flush=True)
-    if "--profile" in sys.argv[1:]:
-        _set_phase("profile")
-        profile_roundtrip(model, images)
+    if profiling:
+        _set_phase("profile roundtrip")
+        profile_run("roundtrip", lambda: model.get_latents_decoded_images(
+            model.get_reconstruction_latents(images)))
     del model, images
+    torch.cuda.empty_cache()
+
+    _set_phase("train step")
+    train_counts, samples, peak_gb, state, batch, step = run_train(gen)
+    step_s = statistics.median(samples)
+    print(f"train step VTP-L CLIP+SSL+rec B={BATCH} (2x256² + 4x96² SSL crops an image) on "
+          f"{card_line}: {step_s * 1e3:.2f} ms a step, {BATCH / step_s:.2f} images/s (host clock, "
+          f"median of {len(samples)}: {', '.join(f'{x * 1e3:.1f}' for x in samples)} ms); "
+          f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+    if profiling:
+        _set_phase("profile train step")
+        profile_run("train step", lambda: step(state, batch))
+    del state, batch, step
+    torch.cuda.empty_cache()
 
     _set_phase("timing")
+    # launches: each arm's count summed over the main paths' runs (one
+    # roundtrip, one train step)
+    for name, n in train_counts.items():
+        counts[name] = counts.get(name, 0) + n
     rows = time_kernels(gen, card_line, errs, counts)
+    rows += time_train_kernels(gen, card_line, errs, counts)
 
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -42,7 +42,10 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
     for mod in ("vtp_tpu_torch.ops.flash_attention", "vtp_tpu_torch.models.vtp_model",
-                "vtp_tpu_torch._build", "vtp_tpu_torch.config"):
+                "vtp_tpu_torch._build", "vtp_tpu_torch.config", "vtp_tpu_torch.ops.fused_ce",
+                "vtp_tpu_torch.models.dino_head", "vtp_tpu_torch.models.text_encoder",
+                "vtp_tpu_torch.train.losses", "vtp_tpu_torch.train.optim",
+                "vtp_tpu_torch.train.state", "vtp_tpu_torch.train.step"):
         assert mod in imported
 
 

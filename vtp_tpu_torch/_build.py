@@ -2,7 +2,9 @@
 
 Every source under ``csrc/`` is compiled for ``sm_90a`` into one shared
 library with a plain C interface (no PyTorch header, no
-``torch.utils.cpp_extension``): a build takes seconds. The library goes
+``torch.utils.cpp_extension``): a build takes seconds. With several
+sources, one ``nvcc -c`` per source runs at once and a last ``nvcc
+-shared`` links the objects. The library goes
 into ``vtp_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so a stale library is never loaded; it is written
 under a temporary name and moved into place, so a build cut short
@@ -25,8 +27,9 @@ from typing import List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -62,6 +65,38 @@ def nvcc_command(out: Path, srcs: List[Path]) -> List[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
 
 
+def _run(cmds: List[List[str]]) -> None:
+    """Run the commands at once; raise with nvcc's output if any fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{err}{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _compile(out: Path, srcs: List[Path]) -> None:
+    if len(srcs) == 1:
+        _run([nvcc_command(out, srcs)])
+        return
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in srcs]
+    try:
+        _run([[nvcc_path(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+              for obj, src in zip(objs, srcs)])
+        _run([[nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            if obj.exists():
+                obj.unlink()
+
+
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists;
     return its path. Raises with nvcc's output if the build fails."""
@@ -72,10 +107,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     try:
-        res = subprocess.run(nvcc_command(tmp, srcs), capture_output=True, text=True,
-                             timeout=BUILD_TIMEOUT_S)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}{res.stdout}")
+        _compile(tmp, srcs)
         os.replace(tmp, lib)
     finally:
         if tmp.exists():

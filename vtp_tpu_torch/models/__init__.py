@@ -1,1 +1,1 @@
-"""nn.Modules of the port: blocks, vision trunk, pixel decoder, VTPModel."""
+"""nn.Modules of the port: blocks, vision trunk, pixel decoder, text tower, DINO head, VTPModel."""

@@ -1,21 +1,25 @@
 """DINOv3-style pre-norm transformer blocks (port of
-``vtp_tpu/models/blocks.py``: ``attention_apply`` :153, ``block_apply``
-:357, ``scan_blocks`` :547).
+``vtp_tpu/models/blocks.py``: ``pack``/``unpack`` :133, ``attention_apply``
+:153, ``block_apply_flat`` :394, ``scan_blocks`` :547, ``remat_wrap`` :502).
 
 Parameter names follow the reference checkpoints (``norm1``,
 ``attn.qkv``, ``attn.proj``, ``mlp.w1``..., ``ls1.gamma``), so a
 released state dict loads by name. The depth loop is a plain loop over
-an ``nn.ModuleList``. Multi-crop packing, drop-path and rematerialisation
-belong to training and are not ported yet.
+an ``nn.ModuleList``. Multi-crop lists are packed once into one
+``(sum B_i*N_i, D)`` matrix for every norm and GEMM; attention runs one
+fused launch per crop. ``remat=True`` recomputes each block in the
+backward (``torch.utils.checkpoint``); the JAX package's other remat
+policies raise. Drop-path is not ported (``train/step.py`` refuses it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vtp_tpu_torch.models.initializers import linear_
 from vtp_tpu_torch.ops.activations import ACT
@@ -24,6 +28,7 @@ from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention
 from vtp_tpu_torch.ops.norms import apply_norm, norm_eps
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
+Shapes = List[Tuple[int, int]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +58,12 @@ class BlockConfig:
 
 
 class Norm(nn.Module):
-    """RMSNorm (weight only) or LayerNorm (weight and bias), fp32 stats."""
+    """RMSNorm (weight only) or LayerNorm (weight and bias), fp32 stats;
+    ``eps`` defaults to the registry's for ``kind``."""
 
-    def __init__(self, dim: int, kind: str):
+    def __init__(self, dim: int, kind: str, eps: Optional[float] = None):
         super().__init__()
-        self.kind, self.eps = kind, norm_eps(kind)
+        self.kind, self.eps = kind, norm_eps(kind) if eps is None else eps
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim)) if kind != "rmsnorm" else None
 
@@ -107,19 +113,29 @@ class Attention(nn.Module):
             bias = bias * keep
         return bias
 
-    def forward(self, x: torch.Tensor, rope: Rope, n_valid: int = 0,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def forward(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
+                n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """flat: the packed (sum B_i*N_i, D) normed tokens of the crops
+        whose (B_i, N_i) are ``shapes``; one qkv GEMM, one fused attention
+        per crop, one out-projection."""
         cfg = self.cfg
-        qkv = linear(x, self.qkv.weight, self.qkv_bias(), compute_dtype)
-        o = fused_qkv_rope_attention(
-            qkv,
-            rope[0] if rope is not None else None,
-            rope[1] if rope is not None else None,
-            cfg.num_heads,
-            q_scale=self.q_norm.weight if cfg.use_qk_norm else None,
-            k_scale=self.k_norm.weight if cfg.use_qk_norm else None,
-            n_valid=n_valid,
-        )
+        qkv_flat = linear(flat, self.qkv.weight, self.qkv_bias(), compute_dtype)
+        outs, off = [], 0
+        for (b, n), rope, n_valid in zip(shapes, ropes, n_valids):
+            qkv = qkv_flat[off:off + b * n].reshape(b, n, 3 * cfg.dim)
+            off += b * n
+            o = fused_qkv_rope_attention(
+                qkv,
+                rope[0] if rope is not None else None,
+                rope[1] if rope is not None else None,
+                cfg.num_heads,
+                q_scale=self.q_norm.weight if cfg.use_qk_norm else None,
+                k_scale=self.k_norm.weight if cfg.use_qk_norm else None,
+                n_valid=n_valid,
+            )
+            outs.append(o.reshape(b * n, cfg.dim))
+        o = outs[0] if len(outs) == 1 else torch.cat(outs)
         return linear(o, self.proj.weight, self.proj.bias, compute_dtype)
 
 
@@ -166,18 +182,57 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: Rope, n_valid: int = 0,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        a = self.attn(self.norm1(x), rope, n_valid, compute_dtype)
-        x = x + (self.ls1(a) if self.ls1 is not None else a)
-        f = self.mlp(self.norm2(x), compute_dtype)
-        return x + (self.ls2(f) if self.ls2 is not None else f)
+        """One (B, N, D) crop (block_apply)."""
+        B, N, D = x.shape
+        out = self.forward_packed(x.reshape(B * N, D), [(B, N)], [rope], [n_valid or N],
+                                  compute_dtype)
+        return out.reshape(B, N, D)
+
+    def forward_packed(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
+                       n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+        """On the packed tokens of the crops (block_apply_flat)."""
+        a = self.attn(self.norm1(flat), shapes, ropes, n_valids, compute_dtype)
+        flat = flat + (self.ls1(a) if self.ls1 is not None else a)
+        f = self.mlp(self.norm2(flat), compute_dtype)
+        return flat + (self.ls2(f) if self.ls2 is not None else f)
 
 
-def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, rope: Rope, n_valid: int = 0,
-               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The depth loop (scan_blocks, inference arm)."""
+def checkpoint_policy(remat: Union[bool, str, None]) -> bool:
+    """Whether ``remat`` asks for per-block recompute: False/None saves
+    everything, True/"full" saves nothing. The JAX package's selective
+    policies ("dots", "attn", "dots_attn") are not ported."""
+    if remat is False or remat is None:
+        return False
+    if remat is True or remat == "full":
+        return True
+    raise NotImplementedError(f"remat policy {remat!r} is not ported (use False or True)")
+
+
+def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequence[Rope],
+               n_valids: Optional[Sequence[int]] = None,
+               compute_dtype: Optional[torch.dtype] = None,
+               remat: Union[bool, str] = False) -> List[torch.Tensor]:
+    """The depth loop over a list of (B_i, N_i, D) crops (scan_blocks,
+    without drop-path): packed once, unpacked at the end. ``n_valids``
+    masks trailing key columns per crop (default: all valid)."""
+    shapes = [(x.shape[0], x.shape[1]) for x in xs]
+    n_valids = list(n_valids) if n_valids is not None else [n for _, n in shapes]
+    ropes = list(ropes)
+    d = xs[0].shape[-1]
+    flat = torch.cat([x.reshape(-1, d) for x in xs]) if len(xs) > 1 else xs[0].reshape(-1, d)
+    use_ckpt = checkpoint_policy(remat) and torch.is_grad_enabled()
     for blk in blocks:
-        x = blk(x, rope, n_valid, compute_dtype)
-    return x
+        if use_ckpt:
+            flat = checkpoint(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
+                              use_reentrant=False)
+        else:
+            flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype)
+    out, off = [], 0
+    for b, n in shapes:
+        out.append(flat[off:off + b * n].reshape(b, n, d))
+        off += b * n
+    return out
 
 
 def reset_block_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:

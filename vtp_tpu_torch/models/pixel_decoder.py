@@ -5,19 +5,21 @@ The decode of the reference's rFID protocol runs in exact fp32: every
 GEMM in full fp32, with TF32 off for cuBLAS and cuDNN while it runs. The
 JAX package's ``precision="high"`` (a bf16x3 split) has no port yet and
 is refused; torch's own "high" (single-pass TF32) is a different, coarser
-mode and is not a stand-in for it.
+mode and is not a stand-in for it. Training decodes with a
+``compute_dtype`` (bf16 GEMMs and attention, fp32 norm statistics), the
+JAX package's ``compute_dtype`` path.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
-from vtp_tpu_torch.models.blocks import BlockConfig, Block, Norm, reset_block_parameters, run_blocks
+from vtp_tpu_torch.models.blocks import Block, BlockConfig, Norm, reset_block_parameters, run_blocks
 from vtp_tpu_torch.models.initializers import linear_
 from vtp_tpu_torch.models.vit import RopeEmbed
 from vtp_tpu_torch.ops.ffn import linear
@@ -95,23 +97,31 @@ class PixelDecoder(nn.Module):
         linear_(self.proj_out, generator)
         self.rope_embed.reset_parameters()
 
-    def forward(self, latents: torch.Tensor, precision: str = "float32") -> torch.Tensor:
-        """(B, C_in, H', W') fp32 latents -> (B, 3, H'*u, W'*u) images."""
+    def forward(self, latents: torch.Tensor, precision: str = "float32", *,
+                compute_dtype: Optional[torch.dtype] = None,
+                remat: Union[bool, str] = False) -> torch.Tensor:
+        """(B, C_in, H', W') latents -> (B, 3, H'*u, W'*u) images: in exact
+        fp32 by default, in ``compute_dtype`` when one is given (training).
+        ``remat=True`` recomputes each block in the backward."""
+        if compute_dtype is not None:
+            return self._forward(latents, compute_dtype, remat)
         if precision != "float32":
             raise NotImplementedError(
                 f"decode precision {precision!r} is not ported; only exact 'float32' is")
         with exact_fp32():
-            return self._forward(latents.float())
+            return self._forward(latents.float(), None, remat)
 
-    def _forward(self, latents: torch.Tensor) -> torch.Tensor:
+    def _forward(self, latents: torch.Tensor, compute_dtype: Optional[torch.dtype],
+                 remat: Union[bool, str]) -> torch.Tensor:
         cfg = self.cfg
         B, C, H, W = latents.shape
         x = latents.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        x = linear(x, self.proj_in.weight.reshape(cfg.embed_dim, C), self.proj_in.bias)
+        x = linear(x, self.proj_in.weight.reshape(cfg.embed_dim, C), self.proj_in.bias, compute_dtype)
         rope = rope_sincos(self.rope_embed.periods, H, W, normalize_coords=cfg.rope_normalize_coords)
-        x = run_blocks(self.blocks, x, rope)
+        (x,) = run_blocks(self.blocks, [x], [rope], None, compute_dtype, remat)
         x = self.norm(x)
         w_out = self.proj_out.weight
-        x = linear(x, w_out.reshape(w_out.shape[0], cfg.embed_dim), self.proj_out.bias)
+        x = linear(x, w_out.reshape(w_out.shape[0], cfg.embed_dim), self.proj_out.bias,
+                   compute_dtype)
         x = x.transpose(1, 2).reshape(B, -1, H, W)
         return pixel_shuffle(x, cfg.upscale_factor)

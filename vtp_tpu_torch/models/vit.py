@@ -4,19 +4,22 @@
 ``vit_forward_features`` :241).
 
 Patchify is a reshape + GEMM and the RoPE tables are built once per
-forward. The JAX package pads tokens to the TPU's sublane tile; the port
-does not, since the CUDA kernel masks keys by bounds.
+forward and crop shape. A list of crops (the SSL multi-crop forward) runs
+through one packed block stack; ``masks`` swap masked patch tokens for
+``mask_token``. The JAX package pads tokens to the TPU's sublane tile;
+the port does not, since the CUDA kernel masks keys by bounds. Drop-path
+and the train-time RoPE coordinate augmentation are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
-from vtp_tpu_torch.models.blocks import BlockConfig, Block, Norm, Rope, reset_block_parameters, run_blocks
+from vtp_tpu_torch.models.blocks import Block, BlockConfig, Norm, Rope, reset_block_parameters, run_blocks
 from vtp_tpu_torch.models.initializers import normal_, patch_embed_uniform_, trunc_normal_
 from vtp_tpu_torch.ops.patchify import patchify
 from vtp_tpu_torch.ops.rope import ROPE_DTYPES, pad_rope_prefix, rope_periods_init, rope_sincos
@@ -121,14 +124,19 @@ class VisionTransformer(nn.Module):
             normal_(self.storage_tokens, 0.02, generator)
         self.rope_embed.reset_parameters()
 
-    def prepare_tokens(self, images: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+    def prepare_tokens(self, images: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                       masks: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-        """Patchify + [cls | storage | patches]. images: (B, C, H, W)."""
+        """Patchify + [cls | storage | patches]. images: (B, C, H, W);
+        masks: optional (B, N) bool, True where a patch is replaced by
+        ``mask_token``."""
         cfg = self.cfg
         B, _, H, W = images.shape
         gh, gw = H // cfg.patch_size, W // cfg.patch_size
         pe = self.patch_embed.proj
         x = patchify(images, pe.weight, pe.bias, patch=cfg.patch_size, compute_dtype=compute_dtype)
+        if masks is not None:
+            x = torch.where(masks[..., None], self.mask_token[None].to(x.dtype), x)
         pieces = [self.cls_token.to(x.dtype).expand(B, 1, cfg.embed_dim)]
         if self.storage_tokens is not None:
             pieces.append(self.storage_tokens.to(x.dtype).expand(B, -1, cfg.embed_dim))
@@ -140,13 +148,19 @@ class VisionTransformer(nn.Module):
                                normalize_coords=self.cfg.rope_normalize_coords)
         return pad_rope_prefix(sin, cos, 1 + self.cfg.n_storage_tokens)
 
-    def final_norms(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(cls_reg_normed, patch_normed), with the untied cls norm when
-        configured (the local-crop cls norm is training-only)."""
+    def final_norms(self, x: torch.Tensor, crop_index: int = 0, training: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cls_reg_normed, patch_normed), with the untied cls norms when
+        configured (the local-crop cls norm applies to crop 1 in training)."""
         cfg = self.cfg
         s = cfg.n_storage_tokens + 1
         if cfg.untie_cls_and_patch_norms or cfg.untie_global_and_local_cls_norm:
-            cls_norm = self.cls_norm if cfg.untie_cls_and_patch_norms else self.norm
+            if cfg.untie_global_and_local_cls_norm and training and crop_index == 1:
+                cls_norm = self.local_cls_norm
+            elif cfg.untie_cls_and_patch_norms:
+                cls_norm = self.cls_norm
+            else:
+                cls_norm = self.norm
             return cls_norm(x[:, :s]), self.norm(x[:, s:])
         xn = self.norm(x)
         return xn[:, :s], xn[:, s:]
@@ -157,16 +171,40 @@ class VisionTransformer(nn.Module):
             t, w = t.to(compute_dtype), w.to(compute_dtype)
         return torch.matmul(t, w.t())
 
-    def forward_features(self, images: torch.Tensor, *, use_bottleneck: bool = True,
-                         compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-        """The reference's forward_features dict: x_norm_clstoken,
-        x_storage_tokens, x_norm_patchtokens, x_prenorm."""
-        x, (gh, gw) = self.prepare_tokens(images, compute_dtype)
-        x = run_blocks(self.blocks, x, self.rope_for(gh, gw), x.shape[1], compute_dtype)
-        cls_reg, patch = self.final_norms(x)
-        out = {"x_norm_clstoken": cls_reg[:, 0], "x_storage_tokens": cls_reg[:, 1:],
-               "x_norm_patchtokens": patch, "x_prenorm": x}
-        if use_bottleneck and self.cfg.has_bottleneck:
-            out["x_norm_clstoken"] = self.apply_bottleneck(out["x_norm_clstoken"], compute_dtype)
-            out["x_norm_patchtokens"] = self.apply_bottleneck(out["x_norm_patchtokens"], compute_dtype)
-        return out
+    def forward_features(
+        self,
+        images: Union[torch.Tensor, Sequence[torch.Tensor]],
+        masks: Union[None, torch.Tensor, Sequence[Optional[torch.Tensor]]] = None,
+        *,
+        use_bottleneck: bool = True,
+        compute_dtype: Optional[torch.dtype] = None,
+        training: bool = False,
+        remat: Union[bool, str] = False,
+    ) -> Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]:
+        """The reference's forward_features dict(s): x_norm_clstoken,
+        x_storage_tokens, x_norm_patchtokens, x_prenorm, masks. A list of
+        crops returns a list. ``training`` selects the local-crop cls norm;
+        ``remat=True`` recomputes each block in the backward."""
+        single = not isinstance(images, (list, tuple))
+        x_list = [images] if single else list(images)
+        if single:
+            masks_list = [masks]
+        else:
+            masks_list = list(masks) if masks is not None else [None] * len(x_list)
+        xs, ropes = [], []
+        for img, m in zip(x_list, masks_list):
+            x, (gh, gw) = self.prepare_tokens(img, compute_dtype, m)
+            xs.append(x)
+            ropes.append(self.rope_for(gh, gw))
+        xs = run_blocks(self.blocks, xs, ropes, None, compute_dtype, remat)
+        outputs = []
+        for i, (x, m) in enumerate(zip(xs, masks_list)):
+            cls_reg, patch = self.final_norms(x, crop_index=i, training=training)
+            out = {"x_norm_clstoken": cls_reg[:, 0], "x_storage_tokens": cls_reg[:, 1:],
+                   "x_norm_patchtokens": patch, "x_prenorm": x, "masks": m}
+            if use_bottleneck and self.cfg.has_bottleneck:
+                out["x_norm_clstoken"] = self.apply_bottleneck(out["x_norm_clstoken"], compute_dtype)
+                out["x_norm_patchtokens"] = self.apply_bottleneck(out["x_norm_patchtokens"],
+                                                                  compute_dtype)
+            outputs.append(out)
+        return outputs[0] if single else outputs

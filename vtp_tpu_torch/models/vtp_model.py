@@ -1,32 +1,57 @@
-"""VTPModel: the reconstruction roundtrip (port of
-``vtp_tpu/models/vtp_model.py:241`` ``get_reconstruction_latents``,
-``:255`` ``get_latents_decoded_images`` and ``:276-300`` ``VTPModel``).
+"""VTPModel: the reconstruction roundtrip and the CLIP towers (port of
+``vtp_tpu/models/vtp_model.py``: ``l2_normalize`` :41, ``init_vtp_params``
+:125, ``get_clip_image_feature`` :185, ``get_clip_text_feature`` :207,
+``get_clip_logits`` :222, ``get_reconstruction_latents`` :241,
+``get_latents_decoded_images`` :255, ``VTPModel`` :276).
 
 The dtype protocol is the reference's rFID protocol: encode in bf16
 (inputs and weights cast at each GEMM, fp32 norm statistics and softmax),
-decode in exact fp32 (``tools/test_reconstruction_hf.py:366-370``). The
-text tower and the CLIP head are not built yet.
+decode in exact fp32 (``tools/test_reconstruction_hf.py:366-370``). With
+``train_clip`` the model also holds ``visual_proj``, the text tower and
+``logit_scale`` (``logit_bias`` for SigLIP configs), under the reference
+checkpoint's names.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from vtp_tpu_torch.config import VTPConfig
+from vtp_tpu_torch.models.initializers import trunc_normal_
 from vtp_tpu_torch.models.pixel_decoder import PixelDecoder, PixelDecoderConfig
+from vtp_tpu_torch.models.text_encoder import TextConfig, TextTransformer
 from vtp_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import patch_tokens_to_4d
 
-# State-dict keys of towers this model does not build; a checkpoint's
-# entries under them are set aside on load.
-UNBUILT_PREFIXES = (
-    "visual_proj.", "token_embedding.", "positional_embedding", "cls_emb",
-    "text_transformer.", "ln_final.", "text_projection", "logit_scale", "logit_bias",
-)
+DEFAULT_LOGIT_SCALE = math.log(1 / 0.07)
+# Checkpoint keys of the text tower, which lives under ``text.`` here
+TEXT_PREFIXES = ("token_embedding.", "positional_embedding", "cls_emb", "text_transformer.",
+                 "ln_final.", "text_projection")
+# Keys of the CLIP towers, set aside on load when the config builds none
+CLIP_PREFIXES = TEXT_PREFIXES + ("visual_proj.", "logit_scale", "logit_bias")
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """torch F.normalize semantics (norm clamped at eps), with a sqrt that
+    stays finite on an exactly-zero row."""
+    sq = (x * x).sum(-1, keepdim=True)
+    return x / torch.clamp(torch.sqrt(torch.clamp(sq, min=eps * eps)), min=eps)
+
+
+def checkpoint_name(name: str) -> str:
+    """The reference checkpoint's key for the port's state-dict key."""
+    return name[len("text."):] if name.startswith("text.") else name
+
+
+def model_name(key: str) -> str:
+    """The port's state-dict key for a reference checkpoint key."""
+    return "text." + key if key.startswith(TEXT_PREFIXES) else key
 
 
 def vit_config_from(cfg: VTPConfig) -> ViTConfig:
@@ -56,6 +81,27 @@ def vit_config_from(cfg: VTPConfig) -> ViTConfig:
     )
 
 
+def text_config_from(cfg: VTPConfig) -> TextConfig:
+    return TextConfig(
+        context_length=cfg.text_context_length,
+        vocab_size=cfg.text_vocab_size,
+        width=cfg.text_embed_dim,
+        heads=cfg.text_num_heads,
+        layers=cfg.text_depth,
+        mlp_ratio=cfg.text_mlp_ratio,
+        ls_init_value=cfg.text_ls_init_value,
+        output_dim=cfg.text_embed_dim,
+        embed_cls=cfg.text_embed_cls,
+        no_causal_mask=cfg.text_no_causal_mask,
+        pad_id=cfg.text_pad_id,
+        pool_type=cfg.text_pool_type,
+        proj_type=cfg.text_proj_type,
+        proj_bias=cfg.text_proj_bias,
+        quick_gelu=cfg.text_quick_gelu,
+        output_tokens=cfg.text_output_tokens,
+    )
+
+
 def decoder_config_from(cfg: VTPConfig) -> PixelDecoderConfig:
     return PixelDecoderConfig(
         in_chans=cfg.vision_feature_bottleneck,
@@ -81,8 +127,9 @@ def decoder_config_from(cfg: VTPConfig) -> PixelDecoderConfig:
 
 
 class VTPModel(nn.Module):
-    """Vision trunk (``trunk.*``) and pixel decoder (``pixel_decoder.*``)
-    under the reference checkpoints' parameter names.
+    """Vision trunk (``trunk.*``), pixel decoder (``pixel_decoder.*``) and,
+    with ``train_clip``, ``visual_proj``, the text tower (``text.*``, the
+    checkpoint's top-level text keys) and ``logit_scale``.
 
     The constructor allocates the parameters on ``device`` without
     initialising them; use :meth:`init` for random weights or
@@ -100,6 +147,16 @@ class VTPModel(nn.Module):
             self.trunk = VisionTransformer(vit_config_from(config))
             self.pixel_decoder = (PixelDecoder(decoder_config_from(config))
                                   if config.train_reconstruction else None)
+            self.visual_proj = self.text = self.logit_scale = self.logit_bias = None
+            if config.train_clip:
+                proj_in = (config.vision_embed_dim if config.vision_bottleneck_ae_only
+                           else config.vision_feature_bottleneck)
+                self.visual_proj = nn.Linear(proj_in, config.text_embed_dim, bias=False)
+                self.text = TextTransformer(text_config_from(config))
+                lshape = (1,) if config.nonscalar_logit_scale else ()
+                self.logit_scale = nn.Parameter(torch.empty(lshape))
+                if config.init_logit_bias is not None:
+                    self.logit_bias = nn.Parameter(torch.empty(lshape))
         self.to_empty(device=device)
 
     @classmethod
@@ -111,6 +168,14 @@ class VTPModel(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         model.trunk.reset_parameters(generator)
+        if model.text is not None:
+            with torch.no_grad():
+                trunc_normal_(model.visual_proj.weight, 0.02, generator)
+                model.text.reset_parameters(generator)
+                scale = config.init_logit_scale
+                model.logit_scale.fill_(DEFAULT_LOGIT_SCALE if scale is None else scale)
+                if model.logit_bias is not None:
+                    model.logit_bias.fill_(config.init_logit_bias)
         if model.pixel_decoder is not None:
             model.pixel_decoder.reset_parameters(generator)
         return model
@@ -123,8 +188,10 @@ class VTPModel(nn.Module):
         does not build are set aside; any other unmatched or missing key,
         or a shape mismatch, raises."""
         own = self.state_dict()
+        unbuilt = CLIP_PREFIXES if self.text is None else ()
         unexpected, loaded, masks = [], set(), {}
-        for name, value in sd.items():
+        for key, value in sd.items():
+            name = model_name(key)
             if name in own:
                 value = np.asarray(value)
                 if tuple(value.shape) != tuple(own[name].shape):
@@ -134,14 +201,62 @@ class VTPModel(nn.Module):
                 loaded.add(name)
             elif name.endswith(".attn.qkv.bias_mask") and name[:-5] in own:
                 masks[name[:-5]] = value  # LinearKMaskedBias: folded into the bias
-            elif not name.startswith(UNBUILT_PREFIXES):
-                unexpected.append(name)
+            elif not key.startswith(unbuilt):
+                unexpected.append(key)
         missing = sorted(set(own) - loaded)
         if unexpected or missing:
             raise KeyError(f"state dict mismatch: unexpected {sorted(unexpected)}, "
                            f"missing {missing}")
         for name, mask in masks.items():
             own[name].mul_(torch.tensor(np.asarray(mask), dtype=torch.float32, device=own[name].device))
+
+    def clip_image_embedding(self, image: torch.Tensor,
+                             compute_dtype: Optional[torch.dtype] = torch.bfloat16,
+                             **trunk_kw) -> torch.Tensor:
+        """The un-normalized CLIP image feature: the cls (or mean patch)
+        feature through ``visual_proj``; ``trunk_kw`` go to the trunk."""
+        cfg = self.config
+        if self.visual_proj is None:
+            raise ValueError("this config has no CLIP towers (train_clip=False)")
+        out = self.trunk.forward_features(image, use_bottleneck=not cfg.vision_bottleneck_ae_only,
+                                          compute_dtype=compute_dtype, **trunk_kw)
+        if cfg.vision_clip_feat == "cls":
+            feat = out["x_norm_clstoken"]
+        elif cfg.vision_clip_feat == "pooled":
+            feat = out["x_norm_patchtokens"].mean(1)
+        else:
+            raise ValueError(f"Invalid vision_clip_feat: {cfg.vision_clip_feat}")
+        return linear(feat, self.visual_proj.weight, None, compute_dtype)
+
+    @torch.no_grad()
+    def get_clip_image_feature(self, image: torch.Tensor, normalize: bool = True,
+                               compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                               ) -> torch.Tensor:
+        """(modeling_vtp.py:244-276)."""
+        feat = self.clip_image_embedding(image, compute_dtype)
+        return l2_normalize(feat) if normalize else feat
+
+    @torch.no_grad()
+    def get_clip_text_feature(self, text: torch.Tensor, normalize: bool = True,
+                              compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                              ) -> torch.Tensor:
+        """(modeling_vtp.py:278-310): the pooled feature only."""
+        if self.text is None:
+            raise ValueError("this config has no CLIP towers (train_clip=False)")
+        out = self.text(text, normalize=normalize, compute_dtype=compute_dtype)
+        return out[0] if isinstance(out, tuple) else out
+
+    @torch.no_grad()
+    def get_clip_logits(self, image: torch.Tensor, text: torch.Tensor,
+                        compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(modeling_vtp.py:312-333): (logits per image, logits per text)."""
+        img = self.get_clip_image_feature(image, True, compute_dtype)
+        txt = self.get_clip_text_feature(text, True, compute_dtype)
+        logits = torch.exp(self.logit_scale) * img.float() @ txt.float().t()
+        if self.logit_bias is not None:
+            logits = logits + self.logit_bias
+        return logits, logits.t()
 
     @torch.no_grad()
     def get_reconstruction_latents(self, image: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,27 @@
-"""Fused qkv-split + qk-RMSNorm + RoPE + attention.
+"""Fused qkv-split + qk-RMSNorm + RoPE + attention, and its backward.
 
 Port of ``vtp_tpu/ops/flash_attention.py``: ``fused_qkv_rope_attention``
-(:398) and its Pallas kernel ``_fused_kernel_call`` (:423), whose
-Hopper counterpart is the hand-written CUDA kernel in
-``csrc/fused_attention.cu``; ``fused_qkv_rope_attention_reference`` is
-the plain PyTorch version, the counterpart of ``_fused_reference_impl``
-(:282).
+(:398), its Pallas kernel ``_fused_kernel_call`` (:423), the custom VJP
+``_fused_with_vjp`` (:338) and the backward kernel
+``_fused_bwd_kernel_call`` (:641). Their Hopper counterparts are the
+hand-written CUDA kernels ``csrc/fused_attention.cu`` and
+``csrc/fused_attention_bwd.cu``; ``fused_qkv_rope_attention_reference``
+(the counterpart of ``_fused_reference_impl``, :282) and
+``fused_qkv_rope_attention_bwd_reference`` are their plain PyTorch
+versions.
 
-The wrapper picks by the tensor's device alone (``ops/dispatch.py``): a
+The wrappers pick by the tensor's device alone (``ops/dispatch.py``): a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
-raises. The kernel has two arms chosen by dtype: bf16 (the encode) and
-exact fp32 (the decode). The TPU kernel's fp32 bf16x3 ("high") arm is
-not ported.
+raises. The forward kernel has two arms chosen by dtype: bf16 (the
+encode and training) and exact fp32 (the decode). The TPU kernel's fp32
+bf16x3 ("high") arm is not ported.
+
+``fused_qkv_rope_attention`` is differentiable through
+``torch.autograd.Function``; its backward picks as ``_fused_with_vjp.bwd``
+does: bf16 without qk-norm runs the backward kernel (its plain version on
+the CPU); fp32 recomputes the plain forward and takes its autograd; bf16
+with qk-norm (the DiT arm) has no kernel yet and raises on the card. The
+RoPE tables get no gradient: the periods are a buffer, not a parameter.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ _ENTRY = {torch.bfloat16: "vtp_fused_qkv_rope_attention_bf16",
 # launch-count names, one per arm
 ARM_NAME = {torch.bfloat16: "fused_qkv_rope_attention_bf16",
             torch.float32: "fused_qkv_rope_attention_fp32"}
+BWD_ENTRY = "vtp_fused_qkv_rope_attention_bwd_bf16"
+BWD_NAME = "fused_qkv_rope_attention_bwd_bf16"
 
 
 def fused_qkv_rope_attention_reference(
@@ -78,10 +90,10 @@ def _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid) -> None:
         raise ValueError(f"n_valid={n_valid} outside [0, {N}]")
 
 
-def _kernel_fn(dtype: torch.dtype):
+def _kernel_fn(entry: str):
     from vtp_tpu_torch import _build
 
-    fn = getattr(_build.load_library(), _ENTRY[dtype])
+    fn = getattr(_build.load_library(), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -107,7 +119,7 @@ def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal) -> t
         k_scale = k_scale.float().contiguous()
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _kernel_fn(qkv.dtype)(
+    rc = _kernel_fn(_ENTRY[qkv.dtype])(
         ptr(qkv), ptr(sin), ptr(cos), ptr(q_scale), ptr(k_scale), ptr(out),
         B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -115,6 +127,158 @@ def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal) -> t
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {rc}")
     count_launch(ARM_NAME[qkv.dtype])
     return out
+
+
+def _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal) -> torch.Tensor:
+    if on_kernel_device(qkv):
+        return _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal)
+    return fused_qkv_rope_attention_reference(qkv, sin, cos, num_heads, q_scale, k_scale,
+                                              n_valid, is_causal)
+
+
+def _rope_adjoint(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Transpose of rotate-half RoPE on (..., d) fp32 values with bf16
+    tables: dx = x*cos + [(x*sin)[d/2:], -(x*sin)[:d/2]]."""
+    z = x * sin
+    z1, z2 = z.chunk(2, dim=-1)
+    return x * cos + torch.cat([z2, -z1], dim=-1)
+
+
+def fused_qkv_rope_attention_bwd_reference(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    sin: Optional[torch.Tensor],
+    cos: Optional[torch.Tensor],
+    num_heads: int,
+    n_valid: int = 0,
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """Plain backward without qk-norm: (B, N, 3*H*d) saved qkv and the
+    (B, N, H*d) output cotangent -> d(qkv), (B, N, 3*H*d).
+
+    Written out as ``_fused_bwd_kernel_call`` computes it, with its
+    rounding points in the input dtype (bf16 on the training path; fp32
+    rounds nowhere): p in fp32; dv = bf16(p)ᵀ g; dp = g vᵀ;
+    delta = rowsum(p ⊙ dp); ds = bf16(p ⊙ (dp − delta) · d^-½);
+    dq̃ = bf16(ds k), dk̃ = bf16(dsᵀ q); then the RoPE adjoint in fp32,
+    rounded once. q and k are re-roped as the forward rounds them."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    d = D // num_heads
+    dt = qkv.dtype
+    q, k, v = qkv.reshape(B, N, 3, num_heads, d).unbind(2)
+    if sin is not None:
+        s = sin[None, :, None, :].to(torch.bfloat16)
+        c = cos[None, :, None, :].to(torch.bfloat16)
+        q = rope_apply(q.to(torch.bfloat16), s, c).to(dt)
+        k = rope_apply(k.to(torch.bfloat16), s, c).to(dt)
+    q, k, v = (t.transpose(1, 2).float() for t in (q, k, v))  # (B, H, N, d)
+    go = g.reshape(B, N, num_heads, d).transpose(1, 2).float()
+    scale = d ** -0.5
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if n_valid and n_valid != N:
+        scores = scores.masked_fill(torch.arange(N, device=qkv.device) >= n_valid, float("-inf"))
+    if is_causal:
+        keep = torch.ones((N, N), dtype=torch.bool, device=qkv.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), go)
+    dp = torch.matmul(go, v.transpose(-1, -2))
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, k).to(dt).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q).to(dt).float()
+    if sin is not None:
+        s = sin[None, None].to(torch.bfloat16).float()
+        c = cos[None, None].to(torch.bfloat16).float()
+        dq, dk = _rope_adjoint(dq, s, c), _rope_adjoint(dk, s, c)
+    parts = [t.transpose(1, 2).reshape(B, N, D) for t in (dq, dk, dv)]
+    return torch.cat(parts, dim=-1).to(dt)
+
+
+def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal) -> torch.Tensor:
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    if qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"the backward kernel takes bf16; got qkv {qkv.dtype}, g {g.dtype}")
+    if D // num_heads != KERNEL_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}; got {D // num_heads}")
+    if tuple(g.shape) != (B, N, D):
+        raise ValueError(f"g must be {(B, N, D)}; got {tuple(g.shape)}")
+    g = g.contiguous()
+    for t in (qkv, g):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("qkv and g must be contiguous and 16-byte aligned")
+    dev = qkv.device
+    if g.device != dev or (sin is not None and (sin.device != dev or cos.device != dev)):
+        raise ValueError("all inputs must be on the device of qkv")
+    if sin is not None:
+        sin = sin.to(torch.bfloat16).contiguous()
+        cos = cos.to(torch.bfloat16).contiguous()
+    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=dev)
+    d_qkv = torch.empty_like(qkv)
+    fn = _kernel_fn(BWD_ENTRY)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = fn(ptr(qkv), ptr(g), ptr(sin), ptr(cos), ptr(stats), ptr(d_qkv),
+            B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused attention backward kernel launch failed: CUDA error {rc}")
+    count_launch(BWD_NAME)
+    return d_qkv
+
+
+def fused_qkv_rope_attention_bwd(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    sin: Optional[torch.Tensor],
+    cos: Optional[torch.Tensor],
+    num_heads: int,
+    n_valid: int = 0,
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """d(qkv) of ``fused_qkv_rope_attention`` without qk-norm, from the
+    saved qkv and the output cotangent g: the backward kernel on a CUDA
+    tensor (bf16 only), the plain version on a CPU tensor."""
+    _check(qkv, sin, cos, num_heads, None, None, n_valid)
+    if on_kernel_device(qkv):
+        return _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal)
+    return fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, num_heads, n_valid, is_causal)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The differentiable fused attention (``_fused_with_vjp``). Its forward
+    (``_forward``) and backward (``fused_qkv_rope_attention_bwd``) pick the
+    kernel or the plain version by device."""
+
+    @staticmethod
+    def forward(ctx, qkv, sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal):
+        ctx.save_for_backward(qkv, sin, cos, q_scale, k_scale)
+        ctx.args = (num_heads, n_valid, is_causal)
+        return _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, sin, cos, q_scale, k_scale = ctx.saved_tensors
+        num_heads, n_valid, is_causal = ctx.args
+        if qkv.dtype == torch.bfloat16 and q_scale is None:
+            d_qkv = fused_qkv_rope_attention_bwd(qkv, g.to(qkv.dtype), sin, cos, num_heads,
+                                                 n_valid, is_causal)
+            return d_qkv, None, None, None, None, None, None, None
+        if qkv.dtype == torch.bfloat16 and on_kernel_device(qkv):
+            raise NotImplementedError(
+                "the qk-norm arm of the attention backward kernel (the DiT path) is not ported")
+        # fp32 (and bf16 qk-norm on the CPU): autograd of the recomputed plain forward
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in (qkv, q_scale, k_scale)]
+            out = fused_qkv_rope_attention_reference(leaves[0], sin, cos, num_heads, leaves[1],
+                                                     leaves[2], n_valid, is_causal)
+            wrt = [t for t in leaves if t is not None]
+            grads = list(torch.autograd.grad(out, wrt, g))
+        d_qkv = grads.pop(0)
+        d_qs, d_ks = (grads[0], grads[1]) if q_scale is not None else (None, None)
+        return d_qkv, None, None, d_qs, d_ks, None, None, None
 
 
 def fused_qkv_rope_attention(
@@ -127,14 +291,12 @@ def fused_qkv_rope_attention(
     n_valid: int = 0,
     is_causal: bool = False,
 ) -> torch.Tensor:
-    """(B, N, 3*H*d) packed [Q|K|V] -> (B, N, H*d).
+    """(B, N, 3*H*d) packed [Q|K|V] -> (B, N, H*d), differentiable.
 
     sin/cos: (N, d) tables with the identity rotation over any prefix,
     or None for no RoPE. q_scale/k_scale: (d,) qk-RMSNorm scales or
     None. n_valid: mask key columns >= n_valid (0 = all valid).
     is_causal: mask key columns > the query row."""
     _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid)
-    if on_kernel_device(qkv):
-        return _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal)
-    return fused_qkv_rope_attention_reference(qkv, sin, cos, num_heads, q_scale, k_scale,
-                                              n_valid, is_causal)
+    return _FusedAttention.apply(qkv, sin, cos, q_scale, k_scale, num_heads, int(n_valid),
+                                 bool(is_causal))

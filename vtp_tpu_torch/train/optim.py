@@ -1,0 +1,93 @@
+"""The training optimizer (port of ``vtp_tpu/train/step.py:160``
+``make_optimizer`` and ``vtp_tpu/train/optim.py:103`` ``adamw``):
+clip by global norm, then AdamW with fp32 moments in optax's update
+order, under a warmup-cosine learning rate.
+
+Per leaf p with gradient g, at step t (the count before this step):
+
+    g  = g if |g|_global < clip else (g / |g|_global) * clip
+    mu = (1 - b1) g + b1 mu ;  nu = (1 - b2) g^2 + b2 nu
+    u  = (mu / (1 - b1^(t+1))) / (sqrt(nu / (1 - b2^(t+1))) + eps)
+    p  = p + lr(t) * -(u + wd p)
+
+Every leaf of the JAX package's parameter tree is a leaf here, RoPE
+``periods`` included: ``optax.adamw`` there has no mask, so the periods
+(zero gradient) are decayed too. The port keeps them as buffers and
+hands them to this optimizer as leaves so they are treated alike; in
+bf16 the decay step (lr*wd <= 4e-5 relative) is below half an ulp and
+leaves them unchanged, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def warmup_cosine_lr(count: int, peak: float, warmup_steps: int, total_steps: int) -> float:
+    """``optax.warmup_cosine_decay_schedule(0, peak, warmup, max(total, warmup+1), 0)``
+    with warmup = min(warmup_steps, max(total_steps - 1, 0)), in fp32."""
+    warmup = min(warmup_steps, max(total_steps - 1, 0))
+    decay_steps = max(total_steps, warmup + 1)
+    f = np.float32
+    if warmup > 0 and count < warmup:
+        frac = f(1) - f(count) / f(warmup)
+        return float(f(0 - peak) * frac + f(peak))
+    c = f(min(count - warmup, decay_steps - warmup))
+    cosine = f(0.5) * (f(1) + np.cos(f(math.pi) * c / f(decay_steps - warmup), dtype=f))
+    return float(f(peak) * cosine)
+
+
+class AdamW:
+    """clip_by_global_norm -> AdamW over named leaves, fp32 moments (the
+    moment of a leaf has the leaf's dtype, as ``optax.adamw`` gives it).
+    Each leaf's update is computed in fp32 and rounded to its dtype. Every
+    leaf but the bf16 RoPE periods is fp32; for the periods (zero
+    gradient, zero moments) the update is the decay alone, below half an
+    ulp, so they stay unchanged as in the JAX package."""
+
+    def __init__(self, leaves: Dict[str, torch.Tensor], *, learning_rate: float,
+                 warmup_steps: int, total_steps: int, weight_decay: float, b1: float,
+                 b2: float, grad_clip: float, eps: float = 1e-8,
+                 moment_dtype: Optional[str] = "fp32"):
+        if moment_dtype not in (None, "fp32", "float32"):
+            raise NotImplementedError(f"moment_dtype={moment_dtype!r} is not ported (fp32 only)")
+        self.leaves = leaves
+        self.mu = {n: torch.zeros_like(p) for n, p in leaves.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in leaves.items()}
+        self.count = 0
+        self.lr_args = (learning_rate, warmup_steps, total_steps)
+        self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
+        self.grad_clip = grad_clip
+
+    def lr(self, count: Optional[int] = None) -> float:
+        return warmup_cosine_lr(self.count if count is None else count, *self.lr_args)
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        """One update from gradients by leaf name (None or missing = zero).
+        Returns the global norm of the unclipped gradients."""
+        b1, b2, wd = self.b1, self.b2, self.weight_decay
+        gs = {n: (grads.get(n) if grads.get(n) is not None else torch.zeros_like(p))
+              for n, p in self.leaves.items()}
+        norm = torch.sqrt(sum(g.float().square().sum() for g in gs.values()))
+        keep = norm < self.grad_clip
+        f = np.float32
+        count = self.count + 1
+        bc1, bc2 = float(f(1) - f(b1) ** f(count)), float(f(1) - f(b2) ** f(count))
+        lr = -self.lr()
+        for n, p in self.leaves.items():
+            g = gs[n].float()
+            g = torch.where(keep, g, (g / norm) * self.grad_clip)
+            mu = (1 - b1) * g + b1 * self.mu[n].float()
+            nu = (1 - b2) * g ** 2 + b2 * self.nu[n].float()
+            self.mu[n].copy_(mu)
+            self.nu[n].copy_(nu)
+            pf = p.float()
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.copy_(pf + lr * (u + wd * pf))
+        self.count = count
+        return norm
