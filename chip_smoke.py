@@ -19,11 +19,22 @@
    kernels, counting their launches, and the same step from the same state
    and batch on the plain versions; compares the losses and the grad norm,
    checks that the state moved, then times steps (images/s, peak memory);
-5. times each kernel arm against its plain version, a PyTorch yardstick
+5. runs the DiT-XL/1 train step (``init_dit_state``,
+   ``build_dit_train_step``; B = 32 latents that ``VTPTokenizer.encode_images``
+   makes from seeded random images on the roundtrip's VTP-L model,
+   normalised by their per-channel statistics; remat on) the same way: on
+   the kernels, counted, then from the same state and draws on the plain
+   versions, compared, then timed (samples/s, peak memory). The adaLN-zero
+   leaves are first re-drawn from N(0, 0.02^2), since a fresh DiT predicts
+   0 and passes no gradient to its attention;
+6. samples 8 images with ``sample_images`` (250 euler steps, shift 0.075,
+   cfg 1.0, then the VTP-L decode to uint8), counted and timed, and holds
+   a 4-step sample's latents against the same on the plain versions;
+7. times each kernel arm against its plain version, a PyTorch yardstick
    call where there is one, and its bound, and the roundtrip's images/s;
-6. with --profile, traces one roundtrip and one train step with
-   torch.profiler and prints the device time by kernel and the device's
-   idle share.
+8. with --profile, traces one roundtrip, one train step and one DiT train
+   step with torch.profiler and prints the device time by kernel and the
+   device's idle share.
 
 Prints the card's name and power limit, one JSON line {"kernels": [...]} and,
 as the last line, {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -52,6 +63,11 @@ SOURCE = "vtp_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "vtp_tpu/ops/flash_attention.py:423"
 BWD_SOURCE = "vtp_tpu_torch/csrc/fused_attention_bwd.cu"
 BWD_REPLACES = "vtp_tpu/ops/flash_attention.py:641"
+DIT_BATCH = 32     # DiT-XL/1 train microbatch (the TPU bench's)
+SAMPLE_BATCH = 8   # images sampled
+SAMPLE_STEPS = 250
+# The DiT-XL/1 attention (B, N, H, rope grid): 16x16 latents, patch 1, 18 heads of 64
+DIT_ATTENTION = (DIT_BATCH, 256, 18, 16)
 CE_SOURCE = "vtp_tpu_torch/csrc/fused_ce.cu"
 CE_REPLACES = {"fwd": "vtp_tpu/ops/fused_ce.py:148", "bwd": "vtp_tpu/ops/fused_ce.py:200"}
 # The train step's attention call sites (name, B, N, H, rope grid, prefix, causal) at
@@ -113,17 +129,19 @@ def _plain_kernels():
     from vtp_tpu_torch.ops import flash_attention as fa
     from vtp_tpu_torch.ops import fused_ce
 
-    saved = (fa._forward, fa.fused_qkv_rope_attention_bwd, fused_ce.fused_ce_fwd,
+    saved = (fa._forward, fa.fused_qkv_rope_attention_bwd,
+             fa.fused_qkv_rope_attention_qk_norm_bwd, fused_ce.fused_ce_fwd,
              fused_ce.fused_ce_bwd)
     fa._forward = fa.fused_qkv_rope_attention_reference
     fa.fused_qkv_rope_attention_bwd = fa.fused_qkv_rope_attention_bwd_reference
+    fa.fused_qkv_rope_attention_qk_norm_bwd = fa.fused_qkv_rope_attention_qk_norm_bwd_reference
     fused_ce.fused_ce_fwd = fused_ce.fused_ce_fwd_reference
     fused_ce.fused_ce_bwd = fused_ce.fused_ce_bwd_reference
     try:
         yield
     finally:
-        (fa._forward, fa.fused_qkv_rope_attention_bwd, fused_ce.fused_ce_fwd,
-         fused_ce.fused_ce_bwd) = saved
+        (fa._forward, fa.fused_qkv_rope_attention_bwd, fa.fused_qkv_rope_attention_qk_norm_bwd,
+         fused_ce.fused_ce_fwd, fused_ce.fused_ce_bwd) = saved
 
 
 def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False):
@@ -315,6 +333,65 @@ def check_train_kernels(gen):
     return errs
 
 
+def check_dit_kernels(gen):
+    """Phase 2, DiT kernels: the forward with qk-norm at DiT-XL/1's shape, and
+    the backward's qk-norm arm there and on flag cases (d(qkv) within 1e-2
+    of max|ref| as the other arms; dw_q and dw_k within 1e-2 relative: fp32
+    sums of the same terms in another order). Returns the error of each at
+    the DiT shape."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import (
+        fused_qkv_rope_attention,
+        fused_qkv_rope_attention_qk_norm_bwd,
+        fused_qkv_rope_attention_qk_norm_bwd_reference,
+        fused_qkv_rope_attention_reference,
+    )
+
+    B, N, H, grid = DIT_ATTENTION
+    qkv, (sin, cos), (qs, ks) = _attention_inputs(gen, B, N, H, torch.bfloat16, grid, 0, True)
+    got = fused_qkv_rope_attention(qkv, sin, cos, H, qs, ks)
+    torch.cuda.synchronize()
+    want = fused_qkv_rope_attention_reference(qkv, sin, cos, H, qs, ks)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
+    print(f"kernel dit_xl_forward qk_norm bf16 B={B} N={N} H={H}: max abs err {err:.3e} "
+          f"(max|ref| {scale:.3e}; limit 1e-2 rel) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("fused attention with qk-norm disagrees with its plain version")
+    errs = {}
+    # name, B, N, H, rope grid (0 = none), prefix, causal, n_valid
+    cases = [("dit_xl", B, N, H, grid, 0, False, 0),
+             ("no_rope", 2, 197, 4, 0, 0, False, 0),
+             ("n_valid", 2, 197, 4, 14, 1, False, 190),
+             ("causal", 2, 197, 4, 0, 0, True, 0),
+             ("causal_n_valid_rope", 3, 197, 4, 14, 1, True, 150)]
+    for name, B, N, H, grid, prefix, causal, n_valid in cases:
+        qkv, (sin, cos), (qs, ks) = _attention_inputs(gen, B, N, H, torch.bfloat16, grid, prefix,
+                                                      True)
+        g = torch.randn((B, N, H * 64), generator=gen, device="cuda").bfloat16()
+        got = fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, H, n_valid, causal)
+        torch.cuda.synchronize()
+        want = fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, H,
+                                                              n_valid, causal)
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        scale = want[0].float().abs().max().item()
+        dw_err = max((a - b).abs().max().item() / b.abs().max().item()
+                     for a, b in zip(got[1:], want[1:]))
+        ok = (err <= 1e-2 * scale and dw_err <= 1e-2
+              and all(torch.isfinite(t).all().item() for t in got))
+        print(f"kernel attention_bwd_qk_norm {name:20s} B={B} N={N} H={H} causal={causal} "
+              f"n_valid={n_valid}: d(qkv) max abs err {err:.3e} (max|ref| {scale:.3e}; limit "
+              f"1e-2 rel), dw max rel err {dw_err:.3e} (limit 1e-2) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"attention backward qk-norm {name} disagrees with its plain version")
+        if name == "dit_xl":
+            errs["attention_bwd_qk_norm"] = err
+    return errs
+
+
 def _train_batch(gen, cfg):
     """B images, each a CLIP pair (the image and 77 random token ids), a
     reconstruction target (the same image, as bench.py) and its SSL crops."""
@@ -417,6 +494,166 @@ def run_train(gen):
     return counts, samples, peak_gb, state, batch, step
 
 
+def dit_latents(gen, model):
+    """DIT_BATCH latents from ``VTPTokenizer.encode_images`` of seeded random
+    images on the VTP-L model, normalised by their per-channel statistics,
+    and those statistics (mean, std), each (1, C, 1, 1)."""
+    import torch
+
+    from vtp_tpu_torch.generation import VTPTokenizer
+
+    tokenizer = VTPTokenizer(model, img_size=model.config.image_size)
+    size = model.config.image_size
+    images = torch.randn((DIT_BATCH, 3, size, size), generator=gen, device="cuda")
+    z = tokenizer.encode_images(images)
+    mean = z.mean((0, 2, 3), keepdim=True)
+    std = z.std((0, 2, 3), keepdim=True)
+    return tokenizer, (z - mean) / std, (mean, std)
+
+
+def expected_dit_launches(cfg):
+    """Launches per DiT train step at remat on: the forward (bf16 arm, qk-norm)
+    once a block in the forward and again in the backward's recompute, and
+    the backward's qk-norm arm once a block."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, NORM_BWD_NAME
+
+    return {ARM_NAME[torch.bfloat16]: 2 * cfg.depth, NORM_BWD_NAME: cfg.depth}
+
+
+def run_dit_train(gen, latents):
+    """Phase 5: the DiT-XL/1 train step, counted, against the same step on the
+    plain versions, then timed."""
+    import torch
+
+    from vtp_tpu_torch.dit.model import make_dit_config
+    from vtp_tpu_torch.dit.train import DiTTrainConfig, build_dit_train_step, init_dit_state
+    from vtp_tpu_torch.models.initializers import normal_
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+
+    cfg = make_dit_config("DiT-XL/1")
+    # DiTTrainConfig defaults (bf16 compute, remat on, accum_steps 1, lr 2e-4
+    # constant, EMA 0.9999) with 1000 total steps
+    tcfg = DiTTrainConfig(total_steps=1000)
+    state = init_dit_state(cfg, tcfg, gen, device="cuda")
+    model = state.model
+    with torch.no_grad():
+        for lin in [b.ada for b in model.blocks] + [model.final.ada, model.final.proj]:
+            normal_(lin.weight, 0.02, gen)
+            normal_(lin.bias, 0.02, gen)
+        state.ema.load_state_dict(model.state_dict())
+    print("dit: adaLN-zero leaves (every block's ada, final.ada, final.proj) re-drawn from "
+          "N(0, 0.02^2): a fresh DiT predicts 0 and passes its attention no gradient", flush=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    labels = torch.randint(0, cfg.num_classes, (DIT_BATCH,), generator=gen, device="cuda")
+    draws = {"drop": torch.rand(DIT_BATCH, generator=gen, device="cuda") < tcfg.class_dropout_prob,
+             "t": torch.sigmoid(tcfg.lognorm_mu + tcfg.lognorm_sigma
+                                * torch.randn(DIT_BATCH, generator=gen, device="cuda")),
+             "x0": torch.randn(latents.shape, generator=gen, device="cuda")}
+    step = build_dit_train_step(cfg, tcfg)
+    plain_state = copy.deepcopy(state)
+    qkv_w = model.blocks[0].attn.qkv.weight.detach().clone()
+    ema_w = state.ema.blocks[0].attn.qkv.weight.detach().clone()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, latents, labels, gen, draws)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expected_dit_launches(cfg)
+    print(f"dit train step ({n_params / 1e6:.1f} M parameters): first call {first_s:.3f} s; "
+          f"kernel launches per step {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"DiT train step launches {counts}, expected {want}")
+
+    with _plain_kernels():
+        plain_state, plain = step(plain_state, latents, labels, gen, draws)
+    torch.cuda.synchronize()
+    del plain_state
+    torch.cuda.empty_cache()
+    for name in metrics:
+        got, ref = metrics[name].item(), plain[name].item()
+        limit = 2e-2 if name == "grad_norm" else 5e-3
+        rel = abs(got - ref) / abs(ref)
+        ok = rel <= limit and math.isfinite(got)
+        print(f"dit train {name:14s} kernels {got:.6f} plain {ref:.6f} rel diff {rel:.3e} "
+              f"(limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"DiT train step {name} disagrees with the plain-version step")
+    moved = {"params": not torch.equal(qkv_w, model.blocks[0].attn.qkv.weight),
+             "ema": not torch.equal(ema_w, state.ema.blocks[0].attn.qkv.weight)}
+    print(f"dit train state moved: {moved}", flush=True)
+    if not all(moved.values()):
+        raise AssertionError(f"the DiT train step left part of the state unchanged: {moved}")
+
+    torch.cuda.reset_peak_memory_stats()
+    samples = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, latents, labels, gen, draws)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v.item()) for v in metrics.values()):
+        raise AssertionError(f"non-finite DiT train metrics {metrics}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return counts, samples, peak_gb, state, labels, draws, step
+
+
+def run_sampling(gen, state, tokenizer, stats):
+    """Phase 6: sample_images at 250 euler steps (shift 0.075, cfg 1.0) with
+    the EMA weights for SAMPLE_BATCH labels, decoded by the VTP-L tokenizer;
+    counted and timed. Then a 4-step sample from the same noise on the
+    kernels and on the plain versions."""
+    import torch
+
+    from vtp_tpu_torch.dit.sample import make_sampler, sample_images
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+
+    cfg = state.ema.config
+    labels = torch.arange(SAMPLE_BATCH, device="cuda") * (cfg.num_classes // SAMPLE_BATCH)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    images = sample_images(state.ema, tokenizer, labels, gen, latent_stats=stats,
+                           num_steps=SAMPLE_STEPS, timestep_shift=0.075, cfg_scale=1.0)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {ARM_NAME[torch.bfloat16]: SAMPLE_STEPS * cfg.depth,
+            ARM_NAME[torch.float32]: tokenizer.config.decoder_depth}
+    print(f"sampling: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"sampling launches {counts}, expected {want}")
+    size = tokenizer.img_size
+    if (tuple(images.shape) != (SAMPLE_BATCH, size, size, 3) or images.dtype != torch.uint8
+            or images.device.type != "cuda"):
+        raise AssertionError(f"images {tuple(images.shape)} {images.dtype} {images.device}")
+    spread = images.float().std().item()
+    print(f"sampling: uint8 images {tuple(images.shape)}, pixel std {spread:.2f}", flush=True)
+    if not spread > 0:
+        raise AssertionError("the sampled images are constant")
+
+    shape = (SAMPLE_BATCH, cfg.in_channels, cfg.input_size, cfg.input_size)
+    noise = torch.randn(shape, generator=gen, device="cuda")
+    short = make_sampler(cfg, num_steps=4)
+    z = short(state.ema, labels, noise=noise)
+    with _plain_kernels():
+        z_ref = short(state.ema, labels, noise=noise)
+    torch.cuda.synchronize()
+    err = ((z - z_ref).abs().max() / z_ref.abs().max()).item()
+    ok = err <= 5e-2 and torch.isfinite(z).all().item()
+    print(f"sampling 4 steps vs plain versions: latents max err {err:.3e} of max|ref| "
+          f"(limit 5e-2) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the sampler's latents disagree with the plain-version run")
+    return counts, sample_s
+
+
 def time_train_kernels(gen, card, errs, counts):
     """Phase 5, training kernels: the attention backward at each call site
     (the JSON row at the trunk's global crops) against its plain version and
@@ -498,6 +735,70 @@ def time_train_kernels(gen, card, errs, counts):
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
                 })
     return rows
+
+
+def time_dit_kernels(gen, card, errs, counts):
+    """Phase 7, DiT kernels at DiT-XL/1's attention shape: the forward with
+    qk-norm (printed; its JSON row is the bf16 arm's at the roundtrip's
+    shape) and the backward's qk-norm arm (the JSON row) against their
+    plain versions and SDPA on split, pre-normed, pre-roped q/k/v (forward,
+    and forward+backward for the backward). SDPA leaves out the norm and
+    its adjoint."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtp_tpu_torch.ops.flash_attention import (
+        NORM_BWD_NAME,
+        fused_qkv_rope_attention,
+        fused_qkv_rope_attention_qk_norm_bwd,
+        fused_qkv_rope_attention_qk_norm_bwd_reference,
+        fused_qkv_rope_attention_reference,
+    )
+    from vtp_tpu_torch.ops.norms import rms_norm
+    from vtp_tpu_torch.ops.rope import rope_apply
+
+    bw, bf16_peak, _ = next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+    B, N, H, grid = DIT_ATTENTION
+    qkv, (sin, cos), (qs, ks) = _attention_inputs(gen, B, N, H, torch.bfloat16, grid, 0, True)
+    g = torch.randn((B, N, H * 64), generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.reshape(B, N, 3, H, 64).unbind(2)
+    s, c = sin[None, :, None, :], cos[None, :, None, :]
+    q = rope_apply(rms_norm(q, qs).bfloat16(), s, c)
+    k = rope_apply(rms_norm(k, ks).bfloat16(), s, c)
+    q, k, v = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    gt = g.reshape(B, N, H, 64).transpose(1, 2).contiguous()
+
+    def lib_bwd():
+        out = F.scaled_dot_product_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), gt)
+
+    fwd = (_time_ms(lambda: fused_qkv_rope_attention(qkv, sin, cos, H, qs, ks)),
+           _time_ms(lambda: fused_qkv_rope_attention_reference(qkv, sin, cos, H, qs, ks)),
+           _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+    D = H * 64
+    fwd_bytes, fwd_flops = B * N * 4 * D * 2, 4 * B * H * N * N * 64
+    print(f"timing fused_qkv_rope_attention_bf16 qk_norm DiT-XL/1 B={B} N={N} H={H} on {card}: "
+          f"kernel {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, sdpa {fwd[2]:.4f} ms (no norm), bound "
+          f"{max(fwd_bytes / bw, fwd_flops / bf16_peak) * 1e3:.4f} ms", flush=True)
+    ms = _time_ms(lambda: fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, H))
+    plain_ms = _time_ms(
+        lambda: fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, H))
+    lib_ms = _time_ms(lib_bwd)
+    # qkv and g read once, d(qkv) written once (the scales and the dw rows are
+    # under 0.2% of it); scores recomputed, dv, dp, dq, dk
+    nbytes = 7 * B * N * D * 2
+    flops = 10 * B * H * N * N * 64
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    print(f"timing attention_bwd_qk_norm DiT-XL/1 B={B} N={N} H={H} on {card}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms (no norm), bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+          flush=True)
+    return [{
+        "name": NORM_BWD_NAME, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+        "launches": counts.get(NORM_BWD_NAME, 0), "max_abs_err": errs["attention_bwd_qk_norm"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+    }]
 
 
 def time_kernels(gen, card, errs, counts):
@@ -608,6 +909,7 @@ def main() -> int:
     _set_phase("kernel vs plain")
     errs = check_kernel(gen)
     errs.update(check_train_kernels(gen))
+    errs.update(check_dit_kernels(gen))
 
     _set_phase("roundtrip")
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -620,7 +922,12 @@ def main() -> int:
         _set_phase("profile roundtrip")
         profile_run("roundtrip", lambda: model.get_latents_decoded_images(
             model.get_reconstruction_latents(images)))
-    del model, images
+    del images
+    _set_phase("dit latents")
+    tokenizer, latents, latent_stats = dit_latents(gen, model)
+    print(f"dit latents: {tuple(latents.shape)} from VTPTokenizer.encode_images on VTP-L",
+          flush=True)
+    del model
     torch.cuda.empty_cache()
 
     _set_phase("train step")
@@ -636,13 +943,37 @@ def main() -> int:
     del state, batch, step
     torch.cuda.empty_cache()
 
+    _set_phase("dit train step")
+    dit_counts, samples, peak_gb, state, labels, draws, step = run_dit_train(gen, latents)
+    step_s = statistics.median(samples)
+    print(f"dit train step DiT-XL/1 B={DIT_BATCH} (16x16x64 latents, bf16, remat on) on "
+          f"{card_line}: {step_s * 1e3:.2f} ms a step, {DIT_BATCH / step_s:.2f} samples/s (host "
+          f"clock, median of {len(samples)}: {', '.join(f'{x * 1e3:.1f}' for x in samples)} ms); "
+          f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+    if profiling:
+        _set_phase("profile dit train step")
+        profile_run("dit train step", lambda: step(state, latents, labels, gen, draws))
+    del step, draws
+    torch.cuda.empty_cache()
+
+    _set_phase("sampling")
+    sample_counts, sample_s = run_sampling(gen, state, tokenizer, latent_stats)
+    print(f"sampling DiT-XL/1 {SAMPLE_BATCH} images, {SAMPLE_STEPS} euler steps, cfg 1.0, VTP-L "
+          f"decode on {card_line}: {sample_s:.3f} s, {SAMPLE_BATCH / sample_s:.3f} images/s, "
+          f"{sample_s / SAMPLE_STEPS * 1e3:.2f} ms an euler step with the decode spread over them "
+          f"(host clock, one run)", flush=True)
+    del state, tokenizer
+    torch.cuda.empty_cache()
+
     _set_phase("timing")
     # launches: each arm's count summed over the main paths' runs (one
-    # roundtrip, one train step)
-    for name, n in train_counts.items():
-        counts[name] = counts.get(name, 0) + n
+    # roundtrip, one train step, one DiT train step, one 250-step sample)
+    for run in (train_counts, dit_counts, sample_counts):
+        for name, n in run.items():
+            counts[name] = counts.get(name, 0) + n
     rows = time_kernels(gen, card_line, errs, counts)
     rows += time_train_kernels(gen, card_line, errs, counts)
+    rows += time_dit_kernels(gen, card_line, errs, counts)
 
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": rows}), flush=True)

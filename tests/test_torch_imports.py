@@ -45,7 +45,10 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch._build", "vtp_tpu_torch.config", "vtp_tpu_torch.ops.fused_ce",
                 "vtp_tpu_torch.models.dino_head", "vtp_tpu_torch.models.text_encoder",
                 "vtp_tpu_torch.train.losses", "vtp_tpu_torch.train.optim",
-                "vtp_tpu_torch.train.state", "vtp_tpu_torch.train.step"):
+                "vtp_tpu_torch.train.state", "vtp_tpu_torch.train.step",
+                "vtp_tpu_torch.dit", "vtp_tpu_torch.dit.model", "vtp_tpu_torch.dit.transport",
+                "vtp_tpu_torch.dit.train", "vtp_tpu_torch.dit.sample",
+                "vtp_tpu_torch.generation", "vtp_tpu_torch.generation.vtp_tokenizer"):
         assert mod in imported
 
 

@@ -136,8 +136,10 @@ def test_attention_bwd_plain_matches_torch_autograd(dtype, case):
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 def test_differentiable_attention_matches_plain_gradients(dtype, qk_norm):
     """Gradients through the autograd.Function (the backward's plain version
-    for bf16, the recompute for fp32 and for bf16 qk-norm) against torch
-    autograd of the plain forward: bit-equal where the Function recomputes."""
+    for bf16, its qk-norm arm's with qk-norm; the recompute for fp32)
+    against torch autograd of the plain forward: bit-equal where the
+    Function recomputes, the bf16 gate where it runs the written-out
+    backward."""
     t, _, n_valid, causal = _bwd_inputs(dtype, "n_valid", seed=3)
     rng = np.random.default_rng(4)
     scales = [None, None]
@@ -153,7 +155,7 @@ def test_differentiable_attention_matches_plain_gradients(dtype, qk_norm):
         out.backward(t["g"])
         grads.append([x.grad for x in leaves])
     for got, want in zip(*grads):
-        if dtype == "fp32" or qk_norm:
+        if dtype == "fp32":
             assert torch.equal(got, want)
         else:
             _check(got, want, "bf16")

@@ -2,9 +2,11 @@
 
 Imports torch, numpy and the standard library only. It carries the VTP
 reconstruction roundtrip (bf16 encode, exact fp32 decode), the CLIP
-towers and the CLIP+SSL+rec train step (``vtp_tpu_torch.train.step``) on
-hand-written CUDA kernels (``csrc/``): the fused qkv + RoPE attention, its
-backward and the fused DINO/iBOT cross-entropy. Entry points run on
+towers, the CLIP+SSL+rec train step (``vtp_tpu_torch.train.step``) and the
+DiT generation path (``vtp_tpu_torch.dit``, ``vtp_tpu_torch.generation``)
+on hand-written CUDA kernels (``csrc/``): the fused qkv + qk-norm + RoPE
+attention, its backward with and without the qk-norm arm, and the fused
+DINO/iBOT cross-entropy. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``, where every kernel's
 plain PyTorch version runs instead.
 """

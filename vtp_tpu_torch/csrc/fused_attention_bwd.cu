@@ -1,15 +1,19 @@
-// Backward of the fused qkv-split + RoPE + softmax attention for Hopper
-// (sm_90a), bf16, head dim 64.
+// Backward of the fused qkv-split + qk-RMSNorm + RoPE + softmax attention for
+// Hopper (sm_90a), bf16, head dim 64.
 //
 // Replaces the TPU kernel vtp_tpu/ops/flash_attention.py::_fused_bwd_kernel_call
 // (pallas_call at :914), entered through the custom VJP _fused_with_vjp.bwd
-// (:351). Its qk-norm arm (the DiT training path) is not ported. The plain
-// PyTorch version is
-// vtp_tpu_torch/ops/flash_attention.py::fused_qkv_rope_attention_bwd_reference.
+// (:351), in both of its arms: without qk-norm (the VTP trunk, decoder and
+// text tower) and with qk-norm (the DiT training path). The plain PyTorch
+// versions are vtp_tpu_torch/ops/flash_attention.py::
+// fused_qkv_rope_attention_bwd_reference and
+// fused_qkv_rope_attention_qk_norm_bwd_reference.
 //
 // What it computes, per (batch b, head h), from the saved packed qkv
 // (B, N, 3*H*64) and the output cotangent g (B, N, H*64):
-//   q, k  = RoPE(q), RoPE(k) recomputed as the forward rounds them;
+//   q, k  = with qk-norm, bf16(bf16(x r) w) with r = rsqrt(mean(x^2) + 1e-5)
+//           and the (64,) fp32 scales w, as the forward rounds them; then
+//           RoPE(q), RoPE(k) recomputed as the forward rounds them;
 //   p     = softmax(q.k * 64^-1/2) in fp32 (keys >= n_valid and, if causal,
 //           keys past the query row masked);
 //   dv    = bf16(p) ^T g                          (fp32 sums, bf16 out)
@@ -19,8 +23,12 @@
 //   dq,dk = the RoPE adjoint of dq~, dk~: dx[j] = dx~[j] cos[j] + dx~[j+32]
 //           sin[j+32] for j < 32 and dx~[j] cos[j] - dx~[j-32] sin[j-32]
 //           above, in fp32, rounded once;
+//   with qk-norm, the RMSNorm adjoint of each row, in fp32 from the rounded
+//   dsc = dq (or dk): dn = dsc w, dx = r dn - x r^3 mean(dn x), rounded once,
+//   and the scales' gradient dw = sum over rows of dsc (x r);
 // and writes d(qkv) in the packed (B, N, 3*H*64) layout. These are the
-// rounding points of the TPU kernel.
+// rounding points of the TPU kernel, whose block-diagonal mean dot also
+// rounds the operands of mean(dn x) to bf16: here that mean is fp32.
 //
 // Design: two passes, deterministic, no atomics.
 //   dq pass, one block per (query tile of 64, head, batch row): the Q and dO
@@ -34,14 +42,24 @@
 //     16 columns each); query tiles stream through with their saved row
 //     statistics, and each query row adds its p and ds terms to the key's
 //     dk and dv.
+//   qk-norm: Q and K rows are normalised and scaled on load, with r a
+//     four-lane shuffle, as in the forward. In each pass's epilogue a row's
+//     four threads reload its raw input, recompute r, and apply the RoPE
+//     adjoint and then the norm adjoint (mean(dn x) is again a four-lane
+//     shuffle). Each block sums its rows' dw terms through shared memory in
+//     a fixed order and writes one fp32 row of 64 into a workspace
+//     (2, B, H, tiles, 64); the wrapper sums that workspace with torch, as
+//     the JAX caller sums the TPU kernel's per-batch dw rows.
 // Keys and rows are masked by bounds, so N needs no padding.
 //
 // Bound on an H100: at the trunk's global-crop shape (B=16, N=257, H=16) the
 // function moves 7*B*N*H*64*2 bytes (qkv and g in, d(qkv) out: 58.9 MB,
 // 17.6 us) and does 10*B*H*N^2*64 FLOP (scores recomputed, dv, dp, dq, dk:
 // 10.8 GFLOP, 10.9 us at the bf16 tensor-core peak), so it is bound by
-// bytes. This first version uses scalar fp32 FMAs from shared memory and
-// recomputes the scores in both passes; tensor cores are later work.
+// bytes; the qk-norm arm at DiT-XL/1's shape (B=32, N=256, H=18) moves
+// 132 MB (39.4 us) and does 24.2 GFLOP (24.4 us), also bound by bytes. This
+// first version uses scalar fp32 FMAs from shared memory and recomputes the
+// scores in both passes; tensor cores are later work.
 
 #include "attention_common.cuh"
 
@@ -74,12 +92,10 @@ __device__ __forceinline__ void tile_dots(const float* __restrict__ sa,
 
 // The accumulator layout of both passes: acc[4i + e] holds head-dim column
 // 4c + 16i + e, so columns j and j+32 (acc[e], acc[8+e] and acc[4+e],
-// acc[12+e]) sit in one thread. Rounds to bf16, applies the RoPE adjoint when
-// tables are given, and stores the 16 columns of one row.
-__device__ void store_grad_row(const float (&acc)[16], const bf16* __restrict__ sin_row,
-                               const bf16* __restrict__ cos_row, bool rope, int c,
-                               bf16* __restrict__ dst) {
-  float x[16];
+// acc[12+e]) sit in one thread. Rounds to bf16 and applies the RoPE adjoint
+// when tables are given, in fp32, into x.
+__device__ void grad_row(const float (&acc)[16], const bf16* __restrict__ sin_row,
+                         const bf16* __restrict__ cos_row, bool rope, int c, float (&x)[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) x[i] = bf16_round(acc[i]);
   if (rope) {
@@ -97,6 +113,10 @@ __device__ void store_grad_row(const float (&acc)[16], const bf16* __restrict__ 
       }
     }
   }
+}
+
+// Stores the 16 columns of one row, in the accumulator layout, rounded to bf16.
+__device__ __forceinline__ void store_row(const float (&x)[16], int c, bf16* __restrict__ dst) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -104,11 +124,85 @@ __device__ void store_grad_row(const float (&acc)[16], const bf16* __restrict__ 
   }
 }
 
+// The qk-RMSNorm adjoint of one row, in the accumulator layout, called by
+// all four threads of the row (it shuffles among them). On entry dx holds
+// the cotangent of the scaled, normed row after the RoPE adjoint; it is
+// rounded to bf16 (dsc), then dx = r dn - x r^3 mean(dn x) with dn = dsc w,
+// and dsc (x r) is added to dw. xrow is the row's raw Q or K input (not read
+// when the row is out of range, which then adds nothing).
+__device__ void norm_adjoint_row(float (&dx)[16], const bf16* __restrict__ xrow, bool in_range,
+                                 const float* __restrict__ w, int c, float (&dw)[16]) {
+  float x[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (in_range) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(xrow + 4 * c + 16 * i);
+      const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 a = __bfloat1622float2(v[0]);
+      const float2 b = __bfloat1622float2(v[1]);
+      x[4 * i] = a.x;
+      x[4 * i + 1] = a.y;
+      x[4 * i + 2] = b.x;
+      x[4 * i + 3] = b.y;
+    } else {
+      x[4 * i] = x[4 * i + 1] = x[4 * i + 2] = x[4 * i + 3] = 0.f;
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) ss += x[j] * x[j];
+  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+  ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+  const float r = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
+  float dn[16], t = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float dsc = in_range ? bf16_round(dx[j]) : 0.f;
+    dn[j] = dsc * w[4 * c + 16 * (j >> 2) + (j & 3)];
+    dw[j] = fmaf(dsc, x[j] * r, dw[j]);
+    t = fmaf(dn[j], x[j], t);
+  }
+  t += __shfl_xor_sync(0xffffffffu, t, 1);
+  t += __shfl_xor_sync(0xffffffffu, t, 2);
+  t *= 1.0f / kHeadDim;
+  const float r3 = r * r * r;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) dx[j] = r * dn[j] - x[j] * r3 * t;
+}
+
+// Sums the block's 64 rows of dw terms (this thread's 16 columns of row r, in
+// the accumulator layout) through the shared tile s_dw, rows in order, and
+// writes the block's row of 64 to dst. Called by every thread of the block
+// after the shared tile is free.
+__device__ void block_dw_row(const float (&dw)[16], float* __restrict__ s_dw, int r, int c,
+                             float* __restrict__ dst) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_dw[r * kStride + 4 * c + 16 * i + e] = dw[4 * i + e];
+  }
+  __syncthreads();
+  if (threadIdx.x < kHeadDim) {
+    float sum = 0.f;
+    for (int row = 0; row < kTile; ++row) sum += s_dw[row * kStride + threadIdx.x];
+    dst[threadIdx.x] = sum;
+  }
+}
+
+// The workspace row of block (tile, h, b) for arm a (0: dw_q, 1: dw_k) in
+// the (2, B, H, tiles, 64) dw workspace.
+__device__ __forceinline__ float* dw_row(float* dws, int a) {
+  const size_t at = ((static_cast<size_t>(a) * gridDim.z + blockIdx.z) * gridDim.y + blockIdx.y) *
+                        gridDim.x + blockIdx.x;
+  return dws + at * kHeadDim;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                         const bf16* __restrict__ sin_t, const bf16* __restrict__ cos_t,
-                        bf16* __restrict__ dqkv, float* __restrict__ stats, int N, int H,
-                        int n_valid, int causal) {
+                        const float* __restrict__ q_scale, const float* __restrict__ k_scale,
+                        bf16* __restrict__ dqkv, float* __restrict__ stats,
+                        float* __restrict__ dws, int N, int H, int n_valid, int causal) {
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);
   float* s_g = s_q + kTile * kStride;
@@ -129,8 +223,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g
   auto sin_row = [&](int n) { return rope ? sin_t + static_cast<size_t>(n) * kHeadDim : nullptr; };
   auto cos_row = [&](int n) { return rope ? cos_t + static_cast<size_t>(n) * kHeadDim : nullptr; };
 
-  load_row<bf16>(base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim, qrow < N,
-                 nullptr, sin_row(qrow), cos_row(qrow), s_q + r * kStride, c);
+  const bf16* q_in = base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim;
+  load_row<bf16>(q_in, qrow < N, q_scale, sin_row(qrow), cos_row(qrow), s_q + r * kStride, c);
   load_row<bf16>(g + (static_cast<size_t>(b) * N + qrow) * D + h * kHeadDim, qrow < N,
                  nullptr, nullptr, nullptr, s_g + r * kStride, c);
   const float* q = s_q + r * kStride;
@@ -144,7 +238,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g
   auto load_kv = [&](int k0) {
     const int n = k0 + r;
     const bf16* row = base + static_cast<size_t>(n) * row_stride + h * kHeadDim;
-    load_row<bf16>(row + D, n < N, nullptr, sin_row(n), cos_row(n), s_k + r * kStride, c);
+    load_row<bf16>(row + D, n < N, k_scale, sin_row(n), cos_row(n), s_k + r * kStride, c);
     load_row<bf16>(row + 2 * D, n < N, nullptr, nullptr, nullptr, s_v + r * kStride, c);
   };
 
@@ -216,9 +310,13 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g
     }
   }
 
+  float dq[16], dw[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dq[i] = dw[i] = 0.f;
+  if (qrow < N) grad_row(acc, sin_row(qrow), cos_row(qrow), rope, c, dq);
+  if (q_scale != nullptr) norm_adjoint_row(dq, q_in, qrow < N, q_scale, c, dw);
   if (qrow < N) {
-    store_grad_row(acc, sin_row(qrow), cos_row(qrow), rope, c,
-                   dqkv + (static_cast<size_t>(b) * N + qrow) * row_stride + h * kHeadDim);
+    store_row(dq, c, dqkv + (static_cast<size_t>(b) * N + qrow) * row_stride + h * kHeadDim);
     if (c == 0) {
       const size_t bhn = static_cast<size_t>(gridDim.z) * H * N;
       const size_t at = (static_cast<size_t>(b) * H + h) * N + qrow;
@@ -227,13 +325,18 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g
       stats[2 * bhn + at] = delta;
     }
   }
+  if (q_scale != nullptr) {
+    __syncthreads();  // the last key tile's ds rows are read no more
+    block_dw_row(dw, s_ds, r, c, dw_row(dws, 0));
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                          const bf16* __restrict__ sin_t, const bf16* __restrict__ cos_t,
-                         const float* __restrict__ stats, bf16* __restrict__ dqkv, int N,
-                         int H, int n_valid, int causal) {
+                         const float* __restrict__ q_scale, const float* __restrict__ k_scale,
+                         const float* __restrict__ stats, bf16* __restrict__ dqkv,
+                         float* __restrict__ dws, int N, int H, int n_valid, int causal) {
   extern __shared__ float4 smem4[];
   float* s_k = reinterpret_cast<float*>(smem4);
   float* s_v = s_k + kTile * kStride;
@@ -258,11 +361,9 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   const size_t bhn = static_cast<size_t>(gridDim.z) * H * N;
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * N;
 
-  {
-    const bf16* row = base + static_cast<size_t>(key) * row_stride + h * kHeadDim;
-    load_row<bf16>(row + D, key < N, nullptr, sin_row(key), cos_row(key), s_k + r * kStride, c);
-    load_row<bf16>(row + 2 * D, key < N, nullptr, nullptr, nullptr, s_v + r * kStride, c);
-  }
+  const bf16* k_in = base + static_cast<size_t>(key) * row_stride + D + h * kHeadDim;
+  load_row<bf16>(k_in, key < N, k_scale, sin_row(key), cos_row(key), s_k + r * kStride, c);
+  load_row<bf16>(k_in + D, key < N, nullptr, nullptr, nullptr, s_v + r * kStride, c);
   __syncthreads();
   // This thread's 16 columns of its key's k and v, in the accumulator layout.
   float kreg[16], vreg[16];
@@ -288,7 +389,7 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
     __syncthreads();
     {
       const bf16* row = base + static_cast<size_t>(n) * row_stride + h * kHeadDim;
-      load_row<bf16>(row, n < N, nullptr, sin_row(n), cos_row(n), s_q + r * kStride, c);
+      load_row<bf16>(row, n < N, q_scale, sin_row(n), cos_row(n), s_q + r * kStride, c);
       load_row<bf16>(g + (static_cast<size_t>(b) * N + n) * D + h * kHeadDim, n < N, nullptr,
                      nullptr, nullptr, s_g + r * kStride, c);
       if (c == 0) {
@@ -341,24 +442,26 @@ attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
     }
   }
 
+  float dkx[16], dw[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dkx[i] = dw[i] = 0.f;
+  if (key < N) grad_row(dk, sin_row(key), cos_row(key), rope, c, dkx);
+  if (k_scale != nullptr) norm_adjoint_row(dkx, k_in, key < N, k_scale, c, dw);
   if (key < N) {
     bf16* row = dqkv + (static_cast<size_t>(b) * N + key) * row_stride + h * kHeadDim;
-    store_grad_row(dk, sin_row(key), cos_row(key), rope, c, row + D);
-    store_grad_row(dv, nullptr, nullptr, false, c, row + 2 * D);
+    store_row(dkx, c, row + D);
+    grad_row(dv, nullptr, nullptr, false, c, dkx);
+    store_row(dkx, c, row + 2 * D);
+  }
+  if (k_scale != nullptr) {
+    __syncthreads();  // the last query tile is read no more
+    block_dw_row(dw, s_q, r, c, dw_row(dws, 1));
   }
 }
 
-}  // namespace
-
-// qkv: (B, N, 3*H*64) bf16 contiguous, the forward's input; g: (B, N, H*64)
-// bf16 contiguous; sin/cos: (N, 64) bf16 or null; stats: (3, B, H, N) fp32
-// scratch; dqkv: (B, N, 3*H*64) bf16, fully written; 1 <= n_valid <= N.
-// Launches the dq pass, then the dk/dv pass, on `stream`. Returns the
-// cudaError_t of the launches.
-extern "C" int vtp_fused_qkv_rope_attention_bwd_bf16(
-    const void* qkv, const void* g, const void* sin_t, const void* cos_t, void* stats,
-    void* dqkv, int B, int N, int H, int n_valid, int causal, int device,
-    cudaStream_t stream) {
+int launch_bwd(const void* qkv, const void* g, const void* sin_t, const void* cos_t,
+               const void* q_scale, const void* k_scale, void* stats, void* dws, void* dqkv,
+               int B, int N, int H, int n_valid, int causal, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -373,12 +476,42 @@ extern "C" int vtp_fused_qkv_rope_attention_bwd_bf16(
   const bf16* go = static_cast<const bf16*>(g);
   const bf16* s = static_cast<const bf16*>(sin_t);
   const bf16* co = static_cast<const bf16*>(cos_t);
+  const float* qs = static_cast<const float*>(q_scale);
+  const float* ks = static_cast<const float*>(k_scale);
   attention_bwd_dq_kernel<<<grid, kThreads, kSmemDq, stream>>>(
-      q, go, s, co, static_cast<bf16*>(dqkv), static_cast<float*>(stats), N, H, n_valid, causal);
+      q, go, s, co, qs, ks, static_cast<bf16*>(dqkv), static_cast<float*>(stats),
+      static_cast<float*>(dws), N, H, n_valid, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, stream>>>(
-      q, go, s, co, static_cast<const float*>(stats), static_cast<bf16*>(dqkv), N, H, n_valid,
-      causal);
+      q, go, s, co, qs, ks, static_cast<const float*>(stats), static_cast<bf16*>(dqkv),
+      static_cast<float*>(dws), N, H, n_valid, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// qkv: (B, N, 3*H*64) bf16 contiguous, the forward's input; g: (B, N, H*64)
+// bf16 contiguous; sin/cos: (N, 64) bf16 or null; stats: (3, B, H, N) fp32
+// scratch; dqkv: (B, N, 3*H*64) bf16, fully written; 1 <= n_valid <= N.
+// Launches the dq pass, then the dk/dv pass, on `stream`. Returns the
+// cudaError_t of the launches.
+extern "C" int vtp_fused_qkv_rope_attention_bwd_bf16(
+    const void* qkv, const void* g, const void* sin_t, const void* cos_t, void* stats,
+    void* dqkv, int B, int N, int H, int n_valid, int causal, int device,
+    cudaStream_t stream) {
+  return launch_bwd(qkv, g, sin_t, cos_t, nullptr, nullptr, stats, nullptr, dqkv, B, N, H,
+                    n_valid, causal, device, stream);
+}
+
+// The qk-norm arm: as above, plus q_scale/k_scale, (64,) fp32, and dws, the
+// (2, B, H, ceil(N/64), 64) fp32 workspace of per-block dw_q (0) and dw_k (1)
+// rows, fully written.
+extern "C" int vtp_fused_qkv_rope_attention_qk_norm_bwd_bf16(
+    const void* qkv, const void* g, const void* sin_t, const void* cos_t, const void* q_scale,
+    const void* k_scale, void* stats, void* dws, void* dqkv, int B, int N, int H, int n_valid,
+    int causal, int device, cudaStream_t stream) {
+  if (q_scale == nullptr || k_scale == nullptr || dws == nullptr) return 1;  // cudaErrorInvalidValue
+  return launch_bwd(qkv, g, sin_t, cos_t, q_scale, k_scale, stats, dws, dqkv, B, N, H, n_valid,
+                    causal, device, stream);
 }

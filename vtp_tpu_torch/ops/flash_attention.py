@@ -18,10 +18,13 @@ bf16x3 ("high") arm is not ported.
 
 ``fused_qkv_rope_attention`` is differentiable through
 ``torch.autograd.Function``; its backward picks as ``_fused_with_vjp.bwd``
-does: bf16 without qk-norm runs the backward kernel (its plain version on
-the CPU); fp32 recomputes the plain forward and takes its autograd; bf16
-with qk-norm (the DiT arm) has no kernel yet and raises on the card. The
-RoPE tables get no gradient: the periods are a buffer, not a parameter.
+does: bf16 runs the backward kernel, with its qk-norm arm when the call
+has qk-norm scales (the DiT training path; the RMSNorm adjoint and the
+scales' gradients), and the plain version of the same arm on the CPU;
+fp32 recomputes the plain forward and takes its autograd. The RoPE tables
+get no gradient: the periods are a buffer, not a parameter. The TPU
+package's VMEM gate on the qk-norm arm (``_fused_bwd_qk_norm_fits``) has
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from vtp_tpu_torch.ops.norms import rms_norm
 from vtp_tpu_torch.ops.rope import rope_apply
 
 KERNEL_HEAD_DIM = 64
+KERNEL_TILE = 64  # rows of a block of the backward kernel (csrc/attention_common.cuh kTile)
 _ENTRY = {torch.bfloat16: "vtp_fused_qkv_rope_attention_bf16",
           torch.float32: "vtp_fused_qkv_rope_attention_f32"}
 # launch-count names, one per arm
@@ -44,6 +48,9 @@ ARM_NAME = {torch.bfloat16: "fused_qkv_rope_attention_bf16",
             torch.float32: "fused_qkv_rope_attention_fp32"}
 BWD_ENTRY = "vtp_fused_qkv_rope_attention_bwd_bf16"
 BWD_NAME = "fused_qkv_rope_attention_bwd_bf16"
+NORM_BWD_ENTRY = "vtp_fused_qkv_rope_attention_qk_norm_bwd_bf16"
+NORM_BWD_NAME = "fused_qkv_rope_attention_qk_norm_bwd_bf16"
+NORM_EPS = 1e-5  # the kernels' qk-RMSNorm epsilon
 
 
 def fused_qkv_rope_attention_reference(
@@ -90,13 +97,15 @@ def _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid) -> None:
         raise ValueError(f"n_valid={n_valid} outside [0, {N}]")
 
 
-def _kernel_fn(entry: str):
+def _kernel_fn(entry: str, n_pointers: int = 6):
+    """The C entry point: ``n_pointers`` pointers, then six ints (B, N, H,
+    n_valid, causal, device) and the stream."""
     from vtp_tpu_torch import _build
 
     fn = getattr(_build.load_library(), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return fn
 
 
@@ -144,6 +153,42 @@ def _rope_adjoint(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torc
     return x * cos + torch.cat([z2, -z1], dim=-1)
 
 
+def _attention_adjoint(q, k, v, g, sin, cos, n_valid, is_causal):
+    """The attention VJP of the bwd kernels on split (B, N, H, d) q, k, v in
+    the input dtype, q and k as the forward hands them to the scores
+    (normed and scaled, not yet roped). Returns dq and dk after the RoPE
+    adjoint, in fp32 (not rounded), and dv in the input dtype, all
+    (B, N, H, d)."""
+    B, N, H, d = q.shape
+    dt = q.dtype
+    if sin is not None:
+        s = sin[None, :, None, :].to(torch.bfloat16)
+        c = cos[None, :, None, :].to(torch.bfloat16)
+        q = rope_apply(q.to(torch.bfloat16), s, c).to(dt)
+        k = rope_apply(k.to(torch.bfloat16), s, c).to(dt)
+    q, k, v = (t.transpose(1, 2).float() for t in (q, k, v))  # (B, H, N, d)
+    go = g.reshape(B, N, H, d).transpose(1, 2).float()
+    scale = d ** -0.5
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if n_valid and n_valid != N:
+        scores = scores.masked_fill(torch.arange(N, device=q.device) >= n_valid, float("-inf"))
+    if is_causal:
+        keep = torch.ones((N, N), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), go)
+    dp = torch.matmul(go, v.transpose(-1, -2))
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, k).to(dt).float()
+    dk = torch.matmul(ds.transpose(-1, -2), q).to(dt).float()
+    if sin is not None:
+        s = sin[None, None].to(torch.bfloat16).float()
+        c = cos[None, None].to(torch.bfloat16).float()
+        dq, dk = _rope_adjoint(dq, s, c), _rope_adjoint(dk, s, c)
+    return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2).to(dt))
+
+
 def fused_qkv_rope_attention_bwd_reference(
     qkv: torch.Tensor,
     g: torch.Tensor,
@@ -164,39 +209,67 @@ def fused_qkv_rope_attention_bwd_reference(
     rounded once. q and k are re-roped as the forward rounds them."""
     B, N, three_d = qkv.shape
     D = three_d // 3
+    q, k, v = qkv.reshape(B, N, 3, num_heads, D // num_heads).unbind(2)
+    dq, dk, dv = _attention_adjoint(q, k, v, g, sin, cos, n_valid, is_causal)
+    return torch.cat([t.reshape(B, N, D).to(qkv.dtype) for t in (dq, dk, dv)], dim=-1)
+
+
+def _rms_norm_adjoint(dsc: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
+                      w: torch.Tensor):
+    """Adjoint of y = (x·r)·w with r = rsqrt(mean_h(x²) + eps), in fp32:
+    dw = Σ_rows dsc ⊙ (x·r) over (B, N, H); dn = dsc·w;
+    dx = r·dn − x·r³·mean_h(dn ⊙ x)."""
+    dw = (dsc * (x * r)).sum((0, 1, 2))
+    dn = dsc * w
+    dx = r * dn - x * (r * r * r) * (dn * x).mean(-1, keepdim=True)
+    return dx, dw
+
+
+def fused_qkv_rope_attention_qk_norm_bwd_reference(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    sin: Optional[torch.Tensor],
+    cos: Optional[torch.Tensor],
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    num_heads: int,
+    n_valid: int = 0,
+    is_causal: bool = False,
+):
+    """Plain backward of the qk-norm arm (the DiT training path): the saved
+    qkv, the output cotangent g and the (d,) fp32 scales -> (d(qkv),
+    dw_q, dw_k), d(qkv) in the input dtype, dw_q and dw_k fp32 (d,) summed
+    over batch, rows and heads.
+
+    Written out as ``_fused_bwd_kernel_call``'s qk-norm arm computes it:
+    r = rsqrt(mean_h(x²) + 1e-5); q = bf16(bf16(x·r)·w) as the forward
+    rounds it (k alike), roped per op; the attention adjoint of the arm
+    without qk-norm, then its RoPE adjoint rounded to the input dtype (dsc);
+    dw = Σ_rows dsc ⊙ (x·r); dn = dsc·w; dx = r·dn − x·r³·mean_h(dn ⊙ x)
+    in fp32, rounded once. The TPU kernel's block-diagonal mean dot rounds
+    its operands to bf16; here, as in the CUDA kernel, the means are fp32."""
+    B, N, three_d = qkv.shape
+    D = three_d // 3
     d = D // num_heads
     dt = qkv.dtype
-    q, k, v = qkv.reshape(B, N, 3, num_heads, d).unbind(2)
-    if sin is not None:
-        s = sin[None, :, None, :].to(torch.bfloat16)
-        c = cos[None, :, None, :].to(torch.bfloat16)
-        q = rope_apply(q.to(torch.bfloat16), s, c).to(dt)
-        k = rope_apply(k.to(torch.bfloat16), s, c).to(dt)
-    q, k, v = (t.transpose(1, 2).float() for t in (q, k, v))  # (B, H, N, d)
-    go = g.reshape(B, N, num_heads, d).transpose(1, 2).float()
-    scale = d ** -0.5
-    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if n_valid and n_valid != N:
-        scores = scores.masked_fill(torch.arange(N, device=qkv.device) >= n_valid, float("-inf"))
-    if is_causal:
-        keep = torch.ones((N, N), dtype=torch.bool, device=qkv.device).tril()
-        scores = scores.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(scores, dim=-1)
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), go)
-    dp = torch.matmul(go, v.transpose(-1, -2))
-    delta = (dp * p).sum(-1, keepdim=True)
-    ds = (p * (dp - delta) * scale).to(dt).float()
-    dq = torch.matmul(ds, k).to(dt).float()
-    dk = torch.matmul(ds.transpose(-1, -2), q).to(dt).float()
-    if sin is not None:
-        s = sin[None, None].to(torch.bfloat16).float()
-        c = cos[None, None].to(torch.bfloat16).float()
-        dq, dk = _rope_adjoint(dq, s, c), _rope_adjoint(dk, s, c)
-    parts = [t.transpose(1, 2).reshape(B, N, D) for t in (dq, dk, dv)]
-    return torch.cat(parts, dim=-1).to(dt)
+    xq, xk, v = qkv.reshape(B, N, 3, num_heads, d).unbind(2)
+    xq, xk = xq.float(), xk.float()
+    rq = torch.rsqrt((xq * xq).mean(-1, keepdim=True) + NORM_EPS)
+    rk = torch.rsqrt((xk * xk).mean(-1, keepdim=True) + NORM_EPS)
+    wq, wk = q_scale.float(), k_scale.float()
+    q = ((xq * rq).to(dt) * wq).to(dt)
+    k = ((xk * rk).to(dt) * wk).to(dt)
+    dq, dk, dv = _attention_adjoint(q, k, v, g, sin, cos, n_valid, is_causal)
+    dxq, dwq = _rms_norm_adjoint(dq.to(dt).float(), xq, rq, wq)
+    dxk, dwk = _rms_norm_adjoint(dk.to(dt).float(), xk, rk, wk)
+    d_qkv = torch.cat([t.reshape(B, N, D).to(dt) for t in (dxq, dxk, dv)], dim=-1)
+    return d_qkv, dwq, dwk
 
 
-def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal) -> torch.Tensor:
+def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal, q_scale=None, k_scale=None):
+    """Launch the backward kernel; with qk-norm scales, its qk-norm arm,
+    which also returns dw_q and dw_k (the sum of the kernel's per-tile dw
+    rows, in a fixed order)."""
     B, N, three_d = qkv.shape
     D = three_d // 3
     if qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
@@ -210,22 +283,36 @@ def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal) -> torch.Tensor
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("qkv and g must be contiguous and 16-byte aligned")
     dev = qkv.device
-    if g.device != dev or (sin is not None and (sin.device != dev or cos.device != dev)):
+    extras = [t for t in (g, sin, cos, q_scale, k_scale) if t is not None]
+    if any(t.device != dev for t in extras):
         raise ValueError("all inputs must be on the device of qkv")
     if sin is not None:
         sin = sin.to(torch.bfloat16).contiguous()
         cos = cos.to(torch.bfloat16).contiguous()
     stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=dev)
     d_qkv = torch.empty_like(qkv)
-    fn = _kernel_fn(BWD_ENTRY)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = fn(ptr(qkv), ptr(g), ptr(sin), ptr(cos), ptr(stats), ptr(d_qkv),
-            B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
+    tail = (B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
+    if q_scale is None:
+        rc = _kernel_fn(BWD_ENTRY)(ptr(qkv), ptr(g), ptr(sin), ptr(cos), ptr(stats),
+                                   ptr(d_qkv), *tail)
+        name, out = BWD_NAME, d_qkv
+    else:
+        q_scale = q_scale.float().contiguous()
+        k_scale = k_scale.float().contiguous()
+        # one dw row per (q or k, batch row, head, tile of KERNEL_TILE rows)
+        dws = torch.empty((2, B, num_heads, -(-N // KERNEL_TILE), KERNEL_HEAD_DIM),
+                          dtype=torch.float32, device=dev)
+        rc = _kernel_fn(NORM_BWD_ENTRY, 9)(ptr(qkv), ptr(g), ptr(sin), ptr(cos), ptr(q_scale),
+                                           ptr(k_scale), ptr(stats), ptr(dws), ptr(d_qkv), *tail)
+        name = NORM_BWD_NAME
+        dw = dws.sum((1, 2, 3))
+        out = (d_qkv, dw[0], dw[1])
     if rc != 0:
         raise RuntimeError(f"fused attention backward kernel launch failed: CUDA error {rc}")
-    count_launch(BWD_NAME)
-    return d_qkv
+    count_launch(name)
+    return out
 
 
 def fused_qkv_rope_attention_bwd(
@@ -246,10 +333,32 @@ def fused_qkv_rope_attention_bwd(
     return fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, num_heads, n_valid, is_causal)
 
 
+def fused_qkv_rope_attention_qk_norm_bwd(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    sin: Optional[torch.Tensor],
+    cos: Optional[torch.Tensor],
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    num_heads: int,
+    n_valid: int = 0,
+    is_causal: bool = False,
+):
+    """(d(qkv), dw_q, dw_k) of ``fused_qkv_rope_attention`` with qk-norm:
+    the backward kernel's qk-norm arm on a CUDA tensor (bf16 only), its
+    plain version on a CPU tensor."""
+    _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid)
+    if on_kernel_device(qkv):
+        return _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal, q_scale, k_scale)
+    return fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, q_scale, k_scale,
+                                                          num_heads, n_valid, is_causal)
+
+
 class _FusedAttention(torch.autograd.Function):
     """The differentiable fused attention (``_fused_with_vjp``). Its forward
-    (``_forward``) and backward (``fused_qkv_rope_attention_bwd``) pick the
-    kernel or the plain version by device."""
+    (``_forward``) and bf16 backward (``fused_qkv_rope_attention_bwd``, and
+    ``fused_qkv_rope_attention_qk_norm_bwd`` with qk-norm) pick the kernel
+    or the plain version by device."""
 
     @staticmethod
     def forward(ctx, qkv, sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal):
@@ -265,10 +374,12 @@ class _FusedAttention(torch.autograd.Function):
             d_qkv = fused_qkv_rope_attention_bwd(qkv, g.to(qkv.dtype), sin, cos, num_heads,
                                                  n_valid, is_causal)
             return d_qkv, None, None, None, None, None, None, None
-        if qkv.dtype == torch.bfloat16 and on_kernel_device(qkv):
-            raise NotImplementedError(
-                "the qk-norm arm of the attention backward kernel (the DiT path) is not ported")
-        # fp32 (and bf16 qk-norm on the CPU): autograd of the recomputed plain forward
+        if qkv.dtype == torch.bfloat16:
+            d_qkv, d_qs, d_ks = fused_qkv_rope_attention_qk_norm_bwd(
+                qkv, g.to(qkv.dtype), sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal)
+            return (d_qkv, None, None, d_qs.to(q_scale.dtype), d_ks.to(k_scale.dtype), None, None,
+                    None)
+        # fp32: autograd of the recomputed plain forward
         with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_()
                       for t in (qkv, q_scale, k_scale)]

@@ -1,7 +1,8 @@
 """The training optimizer (port of ``vtp_tpu/train/step.py:160``
-``make_optimizer`` and ``vtp_tpu/train/optim.py:103`` ``adamw``):
-clip by global norm, then AdamW with fp32 moments in optax's update
-order, under a warmup-cosine learning rate.
+``make_optimizer``, ``vtp_tpu/dit/train.py:67`` ``make_dit_optimizer``
+and ``vtp_tpu/train/optim.py:103`` ``adamw``): clip by global norm, then
+AdamW with fp32 moments in optax's update order, under a warmup-cosine
+learning rate or, for the DiT without warmup, a constant one.
 
 Per leaf p with gradient g, at step t (the count before this step):
 
@@ -52,7 +53,9 @@ class AdamW:
     def __init__(self, leaves: Dict[str, torch.Tensor], *, learning_rate: float,
                  warmup_steps: int, total_steps: int, weight_decay: float, b1: float,
                  b2: float, grad_clip: float, eps: float = 1e-8,
-                 moment_dtype: Optional[str] = "fp32"):
+                 moment_dtype: Optional[str] = "fp32", constant_lr: bool = False):
+        """``constant_lr``: the learning rate stays at ``learning_rate``
+        (the DiT optimizer without warmup) instead of the warmup-cosine."""
         if moment_dtype not in (None, "fp32", "float32"):
             raise NotImplementedError(f"moment_dtype={moment_dtype!r} is not ported (fp32 only)")
         self.leaves = leaves
@@ -60,10 +63,13 @@ class AdamW:
         self.nu = {n: torch.zeros_like(p) for n, p in leaves.items()}
         self.count = 0
         self.lr_args = (learning_rate, warmup_steps, total_steps)
+        self.constant_lr = constant_lr
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
         self.grad_clip = grad_clip
 
     def lr(self, count: Optional[int] = None) -> float:
+        if self.constant_lr:
+            return float(np.float32(self.lr_args[0]))
         return warmup_cosine_lr(self.count if count is None else count, *self.lr_args)
 
     @torch.no_grad()

@@ -239,7 +239,8 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         s_masked_head = head(s_patch[ssl["mask_indices"]])
         temps = dict(student_temp=tcfg.student_temp, teacher_temp=tcfg.teacher_temp)
         l_dino_g = dino_loss(s_g_head, t_cls_head, state.dino_center, **temps)
-        # the locals target the first global crop's teacher heads, tiled
+        # the locals target t_cls_head[:bc], tiled: after the crop swap that is
+        # the teacher on the second global crop (as the JAX step computes it)
         n_local = s_l_head.shape[0] // bc
         l_dino_l = dino_loss(s_l_head, t_cls_head[:bc].repeat(n_local, 1), state.dino_center,
                              **temps)
