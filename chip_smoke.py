@@ -12,7 +12,16 @@
    ``VTPModel.init`` with seeded random weights, a batch of 8 random 256x256
    images -> bf16 latents -> exact-fp32 images; checks the outputs and that
    every kernel of the path was launched, and compares them with the same
-   model run on the plain versions;
+   model run on the plain versions; then the same roundtrip with the
+   "high" (bf16x3) decode, counted, against the exact decode of the same
+   latents and against the plain versions, and times both;
+   serves: writes the model as an HF-layout checkpoint (``save_hf_checkpoint``)
+   to a temporary directory, loads it back with ``VTPModel.from_checkpoint``
+   at ``decode_precision="high"`` (checked bit for bit), and serves it with
+   ``VTPServer`` (batch 32, 5 ms) to concurrent client threads sending
+   encode, decode, clip_image and clip_text requests of 1, 3, 8 and 40
+   rows; counts the launches, prints rows/s and p50/p99 latency per kind,
+   and after shutdown holds every result against a direct call;
 4. runs the VTP-L CLIP+SSL+rec train step (``init_state``,
    ``build_train_step``; B = 8 images, each with a CLIP pair, a
    reconstruction target and 2 global + 4 local SSL crops) once on the
@@ -63,6 +72,11 @@ SOURCE = "vtp_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "vtp_tpu/ops/flash_attention.py:423"
 BWD_SOURCE = "vtp_tpu_torch/csrc/fused_attention_bwd.cu"
 BWD_REPLACES = "vtp_tpu/ops/flash_attention.py:641"
+SERVE_BATCH = 32     # VTPServer's defaults: batch 32, 5 ms
+SERVE_WAIT_MS = 5.0
+SERVE_ROWS = (1, 3, 8, 40)  # rows a request; 40 runs the chunk loop, the rest pad
+SERVE_ROUNDS = 2     # each client sends SERVE_ROWS this many times, one request at a time
+SERVE_CLIENTS = 2    # client threads a kind
 DIT_BATCH = 32     # DiT-XL/1 train microbatch (the TPU bench's)
 SAMPLE_BATCH = 8   # images sampled
 SAMPLE_STEPS = 250
@@ -170,38 +184,41 @@ def check_kernel(gen):
     )
 
     bf16, fp32 = torch.bfloat16, torch.float32
-    # name, B, N, H, dtype, rope grid (0 = none), prefix, n_valid, causal, qk_norm, tol kind
+    # name, B, N, H, dtype, rope grid (0 = none), prefix, n_valid, causal, qk_norm, tol kind,
+    # fp32 precision; the bf16x3 ("high") arm is held to the exact fp32 arm's tolerances
     cases = [
-        ("vtpl_encode", BATCH, 257, 16, bf16, 16, 1, 0, False, False, "rel"),
-        ("vtpl_decode", BATCH, 256, 16, fp32, 16, 0, 0, False, False, "abs"),
+        ("vtpl_encode", BATCH, 257, 16, bf16, 16, 1, 0, False, False, "rel", "float32"),
+        ("vtpl_decode", BATCH, 256, 16, fp32, 16, 0, 0, False, False, "abs", "float32"),
+        ("vtpl_decode", BATCH, 256, 16, fp32, 16, 0, 0, False, False, "abs", "high"),
     ]
-    for dt in (bf16, fp32):
+    for dt, prec in ((bf16, "float32"), (fp32, "float32"), (fp32, "high")):
         tol = "rel" if dt is bf16 else "abs"
         cases += [
-            ("n_valid", 2, 197, 4, dt, 14, 1, 190, False, False, tol),
-            ("causal", 2, 197, 4, dt, 0, 0, 0, True, False, tol),
-            ("causal_n_valid_rope", 2, 197, 4, dt, 14, 1, 150, True, False, tol),
-            ("qk_norm", 2, 197, 4, dt, 0, 0, 0, False, True, tol),
-            # the fp32 arm ropes in bf16 after an fp32 norm whose sum order
+            ("n_valid", 2, 197, 4, dt, 14, 1, 190, False, False, tol, prec),
+            ("causal", 2, 197, 4, dt, 0, 0, 0, True, False, tol, prec),
+            ("causal_n_valid_rope", 2, 197, 4, dt, 14, 1, 150, True, False, tol, prec),
+            ("qk_norm", 2, 197, 4, dt, 0, 0, 0, False, True, tol, prec),
+            # the fp32 arms rope in bf16 after an fp32 norm whose sum order
             # differs from torch's, so an ulp there can flip a bf16 rounding:
-            # this case is held to the bf16 tolerance in both arms
-            ("qk_norm_rope", 2, 197, 4, dt, 14, 1, 0, False, True, "rel"),
+            # this case is held to the bf16 tolerance in every arm
+            ("qk_norm_rope", 2, 197, 4, dt, 14, 1, 0, False, True, "rel", prec),
         ]
     errs = {}
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in exact fp32
     torch.backends.cudnn.allow_tf32 = False
-    for name, B, N, H, dt, grid, prefix, n_valid, causal, qk_norm, tol_kind in cases:
+    for name, B, N, H, dt, grid, prefix, n_valid, causal, qk_norm, tol_kind, prec in cases:
         qkv, (sin, cos), (qs, ks) = _attention_inputs(gen, B, N, H, dt, grid, prefix, qk_norm)
-        got = fused_qkv_rope_attention(qkv, sin, cos, H, qs, ks, n_valid=n_valid, is_causal=causal)
+        got = fused_qkv_rope_attention(qkv, sin, cos, H, qs, ks, n_valid=n_valid, is_causal=causal,
+                                       fp32_precision=prec)
         torch.cuda.synchronize()
         want = fused_qkv_rope_attention_reference(qkv, sin, cos, H, qs, ks, n_valid=n_valid,
-                                                  is_causal=causal)
+                                                  is_causal=causal, fp32_precision=prec)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         ok = (err <= 1e-2 * scale) if tol_kind == "rel" else (err <= 1e-4)
         limit = "1e-2 rel of max|ref|" if tol_kind == "rel" else "1e-4 abs"
-        arm = "bf16" if dt is bf16 else "fp32"
+        arm = "bf16" if dt is bf16 else ("fp32" if prec == "float32" else "fp32_bf16x3")
         print(f"kernel {name:20s} {arm} B={B} N={N} H={H}: max abs err {err:.3e} "
               f"(max|ref| {scale:.3e}; limit {limit}) {'ok' if ok else 'FAIL'}", flush=True)
         if not (ok and torch.isfinite(got).all().item()):
@@ -266,6 +283,183 @@ def run_roundtrip(gen):
         samples.append(time.perf_counter() - t0)
     rt_s = statistics.median(samples)
     return counts, rt_s, model, images
+
+
+def run_high_roundtrip(model, images, exact_s):
+    """Phase 3b: the roundtrip with the "high" (bf16x3) decode, once,
+    counted; its images against the exact decode of the same latents
+    (within 1e-3 of max|ref|) and against the plain versions at "high"
+    (within 1e-3 abs, as the exact roundtrip); then timed beside the exact
+    roundtrip."""
+    import torch
+
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, HIGH_NAME
+
+    cfg = model.config
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    latents = model.get_reconstruction_latents(images)
+    high = model.get_latents_decoded_images(latents, precision="high")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {ARM_NAME[torch.bfloat16]: cfg.vision_depth, HIGH_NAME: cfg.decoder_depth}
+    print(f"high roundtrip: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"high roundtrip launches {counts}, expected {want}")
+    if tuple(high.shape) != tuple(images.shape) or high.dtype != torch.float32:
+        raise AssertionError(f"high images {tuple(high.shape)} {high.dtype}")
+    exact = model.get_latents_decoded_images(latents, precision="float32")
+    with _plain_kernels():
+        plain = model.get_latents_decoded_images(latents, precision="high")
+    torch.cuda.synchronize()
+    scale = exact.abs().max().item()
+    err = (high - exact).abs().max().item() / scale
+    plain_err = (high - plain).abs().max().item()
+    ok = err <= 1e-3 and plain_err <= 1e-3 and torch.isfinite(high).all().item()
+    print(f"high decode vs exact decode of the same latents: max abs err {err:.3e} of max|ref| "
+          f"({scale:.3e}; limit 1e-3); vs plain versions at high: max abs err {plain_err:.3e} "
+          f"(limit 1e-3) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the high decode disagrees with the exact decode or the plain run")
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.get_latents_decoded_images(model.get_reconstruction_latents(images), precision="high")
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    high_s = statistics.median(samples)
+    print(f"roundtrip VTP-L 256px B={BATCH}, high decode: {high_s * 1e3:.2f} ms, "
+          f"{BATCH / high_s:.2f} images/s; exact decode: {exact_s * 1e3:.2f} ms, "
+          f"{BATCH / exact_s:.2f} images/s (host clock, median of 5 each)", flush=True)
+    return counts
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+def run_serve(model, card):
+    """Phase 3c: the serving path. save_hf_checkpoint to a temporary
+    directory, VTPModel.from_checkpoint at decode_precision="high" (the
+    state checked bit for bit), VTPServer(batch 32, 5 ms) under
+    SERVE_CLIENTS client threads a kind, each sending SERVE_ROWS requests
+    SERVE_ROUNDS times, one at a time; launches counted against the
+    server's model calls. After shutdown every result is held against a
+    direct call on the same rows: bf16 paths within 5e-2 of max|ref|, the
+    "high" decode within 1e-4 of max|ref| (another batch size may take
+    another cuBLAS algorithm, so sums come in another order)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.convert import save_hf_checkpoint
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, HIGH_NAME
+    from vtp_tpu_torch.serve import VTPServer
+
+    cfg = model.config
+    n_bytes = sum(t.numel() * 4 for t in model.state_dict().values())
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * n_bytes:
+        raise AssertionError(f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint needs "
+                             f"{n_bytes / 1e9:.1f} GB")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_hf_checkpoint(d, model)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.perf_counter()
+        loaded = VTPModel.from_checkpoint(d, device="cuda", decode_precision="high")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    own, got = model.state_dict(), loaded.state_dict()
+    same = own.keys() == got.keys() and all(torch.equal(own[k], got[k]) for k in own)
+    print(f"serve: checkpoint of {size / 1e9:.2f} GB written in {save_s:.1f} s, loaded by "
+          f"VTPModel.from_checkpoint in {load_s:.1f} s (warm page cache); state bit for bit "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("the loaded checkpoint differs from the saved model")
+    del own, got
+
+    rng = np.random.default_rng(SEED)
+    s, g = cfg.image_size, cfg.image_size // cfg.vision_patch_size
+    make = {
+        "encode": lambda n: rng.standard_normal((n, 3, s, s), dtype=np.float32),
+        "decode": lambda n: rng.standard_normal((n, cfg.vision_feature_bottleneck, g, g),
+                                                dtype=np.float32),
+        "clip_image": lambda n: rng.standard_normal((n, 3, s, s), dtype=np.float32),
+        "clip_text": lambda n: rng.integers(1, cfg.text_vocab_size - 1,
+                                            (n, cfg.text_context_length)),
+    }
+    clients = [(kind, [make[kind](n) for _ in range(SERVE_ROUNDS) for n in SERVE_ROWS])
+               for kind in make for _ in range(SERVE_CLIENTS)]
+
+    srv = VTPServer(loaded, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS)
+
+    def client(kind, payloads):
+        done = []
+        for x in payloads:
+            t0 = time.perf_counter()
+            y = srv.submit(kind, x).result(timeout=300)
+            done.append((time.perf_counter() - t0, x, y))
+        return kind, done
+
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(clients)) as pool:
+            served = [job.result() for job in [pool.submit(client, *c) for c in clients]]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        calls = dict(srv.calls)
+    finally:
+        srv.shutdown()
+    want = {ARM_NAME[torch.bfloat16]: cfg.vision_depth * (calls["encode"] + calls["clip_image"])
+            + cfg.text_depth * calls["clip_text"],
+            HIGH_NAME: cfg.decoder_depth * calls["decode"]}
+    print(f"serve: model calls {calls}; kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"serve launches {counts}, expected {want}")
+    by_kind = {}
+    for kind, done in served:
+        by_kind.setdefault(kind, []).extend(done)
+    for kind, done in by_kind.items():
+        lat = [t * 1e3 for t, _, _ in done]
+        rows = sum(x.shape[0] for _, x, _ in done)
+        print(f"serve {kind:10s} on {card}: {len(done)} requests, {rows} rows, "
+              f"{rows / wall:.1f} rows/s over the {wall:.3f} s run of all kinds together; "
+              f"latency p50 {_percentile(lat, 50):.1f} ms, p99 {_percentile(lat, 99):.1f} ms "
+              f"(host clock, {len(done)} samples)", flush=True)
+
+    enc = loaded.encode_dtype
+    direct = {"encode": loaded.get_reconstruction_latents,
+              "decode": loaded.get_latents_decoded_images,
+              "clip_image": lambda x: loaded.get_clip_image_feature(x, True, enc),
+              "clip_text": lambda x: loaded.get_clip_text_feature(x, True, enc)}
+    for kind, done in by_kind.items():
+        limit = 1e-4 if kind == "decode" else 5e-2
+        worst = 0.0
+        for _, x, y in done:
+            ref = direct[kind](torch.as_tensor(x).cuda()).float().cpu()
+            if tuple(y.shape) != tuple(ref.shape):
+                raise AssertionError(f"serve {kind}: result {tuple(y.shape)}, direct {tuple(ref.shape)}")
+            worst = max(worst, ((y.float() - ref).abs().max() / ref.abs().max()).item())
+        ok = worst <= limit
+        print(f"serve {kind:10s} vs direct calls on the same rows: max err {worst:.3e} of "
+              f"max|ref| (limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"served {kind} results disagree with direct calls")
+    return counts
 
 
 def check_train_kernels(gen):
@@ -807,7 +1001,7 @@ def time_kernels(gen, card, errs, counts):
     import torch.nn.functional as F
 
     from vtp_tpu_torch.ops.flash_attention import (
-        ARM_NAME,
+        arm_name,
         fused_qkv_rope_attention,
         fused_qkv_rope_attention_reference,
     )
@@ -816,10 +1010,17 @@ def time_kernels(gen, card, errs, counts):
     bw, bf16_peak, fp32_peak = next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
     H, d = 16, 64
     rows = []
-    for dt, N, prefix, peak in ((torch.bfloat16, 257, 1, bf16_peak), (torch.float32, 256, 0, fp32_peak)):
+    # arm, dtype, N, prefix, fp32 precision, passes, peak rate of the passes: the bf16x3
+    # arm's three passes are bf16 products, bounded at the bf16 tensor-core rate it
+    # was defined for; its SDPA yardstick is the exact fp32 arm's (no single call
+    # computes the split)
+    arms = (("bf16", torch.bfloat16, 257, 1, "float32", 1, bf16_peak),
+            ("fp32", torch.float32, 256, 0, "float32", 1, fp32_peak),
+            ("fp32_bf16x3", torch.float32, 256, 0, "high", 3, bf16_peak))
+    for key, dt, N, prefix, prec, passes, peak in arms:
         qkv, (sin, cos), _ = _attention_inputs(gen, BATCH, N, H, dt, 16, prefix)
-        kern = lambda: fused_qkv_rope_attention(qkv, sin, cos, H)
-        plain = lambda: fused_qkv_rope_attention_reference(qkv, sin, cos, H)
+        kern = lambda: fused_qkv_rope_attention(qkv, sin, cos, H, fp32_precision=prec)
+        plain = lambda: fused_qkv_rope_attention_reference(qkv, sin, cos, H, fp32_precision=prec)
         # SDPA yardstick on pre-split, pre-roped (B, H, N, d) operands
         q, k, v = qkv.reshape(BATCH, N, 3, H, d).unbind(2)
         s, c = sin[None, :, None, :], cos[None, :, None, :]
@@ -830,18 +1031,19 @@ def time_kernels(gen, card, errs, counts):
         ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
         item = torch.finfo(dt).bits // 8
         nbytes = BATCH * N * (3 * H * d + H * d) * item
-        flops = 4 * BATCH * H * N * N * d
+        flops = passes * 4 * BATCH * H * N * N * d
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-        arm = ARM_NAME[dt]
+        arm = arm_name(dt, prec)
         rows.append({
             "name": arm, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": counts.get(arm, 0), "max_abs_err": errs["bf16" if dt is torch.bfloat16 else "fp32"],
+            "launches": counts.get(arm, 0), "max_abs_err": errs[key],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
         })
         print(f"timing {arm} B={BATCH} N={N} H={H} on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+              f"sdpa {lib_ms:.4f} ms{' (exact fp32; no single call computes the split)' if passes > 1 else ''}, "
+              f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+              flush=True)
     return rows
 
 
@@ -922,7 +1124,18 @@ def main() -> int:
         _set_phase("profile roundtrip")
         profile_run("roundtrip", lambda: model.get_latents_decoded_images(
             model.get_reconstruction_latents(images)))
+    _set_phase("high roundtrip")
+    high_counts = run_high_roundtrip(model, images, rt_s)
+    if profiling:
+        _set_phase("profile high roundtrip")
+        profile_run("high roundtrip", lambda: model.get_latents_decoded_images(
+            model.get_reconstruction_latents(images), precision="high"))
     del images
+    _set_phase("serve")
+    serve_counts = run_serve(model, card_line)
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != prev_tf32:
+        raise AssertionError("the decodes did not restore the TF32 settings")
+    torch.cuda.empty_cache()
     _set_phase("dit latents")
     tokenizer, latents, latent_stats = dit_latents(gen, model)
     print(f"dit latents: {tuple(latents.shape)} from VTPTokenizer.encode_images on VTP-L",
@@ -967,8 +1180,9 @@ def main() -> int:
 
     _set_phase("timing")
     # launches: each arm's count summed over the main paths' runs (one
-    # roundtrip, one train step, one DiT train step, one 250-step sample)
-    for run in (train_counts, dit_counts, sample_counts):
+    # roundtrip, one high roundtrip, the serve run, one train step, one DiT
+    # train step, one 250-step sample)
+    for run in (high_counts, serve_counts, train_counts, dit_counts, sample_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     rows = time_kernels(gen, card_line, errs, counts)

@@ -48,7 +48,10 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.train.state", "vtp_tpu_torch.train.step",
                 "vtp_tpu_torch.dit", "vtp_tpu_torch.dit.model", "vtp_tpu_torch.dit.transport",
                 "vtp_tpu_torch.dit.train", "vtp_tpu_torch.dit.sample",
-                "vtp_tpu_torch.generation", "vtp_tpu_torch.generation.vtp_tokenizer"):
+                "vtp_tpu_torch.generation", "vtp_tpu_torch.generation.vtp_tokenizer",
+                "vtp_tpu_torch.ops.precision", "vtp_tpu_torch.serve", "vtp_tpu_torch.convert",
+                "vtp_tpu_torch.convert.from_torch", "vtp_tpu_torch.convert.to_torch",
+                "vtp_tpu_torch.convert.safetensors_io"):
         assert mod in imported
 
 

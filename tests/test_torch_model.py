@@ -222,9 +222,13 @@ def test_roundtrip_matches_jax(tiny, images):
 
 
 def test_decode_refuses_the_unported_high_precision(tiny):
+    """"high" is ported (tests/test_torch_serving.py); a precision that is
+    neither it nor "float32" (JAX's "tensorfloat32" alias, torch's
+    single-pass TF32 "medium") is refused."""
     *_, tm = tiny
-    with pytest.raises(NotImplementedError):
-        tm.get_latents_decoded_images(torch.zeros(1, 64, 4, 4), precision="high")
+    for precision in ("tensorfloat32", "medium"):
+        with pytest.raises(ValueError, match="precision"):
+            tm.get_latents_decoded_images(torch.zeros(1, 64, 4, 4), precision=precision)
 
 
 def test_exact_fp32_turns_tf32_off_and_restores_it():

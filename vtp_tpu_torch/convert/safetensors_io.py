@@ -1,0 +1,80 @@
+"""The ``.safetensors`` byte format in plain numpy.
+
+A file is an 8-byte little-endian header length, a JSON header of
+``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (plus an
+optional ``"__metadata__"`` of strings), then the raw little-endian
+row-major data, the offsets counted from the end of the header. The
+writer pads the header with spaces to a multiple of 8 bytes and lays the
+tensors out back to back in name order, as the ``safetensors`` package
+does, so either side reads the other's files.
+
+F32, F16 and BF16 are read; numpy has no bfloat16, so a BF16 tensor comes
+back as fp32 (its bits shifted up by 16, which is exact). F32 and F16 are
+written.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Dict, Optional
+
+import numpy as np
+
+_READ = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "BF16": np.dtype("<u2")}
+_WRITE = {np.dtype("float32"): "F32", np.dtype("float16"): "F16"}
+_MAX_HEADER = 100 * 1024 * 1024
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Every tensor of the file, as numpy arrays (BF16 as fp32)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        if n > _MAX_HEADER:
+            raise ValueError(f"{path}: header of {n} bytes is not a safetensors header")
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    if not header:
+        return {}
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
+    out = {}
+    for name, info in header.items():
+        dtype = _READ.get(info["dtype"])
+        if dtype is None:
+            raise NotImplementedError(f"{path}: {name} has dtype {info['dtype']}; "
+                                      f"only {sorted(_READ)} are read")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        if end - begin != dtype.itemsize * int(np.prod(shape, dtype=np.int64)):
+            raise ValueError(f"{path}: {name} holds {end - begin} bytes, not {shape} {info['dtype']}")
+        arr = np.frombuffer(data[begin:end], dtype=dtype).reshape(shape)
+        if info["dtype"] == "BF16":
+            arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        out[name] = np.array(arr, dtype=arr.dtype.newbyteorder("="))
+    return out
+
+
+def save_safetensors(path: str, tensors: Dict[str, np.ndarray],
+                     metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write fp32 or fp16 numpy arrays as one ``.safetensors`` file."""
+    header, offset, arrays = {}, 0, []
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name])
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")  # (np.ascontiguousarray would make a 0-d array 1-d)
+        if arr.dtype not in _WRITE:
+            raise TypeError(f"{name}: dtype {arr.dtype}; only float32 and float16 are written")
+        arr = arr.astype(arr.dtype.newbyteorder("<"), copy=False)
+        header[name] = {"dtype": _WRITE[arr.dtype.newbyteorder("=")], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+        arrays.append(arr)
+    if metadata:
+        header["__metadata__"] = dict(metadata)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for arr in arrays:
+            f.write(arr.data)

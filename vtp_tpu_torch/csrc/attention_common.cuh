@@ -1,7 +1,8 @@
 // Pieces shared by the fused attention forward (fused_attention.cu) and
 // backward (fused_attention_bwd.cu) kernels for Hopper (sm_90a): the tile
-// geometry, bf16 rounding, the row loader that applies qk-RMSNorm and RoPE
-// exactly as the plain PyTorch version rounds them, and the score loop.
+// geometry, bf16 rounding and the bf16x3 split, the row loader that applies
+// qk-RMSNorm and RoPE exactly as the plain PyTorch version rounds them, and
+// the score loops (plain, and split for the forward's bf16x3 arm).
 //
 // Layout shared by both kernels: a block of 256 threads covers a tile of 64
 // token rows, four threads per row; thread quarter c owns head-dim columns
@@ -24,6 +25,14 @@ constexpr int kStride = kHeadDim + 4; // padded shared-memory row, float4-aligne
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The bf16x3 split of an fp32 value: hi = bf16(x), lo = bf16(x - hi), both
+// held in fp32. A product of two halves is exact in fp32, so
+// a*b ~ hi_a*hi_b + hi_a*lo_b + lo_a*hi_b (the lo*lo term dropped).
+__device__ __forceinline__ void split_bf16(float x, float& hi, float& lo) {
+  hi = bf16_round(x);
+  lo = bf16_round(x - hi);
 }
 
 template <typename T>
@@ -60,12 +69,16 @@ struct Io<__nv_bfloat16> {
 // Loads token row `n` of one head's Q or K (or V, with no prologue) into
 // `dst`, a padded shared-memory row. Thread quarter `c` owns columns
 // [8c, 8c+8) and [32+8c, 32+8c+8). Rows at or past N load as zeros.
-template <typename T>
+// kSplit (the forward's bf16x3 arm, fp32 input): the RMSNorm's mean of
+// squares sums the split halves of each square, and the row is stored as
+// its split halves, hi in `dst` and lo in `dst_lo`.
+template <typename T, bool kSplit = false>
 __device__ void load_row(const T* __restrict__ row, bool in_range,
                          const float* __restrict__ norm_w,
                          const __nv_bfloat16* __restrict__ sin_row,
                          const __nv_bfloat16* __restrict__ cos_row,
-                         float* __restrict__ dst, int c) {
+                         float* __restrict__ dst, int c,
+                         float* __restrict__ dst_lo = nullptr) {
   float x[16];
   if (in_range) {
     Io<T>::load8(row + 8 * c, x);
@@ -77,7 +90,15 @@ __device__ void load_row(const T* __restrict__ row, bool in_range,
   if (norm_w != nullptr) {
     float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) ss += x[i] * x[i];
+    for (int i = 0; i < 16; ++i) {
+      if constexpr (kSplit) {
+        float hi, lo;
+        split_bf16(x[i] * x[i], hi, lo);
+        ss += hi + lo;
+      } else {
+        ss += x[i] * x[i];
+      }
+    }
     ss += __shfl_xor_sync(0xffffffffu, ss, 1);
     ss += __shfl_xor_sync(0xffffffffu, ss, 2);
     const float inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
@@ -104,8 +125,22 @@ __device__ void load_row(const T* __restrict__ row, bool in_range,
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    dst[8 * c + i] = x[i];
-    dst[32 + 8 * c + i] = x[i + 8];
+    if constexpr (kSplit) {
+      split_bf16(x[i], dst[8 * c + i], dst_lo[8 * c + i]);
+      split_bf16(x[i + 8], dst[32 + 8 * c + i], dst_lo[32 + 8 * c + i]);
+    } else {
+      dst[8 * c + i] = x[i];
+      dst[32 + 8 * c + i] = x[i + 8];
+    }
+  }
+}
+
+__device__ __forceinline__ void mask_and_scale(int k0, int c, int qrow, int n_valid,
+                                               int causal, float (&s)[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = k0 + c + 4 * j;
+    s[j] = (col >= n_valid || (causal && col > qrow)) ? -INFINITY : s[j] * 0.125f;  // 64^-1/2
   }
 }
 
@@ -130,11 +165,34 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ sq,
       s[j] = fmaf(qv.w, kv.w, s[j]);
     }
   }
+  mask_and_scale(k0, c, qrow, n_valid, causal, s);
+}
+
+// tile_scores on split rows (hi in `sq`/`sk`, lo in `sq_lo`/`sk_lo`): each
+// product is hi*hi + hi*lo + lo*hi, three fp32 FMAs into the same sum.
+__device__ __forceinline__ void tile_scores_split(const float* __restrict__ sq,
+                                                  const float* __restrict__ sq_lo,
+                                                  const float* __restrict__ sk,
+                                                  const float* __restrict__ sk_lo, int c,
+                                                  int k0, int qrow, int n_valid,
+                                                  int causal, float (&s)[16]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = k0 + c + 4 * j;
-    s[j] = (col >= n_valid || (causal && col > qrow)) ? -INFINITY : s[j] * 0.125f;  // 64^-1/2
+  for (int j = 0; j < 16; ++j) s[j] = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < kHeadDim; i += 4) {
+    const float4 qh = *reinterpret_cast<const float4*>(sq + i);
+    const float4 ql = *reinterpret_cast<const float4*>(sq_lo + i);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 kh = *reinterpret_cast<const float4*>(sk + (c + 4 * j) * kStride + i);
+      const float4 kl = *reinterpret_cast<const float4*>(sk_lo + (c + 4 * j) * kStride + i);
+      s[j] = fmaf(qh.x, kh.x, fmaf(qh.x, kl.x, fmaf(ql.x, kh.x, s[j])));
+      s[j] = fmaf(qh.y, kh.y, fmaf(qh.y, kl.y, fmaf(ql.y, kh.y, s[j])));
+      s[j] = fmaf(qh.z, kh.z, fmaf(qh.z, kl.z, fmaf(ql.z, kh.z, s[j])));
+      s[j] = fmaf(qh.w, kh.w, fmaf(qh.w, kl.w, fmaf(ql.w, kh.w, s[j])));
+    }
   }
+  mask_and_scale(k0, c, qrow, n_valid, causal, s);
 }
 
 }  // namespace

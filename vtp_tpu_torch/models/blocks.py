@@ -10,6 +10,9 @@ an ``nn.ModuleList``. Multi-crop lists are packed once into one
 fused launch per crop. ``remat=True`` recomputes each block in the
 backward (``torch.utils.checkpoint``); the JAX package's other remat
 policies raise. Drop-path is not ported (``train/step.py`` refuses it).
+``precision`` ("float32" or "high") is the fp32 GEMM and attention mode,
+an explicit argument where the JAX package reads the ambient matmul
+precision (``vtp_tpu/models/blocks.py:216-227``).
 """
 
 from __future__ import annotations
@@ -114,13 +117,13 @@ class Attention(nn.Module):
         return bias
 
     def forward(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
-                n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None
-                ) -> torch.Tensor:
+                n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
+                precision: str = "float32") -> torch.Tensor:
         """flat: the packed (sum B_i*N_i, D) normed tokens of the crops
         whose (B_i, N_i) are ``shapes``; one qkv GEMM, one fused attention
         per crop, one out-projection."""
         cfg = self.cfg
-        qkv_flat = linear(flat, self.qkv.weight, self.qkv_bias(), compute_dtype)
+        qkv_flat = linear(flat, self.qkv.weight, self.qkv_bias(), compute_dtype, precision)
         outs, off = [], 0
         for (b, n), rope, n_valid in zip(shapes, ropes, n_valids):
             qkv = qkv_flat[off:off + b * n].reshape(b, n, 3 * cfg.dim)
@@ -133,10 +136,11 @@ class Attention(nn.Module):
                 q_scale=self.q_norm.weight if cfg.use_qk_norm else None,
                 k_scale=self.k_norm.weight if cfg.use_qk_norm else None,
                 n_valid=n_valid,
+                fp32_precision=precision,
             )
             outs.append(o.reshape(b * n, cfg.dim))
         o = outs[0] if len(outs) == 1 else torch.cat(outs)
-        return linear(o, self.proj.weight, self.proj.bias, compute_dtype)
+        return linear(o, self.proj.weight, self.proj.bias, compute_dtype, precision)
 
 
 class SwiGLUFFN(nn.Module):
@@ -146,8 +150,9 @@ class SwiGLUFFN(nn.Module):
         self.w2 = nn.Linear(dim, hidden, bias=bias)
         self.w3 = nn.Linear(hidden, dim, bias=bias)
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return swiglu(x, self.w1, self.w2, self.w3, compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                precision: str = "float32") -> torch.Tensor:
+        return swiglu(x, self.w1, self.w2, self.w3, compute_dtype, precision)
 
 
 class Mlp(nn.Module):
@@ -157,8 +162,9 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden, bias=bias)
         self.fc2 = nn.Linear(hidden, dim, bias=bias)
 
-    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return mlp(x, self.fc1, self.fc2, ACT[self.act], compute_dtype)
+    def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
+                precision: str = "float32") -> torch.Tensor:
+        return mlp(x, self.fc1, self.fc2, ACT[self.act], compute_dtype, precision)
 
 
 class Block(nn.Module):
@@ -181,20 +187,21 @@ class Block(nn.Module):
             self.ls1 = self.ls2 = None
 
     def forward(self, x: torch.Tensor, rope: Rope, n_valid: int = 0,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None, precision: str = "float32"
+                ) -> torch.Tensor:
         """One (B, N, D) crop (block_apply)."""
         B, N, D = x.shape
         out = self.forward_packed(x.reshape(B * N, D), [(B, N)], [rope], [n_valid or N],
-                                  compute_dtype)
+                                  compute_dtype, precision)
         return out.reshape(B, N, D)
 
     def forward_packed(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
-                       n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
+                       n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
+                       precision: str = "float32") -> torch.Tensor:
         """On the packed tokens of the crops (block_apply_flat)."""
-        a = self.attn(self.norm1(flat), shapes, ropes, n_valids, compute_dtype)
+        a = self.attn(self.norm1(flat), shapes, ropes, n_valids, compute_dtype, precision)
         flat = flat + (self.ls1(a) if self.ls1 is not None else a)
-        f = self.mlp(self.norm2(flat), compute_dtype)
+        f = self.mlp(self.norm2(flat), compute_dtype, precision)
         return flat + (self.ls2(f) if self.ls2 is not None else f)
 
 
@@ -212,7 +219,8 @@ def checkpoint_policy(remat: Union[bool, str, None]) -> bool:
 def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequence[Rope],
                n_valids: Optional[Sequence[int]] = None,
                compute_dtype: Optional[torch.dtype] = None,
-               remat: Union[bool, str] = False) -> List[torch.Tensor]:
+               remat: Union[bool, str] = False, precision: str = "float32"
+               ) -> List[torch.Tensor]:
     """The depth loop over a list of (B_i, N_i, D) crops (scan_blocks,
     without drop-path): packed once, unpacked at the end. ``n_valids``
     masks trailing key columns per crop (default: all valid)."""
@@ -225,9 +233,9 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
     for blk in blocks:
         if use_ckpt:
             flat = checkpoint(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
-                              use_reentrant=False)
+                              precision, use_reentrant=False)
         else:
-            flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype)
+            flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype, precision)
     out, off = [], 0
     for b, n in shapes:
         out.append(flat[off:off + b * n].reshape(b, n, d))

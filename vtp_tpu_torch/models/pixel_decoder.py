@@ -2,12 +2,16 @@
 ``vtp_tpu/models/pixel_decoder.py:90-147``).
 
 The decode of the reference's rFID protocol runs in exact fp32: every
-GEMM in full fp32, with TF32 off for cuBLAS and cuDNN while it runs. The
-JAX package's ``precision="high"`` (a bf16x3 split) has no port yet and
-is refused; torch's own "high" (single-pass TF32) is a different, coarser
-mode and is not a stand-in for it. Training decodes with a
-``compute_dtype`` (bf16 GEMMs and attention, fp32 norm statistics), the
-JAX package's ``compute_dtype`` path.
+GEMM in full fp32, with TF32 off for cuBLAS and cuDNN while it runs.
+``precision="high"`` is the JAX package's bf16x3 decode: every GEMM
+(``proj_in``, qkv, proj, the FFN, ``proj_out``) and the attention's two
+dots take each fp32 operand as bf16 halves hi + lo and sum hi·hi + hi·lo
++ lo·hi in fp32 (``ops/precision.py``, the attention kernel's bf16x3 arm);
+TF32 stays off there too, so the splits and all other math are true
+fp32. torch's own "high" (single-pass TF32) is a different, coarser mode
+and is not a stand-in for it. Training decodes with a ``compute_dtype``
+(bf16 GEMMs and attention, fp32 norm statistics), the JAX package's
+``compute_dtype`` path, which ignores ``precision``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from vtp_tpu_torch.models.initializers import linear_
 from vtp_tpu_torch.models.vit import RopeEmbed
 from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import pixel_shuffle
+from vtp_tpu_torch.ops.precision import check_precision
 from vtp_tpu_torch.ops.rope import rope_sincos
 
 
@@ -100,28 +105,28 @@ class PixelDecoder(nn.Module):
     def forward(self, latents: torch.Tensor, precision: str = "float32", *,
                 compute_dtype: Optional[torch.dtype] = None,
                 remat: Union[bool, str] = False) -> torch.Tensor:
-        """(B, C_in, H', W') latents -> (B, 3, H'*u, W'*u) images: in exact
-        fp32 by default, in ``compute_dtype`` when one is given (training).
+        """(B, C_in, H', W') latents -> (B, 3, H'*u, W'*u) images: in fp32
+        at ``precision`` ("float32", exact, or "high", bf16x3) by default,
+        in ``compute_dtype`` when one is given (training).
         ``remat=True`` recomputes each block in the backward."""
+        check_precision(precision)
         if compute_dtype is not None:
-            return self._forward(latents, compute_dtype, remat)
-        if precision != "float32":
-            raise NotImplementedError(
-                f"decode precision {precision!r} is not ported; only exact 'float32' is")
+            return self._forward(latents, compute_dtype, remat, "float32")
         with exact_fp32():
-            return self._forward(latents.float(), None, remat)
+            return self._forward(latents.float(), None, remat, precision)
 
     def _forward(self, latents: torch.Tensor, compute_dtype: Optional[torch.dtype],
-                 remat: Union[bool, str]) -> torch.Tensor:
+                 remat: Union[bool, str], precision: str) -> torch.Tensor:
         cfg = self.cfg
         B, C, H, W = latents.shape
         x = latents.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        x = linear(x, self.proj_in.weight.reshape(cfg.embed_dim, C), self.proj_in.bias, compute_dtype)
+        x = linear(x, self.proj_in.weight.reshape(cfg.embed_dim, C), self.proj_in.bias,
+                   compute_dtype, precision)
         rope = rope_sincos(self.rope_embed.periods, H, W, normalize_coords=cfg.rope_normalize_coords)
-        (x,) = run_blocks(self.blocks, [x], [rope], None, compute_dtype, remat)
+        (x,) = run_blocks(self.blocks, [x], [rope], None, compute_dtype, remat, precision)
         x = self.norm(x)
         w_out = self.proj_out.weight
         x = linear(x, w_out.reshape(w_out.shape[0], cfg.embed_dim), self.proj_out.bias,
-                   compute_dtype)
+                   compute_dtype, precision)
         x = x.transpose(1, 2).reshape(B, -1, H, W)
         return pixel_shuffle(x, cfg.upscale_factor)

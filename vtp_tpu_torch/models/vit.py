@@ -1,7 +1,7 @@
 """DINOv3 vision trunk with the optional feature bottleneck (port of
 ``vtp_tpu/models/vit.py``: ``prepare_tokens`` :132, ``_rope_for`` :195,
 ``_final_norms`` :212, ``_apply_bottleneck`` :233,
-``vit_forward_features`` :241).
+``vit_forward_features`` :241, ``vit_get_intermediate_layers`` :303).
 
 Patchify is a reshape + GEMM and the RoPE tables are built once per
 forward and crop shape. A list of crops (the SSL multi-crop forward) runs
@@ -208,3 +208,50 @@ class VisionTransformer(nn.Module):
                                                                   compute_dtype)
             outputs.append(out)
         return outputs[0] if single else outputs
+
+    def get_intermediate_layers(
+        self,
+        images: torch.Tensor,
+        n: Union[int, Sequence[int]] = 1,
+        *,
+        reshape: bool = False,
+        return_class_token: bool = False,
+        return_extra_tokens: bool = False,
+        norm: bool = True,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> Tuple:
+        """The outputs of the last ``n`` blocks (or of the blocks whose
+        indices ``n`` lists), always bypassing the bottleneck
+        (vision_transformer.py:281-318): a tuple of patch tokens, (B, N, D)
+        or (B, D, gh, gw) with ``reshape``, each zipped with its class token
+        and/or its storage tokens when asked. The blocks after the last
+        index taken are not run."""
+        cfg = self.cfg
+        take = list(range(cfg.depth - n, cfg.depth)) if isinstance(n, int) else sorted(map(int, n))
+        x, (gh, gw) = self.prepare_tokens(images, compute_dtype)
+        rope = self.rope_for(gh, gw)
+        B, N, D = x.shape
+        flat, outputs = x.reshape(B * N, D), []
+        for i, blk in enumerate(self.blocks[:take[-1] + 1]):
+            flat = blk.forward_packed(flat, [(B, N)], [rope], [N], compute_dtype)
+            if i in take:
+                outputs.append(flat.reshape(B, N, D))
+        s = cfg.n_storage_tokens + 1
+        if norm:
+            if cfg.untie_cls_and_patch_norms:
+                outputs = [torch.cat([self.cls_norm(o[:, :s]), self.norm(o[:, s:])], dim=1)
+                           for o in outputs]
+            else:
+                outputs = [self.norm(o) for o in outputs]
+        class_tokens = [o[:, 0] for o in outputs]
+        extra = [o[:, 1:s] for o in outputs]
+        patches = [o[:, s:] for o in outputs]
+        if reshape:
+            patches = [o.reshape(B, gh, gw, -1).permute(0, 3, 1, 2) for o in patches]
+        if return_class_token and return_extra_tokens:
+            return tuple(zip(patches, class_tokens, extra))
+        if return_class_token:
+            return tuple(zip(patches, class_tokens))
+        if return_extra_tokens:
+            return tuple(zip(patches, extra))
+        return tuple(patches)

@@ -1,21 +1,26 @@
-"""VTPModel: the reconstruction roundtrip and the CLIP towers (port of
-``vtp_tpu/models/vtp_model.py``: ``l2_normalize`` :41, ``init_vtp_params``
-:125, ``get_clip_image_feature`` :185, ``get_clip_text_feature`` :207,
-``get_clip_logits`` :222, ``get_reconstruction_latents`` :241,
-``get_latents_decoded_images`` :255, ``VTPModel`` :276).
+"""VTPModel: the reconstruction roundtrip, the CLIP towers and the
+feature API (port of ``vtp_tpu/models/vtp_model.py``: ``l2_normalize``
+:41, ``init_vtp_params`` :125, ``get_last_layer_feature`` :155,
+``get_intermediate_layers_feature`` :168, ``get_clip_image_feature`` :185,
+``get_clip_text_feature`` :207, ``get_clip_logits`` :222,
+``get_reconstruction_latents`` :241, ``get_latents_decoded_images`` :255,
+``VTPModel`` :276, its ``from_torch_checkpoint`` :297 and ``forward``
+:379).
 
 The dtype protocol is the reference's rFID protocol: encode in bf16
 (inputs and weights cast at each GEMM, fp32 norm statistics and softmax),
-decode in exact fp32 (``tools/test_reconstruction_hf.py:366-370``). With
-``train_clip`` the model also holds ``visual_proj``, the text tower and
-``logit_scale`` (``logit_bias`` for SigLIP configs), under the reference
-checkpoint's names.
+decode in exact fp32 (``tools/test_reconstruction_hf.py:366-370``). As in
+the JAX ``VTPModel``, ``decode_precision="high"`` decodes in fp32 with the
+bf16x3 split, and a ``decode_dtype`` (bf16) decodes in that dtype instead.
+With ``train_clip`` the model also holds ``visual_proj``, the text tower
+and ``logit_scale`` (``logit_bias`` for SigLIP configs), under the
+reference checkpoint's names.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ from vtp_tpu_torch.models.text_encoder import TextConfig, TextTransformer
 from vtp_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import patch_tokens_to_4d
+from vtp_tpu_torch.ops.precision import check_precision
 
 DEFAULT_LOGIT_SCALE = math.log(1 / 0.07)
 # Checkpoint keys of the text tower, which lives under ``text.`` here
@@ -132,17 +138,26 @@ class VTPModel(nn.Module):
     checkpoint's top-level text keys) and ``logit_scale``.
 
     The constructor allocates the parameters on ``device`` without
-    initialising them; use :meth:`init` for random weights or
-    :meth:`load_numpy_state_dict` for converted ones."""
+    initialising them; use :meth:`init` for random weights,
+    :meth:`from_checkpoint` for an HF-layout checkpoint or
+    :meth:`load_numpy_state_dict` for converted weights. ``encode_dtype``
+    is the encode's and the CLIP towers' compute dtype (None: fp32);
+    ``decode_dtype`` None decodes in fp32 at ``decode_precision``
+    ("float32" exact, "high" bf16x3), a dtype decodes in it."""
 
     def __init__(self, config: VTPConfig, device="cuda",
-                 encode_dtype: torch.dtype = torch.bfloat16):
+                 encode_dtype: Optional[torch.dtype] = torch.bfloat16,
+                 decode_dtype: Optional[torch.dtype] = None,
+                 decode_precision: str = "float32"):
         super().__init__()
         if config.vision_qkv_head_major != 1:
             raise NotImplementedError(
                 "head-major qkv checkpoints (vision_qkv_head_major > 1) are not ported")
+        check_precision(decode_precision)
         self.config = config
         self.encode_dtype = encode_dtype
+        self.decode_dtype = decode_dtype
+        self.decode_precision = decode_precision
         with torch.device("meta"):
             self.trunk = VisionTransformer(vit_config_from(config))
             self.pixel_decoder = (PixelDecoder(decoder_config_from(config))
@@ -179,6 +194,24 @@ class VTPModel(nn.Module):
         if model.pixel_decoder is not None:
             model.pixel_decoder.reset_parameters(generator)
         return model
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device="cuda", config: Optional[VTPConfig] = None,
+                        **kw) -> "VTPModel":
+        """A model loaded from an HF-layout checkpoint directory
+        (``config.json`` + ``*.safetensors``; ``convert.load_vtp_checkpoint``),
+        the counterpart of ``from_torch_checkpoint``."""
+        from vtp_tpu_torch.convert import load_vtp_checkpoint
+
+        config, sd = load_vtp_checkpoint(path, config)
+        model = cls(config, device=device, **kw)
+        model.load_numpy_state_dict(sd)
+        return model
+
+    def quantize_for_serving(self, parts=("trunk",)) -> "VTPModel":
+        """The JAX package's int8 W8A8 serving tier (``utils/quantization``)
+        is not ported."""
+        raise NotImplementedError("int8 serving (quantize_for_serving) is not ported")
 
     @torch.no_grad()
     def load_numpy_state_dict(self, sd: Dict[str, np.ndarray]) -> None:
@@ -259,6 +292,24 @@ class VTPModel(nn.Module):
         return logits, logits.t()
 
     @torch.no_grad()
+    def get_last_layer_feature(self, image: torch.Tensor, use_bottleneck: bool = False
+                               ) -> Dict[str, torch.Tensor]:
+        """(modeling_vtp.py:184-212): {"cls_token", "patch_tokens"}."""
+        out = self.trunk.forward_features(image, use_bottleneck=use_bottleneck,
+                                          compute_dtype=self.encode_dtype)
+        return {"cls_token": out["x_norm_clstoken"], "patch_tokens": out["x_norm_patchtokens"]}
+
+    @torch.no_grad()
+    def get_intermediate_layers_feature(self, image: torch.Tensor,
+                                        n: Union[int, Sequence[int]] = 1, reshape: bool = False,
+                                        return_class_token: bool = False, norm: bool = True
+                                        ) -> Tuple:
+        """(modeling_vtp.py:214-240): always bypasses the bottleneck."""
+        return self.trunk.get_intermediate_layers(image, n, reshape=reshape,
+                                                  return_class_token=return_class_token,
+                                                  norm=norm, compute_dtype=self.encode_dtype)
+
+    @torch.no_grad()
     def get_reconstruction_latents(self, image: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) image -> (B, d, H/p, W/p) bottleneck latents, encoded
         in ``encode_dtype`` (modeling_vtp.py:337-360)."""
@@ -270,9 +321,37 @@ class VTPModel(nn.Module):
 
     @torch.no_grad()
     def get_latents_decoded_images(self, latents: torch.Tensor,
-                                   precision: str = "float32") -> torch.Tensor:
-        """Latents -> (B, 3, H, W) RGB, decoded in exact fp32
-        (modeling_vtp.py:362-377)."""
+                                   precision: Optional[str] = None) -> torch.Tensor:
+        """Latents -> (B, 3, H, W) RGB (modeling_vtp.py:362-377): in fp32 at
+        ``precision`` (default: the model's ``decode_precision``), or in
+        ``decode_dtype`` when the model has one."""
         if self.pixel_decoder is None:
             raise ValueError("this config has no pixel decoder (train_reconstruction=False)")
-        return self.pixel_decoder(latents, precision=precision)
+        if self.decode_dtype is not None:
+            return self.pixel_decoder(latents, compute_dtype=self.decode_dtype)
+        return self.pixel_decoder(latents, precision=precision or self.decode_precision)
+
+    def forward(self, image: Optional[torch.Tensor] = None, text: Optional[torch.Tensor] = None,
+                forward_type: str = "clip") -> Dict[str, torch.Tensor]:
+        """(modeling_vtp.py:399-472): "clip" (normalized features and the
+        logit scale), "rec" (latents and their decode) or "feature" (the
+        bottlenecked last-layer feature)."""
+        if forward_type == "clip":
+            result = {}
+            if image is not None:
+                result["image_features"] = self.get_clip_image_feature(
+                    image, True, self.encode_dtype)
+            if text is not None:
+                result["text_features"] = self.get_clip_text_feature(text, True, self.encode_dtype)
+            result["logit_scale"] = torch.exp(self.logit_scale.detach())
+            if self.logit_bias is not None:
+                result["logit_bias"] = self.logit_bias.detach()
+            return result
+        if forward_type == "rec":
+            latents = self.get_reconstruction_latents(image)
+            return {"latents": latents,
+                    "reconstructed_image": self.get_latents_decoded_images(latents),
+                    "target_image": image}
+        if forward_type == "feature":
+            return self.get_last_layer_feature(image, use_bottleneck=True)
+        raise ValueError(f"Invalid forward_type: {forward_type}")

@@ -4,7 +4,8 @@
 fp32 scores and softmax, probabilities cast to the value dtype before
 the PV product, which accumulates in fp32. This is the explicit-math
 oracle; ``F.scaled_dot_product_attention`` rounds differently and is not
-used by the port.
+used by the port. ``precision="high"`` takes both products as the bf16x3
+split (``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from vtp_tpu_torch.ops.precision import check_precision, matmul_high_reference
 
 
 def sdpa_reference(
@@ -21,16 +24,19 @@ def sdpa_reference(
     bias: Optional[torch.Tensor] = None,
     is_causal: bool = False,
     n_valid: int = 0,
+    precision: str = "float32",
 ) -> torch.Tensor:
     """Attention over ``(B, heads, N, head_dim)`` tensors.
 
     bias: optional additive mask broadcastable to ``(B, heads, Nq, Nk)``.
     n_valid: when nonzero, key columns ``>= n_valid`` are masked.
     """
+    check_precision(precision)
+    matmul = matmul_high_reference if precision == "high" else torch.matmul
     scale = q.shape[-1] ** -0.5
     # products of bf16 values are exact in fp32, so this is fp32
     # accumulation of the working-dtype operands
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.float()
     nq, nk = scores.shape[-2], scores.shape[-1]
@@ -41,5 +47,5 @@ def sdpa_reference(
         keep = torch.ones((nq, nk), dtype=torch.bool, device=scores.device).tril(nk - nq)
         scores = scores.masked_fill(~keep, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.matmul(probs.float(), v.float())
+    out = matmul(probs.float(), v.float())
     return out.to(q.dtype)

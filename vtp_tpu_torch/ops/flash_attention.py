@@ -12,16 +12,19 @@ versions.
 
 The wrappers pick by the tensor's device alone (``ops/dispatch.py``): a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
-raises. The forward kernel has two arms chosen by dtype: bf16 (the
-encode and training) and exact fp32 (the decode). The TPU kernel's fp32
-bf16x3 ("high") arm is not ported.
+raises. The forward kernel has three arms: bf16 (the encode and
+training), and for fp32 (the decode) by ``fp32_precision`` as the JAX
+wrapper (:398-421): exact ("float32") or the bf16x3 split ("high", the
+TPU kernel's ``dot_mode="bf16_3x"``, :466-475 and :516-526). A bf16 call
+ignores ``fp32_precision``, as the JAX kernel does.
 
 ``fused_qkv_rope_attention`` is differentiable through
 ``torch.autograd.Function``; its backward picks as ``_fused_with_vjp.bwd``
 does: bf16 runs the backward kernel, with its qk-norm arm when the call
 has qk-norm scales (the DiT training path; the RMSNorm adjoint and the
 scales' gradients), and the plain version of the same arm on the CPU;
-fp32 recomputes the plain forward and takes its autograd. The RoPE tables
+fp32 recomputes the exact plain forward and takes its autograd, at either
+precision ("high" is an inference mode). The RoPE tables
 get no gradient: the periods are a buffer, not a parameter. The TPU
 package's VMEM gate on the qk-norm arm (``_fused_bwd_qk_norm_fits``) has
 no counterpart here.
@@ -37,6 +40,7 @@ import torch
 from vtp_tpu_torch.ops.attention import sdpa_reference
 from vtp_tpu_torch.ops.dispatch import count_launch, on_kernel_device
 from vtp_tpu_torch.ops.norms import rms_norm
+from vtp_tpu_torch.ops.precision import check_precision, split_bf16
 from vtp_tpu_torch.ops.rope import rope_apply
 
 KERNEL_HEAD_DIM = 64
@@ -46,11 +50,27 @@ _ENTRY = {torch.bfloat16: "vtp_fused_qkv_rope_attention_bf16",
 # launch-count names, one per arm
 ARM_NAME = {torch.bfloat16: "fused_qkv_rope_attention_bf16",
             torch.float32: "fused_qkv_rope_attention_fp32"}
+HIGH_ENTRY = "vtp_fused_qkv_rope_attention_f32_bf16x3"
+HIGH_NAME = "fused_qkv_rope_attention_fp32_bf16x3"
 BWD_ENTRY = "vtp_fused_qkv_rope_attention_bwd_bf16"
 BWD_NAME = "fused_qkv_rope_attention_bwd_bf16"
 NORM_BWD_ENTRY = "vtp_fused_qkv_rope_attention_qk_norm_bwd_bf16"
 NORM_BWD_NAME = "fused_qkv_rope_attention_qk_norm_bwd_bf16"
 NORM_EPS = 1e-5  # the kernels' qk-RMSNorm epsilon
+
+
+def _is_high(dtype: torch.dtype, fp32_precision: str) -> bool:
+    """Whether a call takes the bf16x3 arm: fp32 input at "high"."""
+    return dtype == torch.float32 and fp32_precision == "high"
+
+
+def _rms_norm_high(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``rms_norm`` whose mean of squares sums the bf16x3 halves of each
+    square, as the TPU kernel's statistics dot does at "high"."""
+    xf = x.float()
+    hi, lo = split_bf16(xf * xf)
+    ms = (hi.float() + lo.float()).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + NORM_EPS)).to(x.dtype) * weight
 
 
 def fused_qkv_rope_attention_reference(
@@ -62,26 +82,34 @@ def fused_qkv_rope_attention_reference(
     k_scale: Optional[torch.Tensor] = None,
     n_valid: int = 0,
     is_causal: bool = False,
+    fp32_precision: str = "float32",
 ) -> torch.Tensor:
-    """Plain version: (B, N, 3*H*d) packed [Q|K|V] -> (B, N, H*d)."""
+    """Plain version: (B, N, 3*H*d) packed [Q|K|V] -> (B, N, H*d). At
+    ``fp32_precision="high"`` an fp32 call takes the qk-norm statistics,
+    the scores and p·v as the bf16x3 split."""
     B, N, three_d = qkv.shape
     D = three_d // 3
     d = D // num_heads
+    high = _is_high(qkv.dtype, fp32_precision)
     q, k, v = qkv.reshape(B, N, 3, num_heads, d).unbind(2)
     if q_scale is not None:
-        q = rms_norm(q, q_scale).to(qkv.dtype)
-        k = rms_norm(k, k_scale).to(qkv.dtype)
+        norm = _rms_norm_high if high else rms_norm
+        q = norm(q, q_scale).to(qkv.dtype)
+        k = norm(k, k_scale).to(qkv.dtype)
     if sin is not None:
         s = sin[None, :, None, :].to(torch.bfloat16)
         c = cos[None, :, None, :].to(torch.bfloat16)
         q = rope_apply(q.to(torch.bfloat16), s, c).to(qkv.dtype)
         k = rope_apply(k.to(torch.bfloat16), s, c).to(qkv.dtype)
     o = sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                       is_causal=is_causal, n_valid=n_valid)
+                       is_causal=is_causal, n_valid=n_valid,
+                       precision="high" if high else "float32")
     return o.transpose(1, 2).reshape(B, N, D)
 
 
-def _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid) -> None:
+def _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid,
+           fp32_precision="float32") -> None:
+    check_precision(fp32_precision)
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, N, 3*H*d) with H={num_heads}; got {tuple(qkv.shape)}")
     if qkv.dtype not in _ENTRY:
@@ -109,7 +137,13 @@ def _kernel_fn(entry: str, n_pointers: int = 6):
     return fn
 
 
-def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal) -> torch.Tensor:
+def arm_name(dtype: torch.dtype, fp32_precision: str = "float32") -> str:
+    """The launch-count name of the forward arm a call takes."""
+    return HIGH_NAME if _is_high(dtype, fp32_precision) else ARM_NAME[dtype]
+
+
+def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
+            fp32_precision) -> torch.Tensor:
     B, N, three_d = qkv.shape
     D = three_d // 3
     if D // num_heads != KERNEL_HEAD_DIM:
@@ -128,21 +162,24 @@ def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal) -> t
         k_scale = k_scale.float().contiguous()
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _kernel_fn(_ENTRY[qkv.dtype])(
+    high = _is_high(qkv.dtype, fp32_precision)
+    rc = _kernel_fn(HIGH_ENTRY if high else _ENTRY[qkv.dtype])(
         ptr(qkv), ptr(sin), ptr(cos), ptr(q_scale), ptr(k_scale), ptr(out),
         B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {rc}")
-    count_launch(ARM_NAME[qkv.dtype])
+    count_launch(arm_name(qkv.dtype, fp32_precision))
     return out
 
 
-def _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal) -> torch.Tensor:
+def _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
+             fp32_precision="float32") -> torch.Tensor:
     if on_kernel_device(qkv):
-        return _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal)
+        return _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
+                       fp32_precision)
     return fused_qkv_rope_attention_reference(qkv, sin, cos, num_heads, q_scale, k_scale,
-                                              n_valid, is_causal)
+                                              n_valid, is_causal, fp32_precision)
 
 
 def _rope_adjoint(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -361,10 +398,12 @@ class _FusedAttention(torch.autograd.Function):
     or the plain version by device."""
 
     @staticmethod
-    def forward(ctx, qkv, sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal):
+    def forward(ctx, qkv, sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal,
+                fp32_precision):
         ctx.save_for_backward(qkv, sin, cos, q_scale, k_scale)
         ctx.args = (num_heads, n_valid, is_causal)
-        return _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal)
+        return _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
+                        fp32_precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -373,13 +412,13 @@ class _FusedAttention(torch.autograd.Function):
         if qkv.dtype == torch.bfloat16 and q_scale is None:
             d_qkv = fused_qkv_rope_attention_bwd(qkv, g.to(qkv.dtype), sin, cos, num_heads,
                                                  n_valid, is_causal)
-            return d_qkv, None, None, None, None, None, None, None
+            return d_qkv, None, None, None, None, None, None, None, None
         if qkv.dtype == torch.bfloat16:
             d_qkv, d_qs, d_ks = fused_qkv_rope_attention_qk_norm_bwd(
                 qkv, g.to(qkv.dtype), sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal)
             return (d_qkv, None, None, d_qs.to(q_scale.dtype), d_ks.to(k_scale.dtype), None, None,
-                    None)
-        # fp32: autograd of the recomputed plain forward
+                    None, None)
+        # fp32, either precision: autograd of the recomputed exact plain forward
         with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_()
                       for t in (qkv, q_scale, k_scale)]
@@ -389,7 +428,7 @@ class _FusedAttention(torch.autograd.Function):
             grads = list(torch.autograd.grad(out, wrt, g))
         d_qkv = grads.pop(0)
         d_qs, d_ks = (grads[0], grads[1]) if q_scale is not None else (None, None)
-        return d_qkv, None, None, d_qs, d_ks, None, None, None
+        return d_qkv, None, None, d_qs, d_ks, None, None, None, None
 
 
 def fused_qkv_rope_attention(
@@ -401,13 +440,15 @@ def fused_qkv_rope_attention(
     k_scale: Optional[torch.Tensor] = None,
     n_valid: int = 0,
     is_causal: bool = False,
+    fp32_precision: str = "float32",
 ) -> torch.Tensor:
     """(B, N, 3*H*d) packed [Q|K|V] -> (B, N, H*d), differentiable.
 
     sin/cos: (N, d) tables with the identity rotation over any prefix,
     or None for no RoPE. q_scale/k_scale: (d,) qk-RMSNorm scales or
     None. n_valid: mask key columns >= n_valid (0 = all valid).
-    is_causal: mask key columns > the query row."""
-    _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid)
+    is_causal: mask key columns > the query row. fp32_precision: the fp32
+    dot mode, "float32" (exact) or "high" (bf16x3); bf16 ignores it."""
+    _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, fp32_precision)
     return _FusedAttention.apply(qkv, sin, cos, q_scale, k_scale, num_heads, int(n_valid),
-                                 bool(is_causal))
+                                 bool(is_causal), fp32_precision)
