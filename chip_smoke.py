@@ -6,8 +6,9 @@
 1. builds the port's CUDA kernels from ``vtp_tpu_torch/csrc`` with nvcc;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' VTP-L shapes and on small cases for every flag: the fused
-   attention forward, its backward and the fused DINO/iBOT cross-entropy
-   (forward and backward);
+   attention forward, its backward, the fused DINO/iBOT cross-entropy
+   (forward and backward) and the strided attention without a prologue
+   (both entries, head dims 32, 64 and 128, the text path's strided view);
 3. runs the roundtrip once through the public API at full VTP-L width:
    ``VTPModel.init`` with seeded random weights, a batch of 8 random 256x256
    images -> bf16 latents -> exact-fp32 images; checks the outputs and that
@@ -22,6 +23,16 @@
    encode, decode, clip_image and clip_text requests of 1, 3, 8 and 40
    rows; counts the launches, prints rows/s and p50/p99 latency per kind,
    and after shutdown holds every result against a direct call;
+   the head-major checkpoint path: the roundtrip's weights permuted to
+   ``vision_qkv_head_major = 4`` (the layout a tensor-parallel run writes),
+   written with ``save_pretrained`` (the native format) to a temporary
+   directory and loaded back with ``VTPModel.from_checkpoint`` (checked bit
+   for bit); its encode, counted (24 ``flash_attention_bnhd`` launches, no
+   fused forward), against the canonical model's latents and the plain
+   versions, and its roundtrip timed beside the canonical one;
+   the non-causal CLIP text path: the VTP-L model with
+   ``text_no_causal_mask``, ``get_clip_text_feature`` at B = 32, L = 77,
+   counted (12 ``flash_attention`` launches) and against the plain versions;
 4. runs the VTP-L CLIP+SSL+rec train step (``init_state``,
    ``build_train_step``; B = 8 images, each with a CLIP pair, a
    reconstruction target and 2 global + 4 local SSL crops) once on the
@@ -82,6 +93,15 @@ SAMPLE_BATCH = 8   # images sampled
 SAMPLE_STEPS = 250
 # The DiT-XL/1 attention (B, N, H, rope grid): 16x16 latents, patch 1, 18 heads of 64
 DIT_ATTENTION = (DIT_BATCH, 256, 18, 16)
+FLASH_SOURCE = "vtp_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"bnhd": "vtp_tpu/ops/flash_attention.py:953",
+                  "bhnd": "vtp_tpu/ops/flash_attention.py:1081"}
+HEAD_MAJOR = 4     # the head-major layout of a 4-way tensor-parallel run
+TEXT_BATCH = 32    # CLIP text rows, at the context length of 77
+# The strided kernel's main shapes: the head-major trunk (B, N, H, d) and the
+# non-causal text tower (B, N, H, d) = (32, 77, 12, 64)
+FLASH_TRUNK = (BATCH, 257, 16, 64)
+FLASH_TEXT = (TEXT_BATCH, 77, 12, 64)
 CE_SOURCE = "vtp_tpu_torch/csrc/fused_ce.cu"
 CE_REPLACES = {"fwd": "vtp_tpu/ops/fused_ce.py:148", "bwd": "vtp_tpu/ops/fused_ce.py:200"}
 # The train step's attention call sites (name, B, N, H, rope grid, prefix, causal) at
@@ -144,18 +164,21 @@ def _plain_kernels():
     from vtp_tpu_torch.ops import fused_ce
 
     saved = (fa._forward, fa.fused_qkv_rope_attention_bwd,
-             fa.fused_qkv_rope_attention_qk_norm_bwd, fused_ce.fused_ce_fwd,
-             fused_ce.fused_ce_bwd)
+             fa.fused_qkv_rope_attention_qk_norm_bwd, fa._flash_bnhd_forward, fa._flash_forward,
+             fused_ce.fused_ce_fwd, fused_ce.fused_ce_bwd)
     fa._forward = fa.fused_qkv_rope_attention_reference
     fa.fused_qkv_rope_attention_bwd = fa.fused_qkv_rope_attention_bwd_reference
     fa.fused_qkv_rope_attention_qk_norm_bwd = fa.fused_qkv_rope_attention_qk_norm_bwd_reference
+    fa._flash_bnhd_forward = fa.flash_attention_bnhd_reference
+    fa._flash_forward = fa.flash_attention_reference
     fused_ce.fused_ce_fwd = fused_ce.fused_ce_fwd_reference
     fused_ce.fused_ce_bwd = fused_ce.fused_ce_bwd_reference
     try:
         yield
     finally:
         (fa._forward, fa.fused_qkv_rope_attention_bwd, fa.fused_qkv_rope_attention_qk_norm_bwd,
-         fused_ce.fused_ce_fwd, fused_ce.fused_ce_bwd) = saved
+         fa._flash_bnhd_forward, fa._flash_forward, fused_ce.fused_ce_fwd,
+         fused_ce.fused_ce_bwd) = saved
 
 
 def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False):
@@ -380,14 +403,12 @@ def run_serve(model, card):
         loaded = VTPModel.from_checkpoint(d, device="cuda", decode_precision="high")
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-    own, got = model.state_dict(), loaded.state_dict()
-    same = own.keys() == got.keys() and all(torch.equal(own[k], got[k]) for k in own)
+    same = _same_state(model, loaded)
     print(f"serve: checkpoint of {size / 1e9:.2f} GB written in {save_s:.1f} s, loaded by "
           f"VTPModel.from_checkpoint in {load_s:.1f} s (warm page cache); state bit for bit "
           f"{'ok' if same else 'FAIL'}", flush=True)
     if not same:
         raise AssertionError("the loaded checkpoint differs from the saved model")
-    del own, got
 
     rng = np.random.default_rng(SEED)
     s, g = cfg.image_size, cfg.image_size // cfg.vision_patch_size
@@ -584,6 +605,216 @@ def check_dit_kernels(gen):
         if name == "dit_xl":
             errs["attention_bwd_qk_norm"] = err
     return errs
+
+
+def _flash_inputs(gen, bnhd, B, N, H, d, view=False):
+    """bf16 q, k, v in the entry's layout, (B, N, H, d) or (B, H, N, d); with
+    ``view``, the text path's permuted views of one (B, N, 3*H*d) qkv."""
+    import torch
+
+    if view:
+        qkv = torch.randn((B, N, 3 * H * d), generator=gen, device="cuda").bfloat16()
+        return qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+    shape = (B, N, H, d) if bnhd else (B, H, N, d)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+
+
+def check_flash_kernels(gen):
+    """Phase 2, the strided attention without a prologue: both entries at the
+    head-major trunk's and the text tower's shapes, at head dims 32 and 128
+    on a small shape, and the (B, H, N, d) entry on the text path's strided
+    view of its qkv GEMM output; each held to the fused bf16 arm's
+    tolerance (1e-2 of max|ref|) against its plain version. Returns each
+    entry's error at its main path's shape."""
+    import torch
+
+    from vtp_tpu_torch.ops import flash_attention as fa
+
+    entries = {True: (fa.flash_attention_bnhd, fa.flash_attention_bnhd_reference,
+                      fa.FLASH_BNHD_NAME),
+               False: (fa.flash_attention, fa.flash_attention_reference, fa.FLASH_NAME)}
+    cases = [(name, bnhd, shape, False) for bnhd in (True, False)
+             for name, shape in (("trunk", FLASH_TRUNK), ("text", FLASH_TEXT),
+                                 ("d32", (2, 197, 4, 32)), ("d128", (2, 197, 4, 128)))]
+    cases.append(("text_qkv_view", False, FLASH_TEXT, True))
+    errs = {}
+    for name, bnhd, (B, N, H, d), view in cases:
+        kern, plain, label = entries[bnhd]
+        q, k, v = _flash_inputs(gen, bnhd, B, N, H, d, view)
+        with torch.no_grad():
+            got = kern(q, k, v)
+            torch.cuda.synchronize()
+            want = plain(q, k, v)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
+        print(f"kernel {label} {name:14s} B={B} N={N} H={H} d={d}: max abs err {err:.3e} "
+              f"(max|ref| {scale:.3e}; limit 1e-2 rel) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label} {name} disagrees with its plain version")
+        if (name, bnhd) in (("trunk", True), ("text_qkv_view", False)):
+            errs[label] = err
+    return errs
+
+
+def _same_state(a, b) -> bool:
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def run_head_major(model, images, exact_s):
+    """Phase 3d: the head-major checkpoint path. The roundtrip's weights in
+    the layout of a HEAD_MAJOR-way tensor-parallel run, written with
+    ``save_pretrained`` (the native format) to a temporary directory and
+    loaded with ``VTPModel.from_checkpoint`` (checked bit for bit); one
+    encode, counted (VTP-L depth ``flash_attention_bnhd`` launches and no
+    fused forward), held within 5e-2 of max|ref| to the canonical model's
+    latents and to the same model on the plain versions; then the
+    head-major roundtrip (encode and exact decode) timed beside the
+    canonical one. Returns the launches of one head-major roundtrip."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.checkpoint import save_pretrained
+    from vtp_tpu_torch.convert.to_torch import export_state_dict
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, FLASH_BNHD_NAME
+
+    cfg = dataclasses.replace(model.config, vision_qkv_head_major=HEAD_MAJOR)
+    hm = VTPModel(cfg, device="cuda")
+    hm.load_numpy_state_dict(export_state_dict(model))
+    key = "trunk.blocks.0.attn.qkv.weight"
+    if torch.equal(hm.state_dict()[key], model.state_dict()[key]):
+        raise AssertionError("the head-major model holds canonical qkv columns")
+    n_bytes = sum(t.numel() * 4 for t in hm.state_dict().values())
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * n_bytes:
+        raise AssertionError(f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint needs "
+                             f"{n_bytes / 1e9:.1f} GB")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_pretrained(d, hm)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.perf_counter()
+        loaded = VTPModel.from_checkpoint(d, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    same = loaded.config == cfg and _same_state(loaded, hm)
+    print(f"head-major: native checkpoint (vision_qkv_head_major={HEAD_MAJOR}) of "
+          f"{size / 1e9:.2f} GB written by save_pretrained in {save_s:.1f} s, loaded by "
+          f"VTPModel.from_checkpoint in {load_s:.1f} s (warm page cache); state bit for bit "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("the loaded native checkpoint differs from the saved model")
+    del hm
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    latents = loaded.get_reconstruction_latents(images)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {FLASH_BNHD_NAME: cfg.vision_depth}
+    print(f"head-major encode: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"head-major encode launches {counts}, expected {want}")
+    canon = model.get_reconstruction_latents(images)
+    with _plain_kernels():
+        plain = loaded.get_reconstruction_latents(images)
+    torch.cuda.synchronize()
+    if tuple(latents.shape) != tuple(canon.shape) or latents.dtype != torch.bfloat16:
+        raise AssertionError(f"head-major latents {tuple(latents.shape)} {latents.dtype}")
+    errs = [((latents.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            for ref in (canon, plain)]
+    ok = max(errs) <= 5e-2 and torch.isfinite(latents).all().item()
+    print(f"head-major latents vs the canonical model's (fused kernel) on the same weights: "
+          f"max err {errs[0]:.3e} of max|ref|; vs the plain versions: {errs[1]:.3e} "
+          f"(limit 5e-2) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("head-major latents disagree with the canonical or plain run")
+
+    reset_launch_counts()
+    loaded.get_latents_decoded_images(loaded.get_reconstruction_latents(images))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {FLASH_BNHD_NAME: cfg.vision_depth, ARM_NAME[torch.float32]: cfg.decoder_depth}
+    if counts != want:
+        raise AssertionError(f"head-major roundtrip launches {counts}, expected {want}")
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded.get_latents_decoded_images(loaded.get_reconstruction_latents(images))
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    hm_s = statistics.median(samples)
+    print(f"roundtrip VTP-L 256px B={BATCH}, head-major trunk: {hm_s * 1e3:.2f} ms, "
+          f"{BATCH / hm_s:.2f} images/s; canonical: {exact_s * 1e3:.2f} ms, "
+          f"{BATCH / exact_s:.2f} images/s (host clock, median of 5 each)", flush=True)
+    return counts, loaded
+
+
+def run_text(gen, model):
+    """Phase 3e: the non-causal CLIP text path. The VTP-L model's weights in a
+    model with ``text_no_causal_mask``; one ``get_clip_text_feature`` call at
+    B = TEXT_BATCH, L = 77, counted (text depth ``flash_attention``
+    launches), held within 5e-2 of max|ref| to the same call on the plain
+    versions, then timed (host clock, median of 5) beside the causal call
+    of the canonical model. Returns the launches of one call."""
+    import dataclasses
+
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import FLASH_NAME
+
+    cfg = dataclasses.replace(model.config, text_no_causal_mask=True)
+    txt = VTPModel(cfg, device="cuda")
+    txt.load_state_dict(model.state_dict())
+    tokens = torch.randint(1, cfg.text_vocab_size - 1, (TEXT_BATCH, cfg.text_context_length),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    feat = txt.get_clip_text_feature(tokens)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {FLASH_NAME: cfg.text_depth}
+    print(f"non-causal text: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"non-causal text launches {counts}, expected {want}")
+    with _plain_kernels():
+        ref = txt.get_clip_text_feature(tokens)
+    torch.cuda.synchronize()
+    if tuple(feat.shape) != (TEXT_BATCH, cfg.text_embed_dim):
+        raise AssertionError(f"text features {tuple(feat.shape)}")
+    err = ((feat.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    ok = err <= 5e-2 and torch.isfinite(feat).all().item()
+    print(f"non-causal text features vs the plain versions: max err {err:.3e} of max|ref| "
+          f"(limit 5e-2) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("non-causal text features disagree with the plain run")
+    times = {}
+    for label, m in (("non-causal", txt), ("causal", model)):
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.get_clip_text_feature(tokens)
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        times[label] = statistics.median(samples)
+    print(f"clip text VTP-L B={TEXT_BATCH} L={cfg.text_context_length}: non-causal "
+          f"{times['non-causal'] * 1e3:.2f} ms, causal {times['causal'] * 1e3:.2f} ms "
+          f"(host clock, median of 5 each)", flush=True)
+    return counts
 
 
 def _train_batch(gen, cfg):
@@ -1047,6 +1278,46 @@ def time_kernels(gen, card, errs, counts):
     return rows
 
 
+def time_flash_kernels(gen, card, errs, counts):
+    """Phase 5, the strided attention: each entry at its main path's shape
+    (the text entry on the text path's strided view), its plain version and
+    SDPA on the same bf16 (B, H, N, d) operands, and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtp_tpu_torch.ops import flash_attention as fa
+
+    bw, bf16_peak, _ = next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+    rows = []
+    for bnhd, (B, N, H, d) in ((True, FLASH_TRUNK), (False, FLASH_TEXT)):
+        q, k, v = _flash_inputs(gen, bnhd, B, N, H, d, view=not bnhd)
+        if bnhd:
+            name, kern, plain = (fa.FLASH_BNHD_NAME, fa.flash_attention_bnhd,
+                                 fa.flash_attention_bnhd_reference)
+            lq, lk, lv = (t.transpose(1, 2) for t in (q, k, v))
+        else:
+            name, kern, plain = fa.FLASH_NAME, fa.flash_attention, fa.flash_attention_reference
+            lq, lk, lv = q, k, v
+        with torch.no_grad():
+            ms = _time_ms(lambda: kern(q, k, v))
+            plain_ms = _time_ms(lambda: plain(q, k, v))
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+        nbytes = 4 * B * N * H * d * 2
+        flops = 4 * B * H * N * N * d
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES["bnhd" if bnhd else "bhnd"],
+            "launches": counts.get(name, 0), "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+        })
+        print(f"timing {name} B={B} N={N} H={H} d={d} on {card}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+    return rows
+
+
 def profile_run(label: str, fn) -> None:
     """Phase 6 (--profile): device time of one call of ``fn`` by kernel, by
     kind of kernel, and the device's idle share of the wall time."""
@@ -1068,6 +1339,7 @@ def profile_run(label: str, fn) -> None:
     kinds = {}
     for name, (ms, _) in by_name.items():
         kind = ("fused attention" if "fused_qkv_rope_attention" in name else
+                "flash attention" if "flash_attention_kernel" in name else
                 "attention backward" if "attention_bwd" in name else
                 "fused CE" if "fused_ce" in name else
                 "GEMM" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass")) else
@@ -1112,6 +1384,7 @@ def main() -> int:
     errs = check_kernel(gen)
     errs.update(check_train_kernels(gen))
     errs.update(check_dit_kernels(gen))
+    errs.update(check_flash_kernels(gen))
 
     _set_phase("roundtrip")
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -1130,11 +1403,21 @@ def main() -> int:
         _set_phase("profile high roundtrip")
         profile_run("high roundtrip", lambda: model.get_latents_decoded_images(
             model.get_reconstruction_latents(images), precision="high"))
-    del images
     _set_phase("serve")
     serve_counts = run_serve(model, card_line)
     if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != prev_tf32:
         raise AssertionError("the decodes did not restore the TF32 settings")
+    torch.cuda.empty_cache()
+    _set_phase("head-major")
+    hm_counts, hm_model = run_head_major(model, images, rt_s)
+    if profiling:
+        _set_phase("profile head-major roundtrip")
+        profile_run("head-major roundtrip", lambda: hm_model.get_latents_decoded_images(
+            hm_model.get_reconstruction_latents(images)))
+    del hm_model
+    _set_phase("non-causal text")
+    text_counts = run_text(gen, model)
+    del images
     torch.cuda.empty_cache()
     _set_phase("dit latents")
     tokenizer, latents, latent_stats = dit_latents(gen, model)
@@ -1180,14 +1463,17 @@ def main() -> int:
 
     _set_phase("timing")
     # launches: each arm's count summed over the main paths' runs (one
-    # roundtrip, one high roundtrip, the serve run, one train step, one DiT
-    # train step, one 250-step sample)
-    for run in (high_counts, serve_counts, train_counts, dit_counts, sample_counts):
+    # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
+    # one non-causal text call, one train step, one DiT train step, one
+    # 250-step sample)
+    for run in (high_counts, serve_counts, hm_counts, text_counts, train_counts, dit_counts,
+                sample_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     rows = time_kernels(gen, card_line, errs, counts)
     rows += time_train_kernels(gen, card_line, errs, counts)
     rows += time_dit_kernels(gen, card_line, errs, counts)
+    rows += time_flash_kernels(gen, card_line, errs, counts)
 
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": rows}), flush=True)

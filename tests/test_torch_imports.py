@@ -51,7 +51,9 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.generation", "vtp_tpu_torch.generation.vtp_tokenizer",
                 "vtp_tpu_torch.ops.precision", "vtp_tpu_torch.serve", "vtp_tpu_torch.convert",
                 "vtp_tpu_torch.convert.from_torch", "vtp_tpu_torch.convert.to_torch",
-                "vtp_tpu_torch.convert.safetensors_io"):
+                "vtp_tpu_torch.convert.safetensors_io", "vtp_tpu_torch.checkpoint",
+                "vtp_tpu_torch.parallel", "vtp_tpu_torch.parallel.sharding",
+                "vtp_tpu_torch.ops.attention"):
         assert mod in imported
 
 

@@ -106,11 +106,6 @@ def test_bridge_rejects_a_shape_mismatch(tiny):
         model.load_numpy_state_dict({**sd, "trunk.norm.weight": np.ones(64, np.float32)})
 
 
-def test_head_major_checkpoints_are_refused():
-    with pytest.raises(NotImplementedError):
-        VTPModel(VTPConfig(**TINY, vision_qkv_head_major=2), device="cpu")
-
-
 def test_k_bias_mask_in_a_checkpoint_is_folded_into_the_bias():
     _, _, sd, _ = _pair(VARIANT)
     mask = np.concatenate([np.ones(128), np.zeros(128), np.ones(128)]).astype(np.float32)

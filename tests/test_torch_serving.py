@@ -209,13 +209,6 @@ def test_prefixed_keys_and_several_files_load(tmp_path):
         np.testing.assert_array_equal(loaded[k], sd[k])
 
 
-def test_native_checkpoints_are_refused(tmp_path):
-    with open(tmp_path / "config.json", "w") as f:
-        json.dump({"model_format": "vtp_tpu", **JaxConfig(**TINY).to_dict()}, f)
-    with pytest.raises(NotImplementedError, match="native"):
-        VTPModel.from_checkpoint(str(tmp_path), device="cpu")
-
-
 def test_safetensors_reader_takes_bf16_f16_and_f32_from_the_package(tmp_path):
     from safetensors.torch import save_file
 

@@ -9,9 +9,9 @@ of 64 each block's attention is the fused qkv + qk-norm + RoPE kernel
 (``ops/flash_attention.py``), whose backward has the qk-norm arm; the
 JAX package takes the same kernels on a TPU. Head dims outside
 {32, 64, 128} (LightningDiT's 16 heads of 72) take the split path on
-``sdpa_reference``, as the JAX package computes them outside any Pallas
-kernel; head dims 32 and 128 go to the fused function, whose kernel takes
-64 and raises on a CUDA tensor.
+``ops/attention.sdpa``, as the JAX package does, which for those head
+dims is ``sdpa_reference``; head dims 32 and 128 go to the fused function,
+whose kernel takes 64 and raises on a CUDA tensor.
 
 The RoPE periods are an fp32 buffer (``rope_periods``) with no gradient,
 as the fused kernel's VJP gives the tables (the JAX split path on a CPU
@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vtp_tpu_torch.models.blocks import SwiGLUFFN, checkpoint_policy
 from vtp_tpu_torch.models.initializers import linear_, normal_
-from vtp_tpu_torch.ops.attention import sdpa_reference
+from vtp_tpu_torch.ops.attention import sdpa
 from vtp_tpu_torch.ops.ffn import linear, swiglu_hidden_dim
 from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention
 from vtp_tpu_torch.ops.norms import rms_norm
@@ -152,7 +152,7 @@ class DiTAttention(nn.Module):
             k = rope_apply(k.to(sin.dtype), sin, cos).to(k.dtype)
         if compute_dtype is not None:
             q, k, v = (t.to(compute_dtype) for t in (q, k, v))
-        return sdpa_reference(q, k, v).transpose(1, 2).reshape(B, N, cfg.dim)
+        return sdpa(q, k, v).transpose(1, 2).reshape(B, N, cfg.dim)
 
 
 class DiTBlock(nn.Module):

@@ -13,6 +13,14 @@ policies raise. Drop-path is not ported (``train/step.py`` refuses it).
 ``precision`` ("float32" or "high") is the fp32 GEMM and attention mode,
 an explicit argument where the JAX package reads the ambient matmul
 precision (``vtp_tpu/models/blocks.py:216-227``).
+
+A trunk whose qkv columns are in the head-major layout
+(``qkv_head_major > 1``, ``parallel/sharding.py``) takes the split path of
+``attention_apply`` (:233-266), as the JAX package does on one device: the
+columns regrouped per head, then qk-norm, RoPE (``apply_rope_bnhd`` :280),
+the compute-dtype cast and ``sdpa_bnhd`` (:292), whose bf16 case runs
+``flash_attention_bnhd``. The context-parallel arms of ``sdpa_bnhd`` are
+not ported.
 """
 
 from __future__ import annotations
@@ -27,8 +35,14 @@ from torch.utils.checkpoint import checkpoint
 from vtp_tpu_torch.models.initializers import linear_
 from vtp_tpu_torch.ops.activations import ACT
 from vtp_tpu_torch.ops.ffn import ffn_align_to, linear, mlp, swiglu, swiglu_hidden_dim
-from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention
-from vtp_tpu_torch.ops.norms import apply_norm, norm_eps
+from vtp_tpu_torch.ops.attention import sdpa_reference
+from vtp_tpu_torch.ops.flash_attention import (
+    flash_attention_bnhd,
+    flash_supported_bnhd,
+    fused_qkv_rope_attention,
+)
+from vtp_tpu_torch.ops.norms import apply_norm, norm_eps, rms_norm
+from vtp_tpu_torch.ops.rope import rope_apply
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 Shapes = List[Tuple[int, int]]
@@ -48,6 +62,9 @@ class BlockConfig:
     use_qk_norm: bool = False
     mask_k_bias: bool = False  # LinearKMaskedBias (attention.py:26-38)
     act: str = "gelu"
+    # the head-major TP factor the qkv columns are permuted for
+    # (parallel/sharding.py; 1 = canonical [Q|K|V])
+    qkv_head_major: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -93,8 +110,8 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    """qkv GEMM, fused qkv-split + qk-norm + RoPE + attention, out-proj
-    (attention_apply)."""
+    """qkv GEMM, fused qkv-split + qk-norm + RoPE + attention (or, for
+    head-major columns, the split path), out-proj (attention_apply)."""
 
     def __init__(self, cfg: BlockConfig):
         super().__init__()
@@ -109,12 +126,31 @@ class Attention(nn.Module):
     def qkv_bias(self) -> Optional[torch.Tensor]:
         bias = self.qkv.bias
         if self.cfg.mask_k_bias and bias is not None:
-            # LinearKMaskedBias: the K third of the bias is zeroed every forward
-            d = self.cfg.dim
-            keep = torch.ones_like(bias)
-            keep[d:2 * d] = 0
-            bias = bias * keep
+            # LinearKMaskedBias: the K columns of the bias are zeroed every
+            # forward; under the head-major layout they sit in each rank group
+            hm = self.cfg.qkv_head_major
+            keep = torch.ones((hm, 3, self.cfg.dim // hm), dtype=bias.dtype, device=bias.device)
+            keep[:, 1] = 0
+            bias = bias * keep.reshape(-1)
         return bias
+
+    def split_attention(self, qkv: torch.Tensor, rope: Rope, n_valid: int,
+                        compute_dtype: Optional[torch.dtype], precision: str) -> torch.Tensor:
+        """(b, n, 3D) head-major qkv -> (b, n, D): the split path of
+        ``attention_apply`` (:233-266)."""
+        cfg = self.cfg
+        b, n, _ = qkv.shape
+        dg = cfg.dim // cfg.qkv_head_major
+        grp = qkv.reshape(b, n, cfg.qkv_head_major, 3 * dg)
+        q, k, v = (grp[..., i * dg:(i + 1) * dg].reshape(b, n, cfg.num_heads, cfg.head_dim)
+                   for i in range(3))
+        if cfg.use_qk_norm:
+            q, k = rms_norm(q, self.q_norm.weight), rms_norm(k, self.k_norm.weight)
+        if rope is not None:
+            q, k = apply_rope_bnhd(q, k, *rope)
+        if compute_dtype is not None:
+            q, k, v = (t.to(compute_dtype) for t in (q, k, v))
+        return sdpa_bnhd(q, k, v, n_valid, precision).reshape(b, n, cfg.dim)
 
     def forward(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
                 n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
@@ -128,6 +164,10 @@ class Attention(nn.Module):
         for (b, n), rope, n_valid in zip(shapes, ropes, n_valids):
             qkv = qkv_flat[off:off + b * n].reshape(b, n, 3 * cfg.dim)
             off += b * n
+            if cfg.qkv_head_major > 1:
+                o = self.split_attention(qkv, rope, n_valid, compute_dtype, precision)
+                outs.append(o.reshape(b * n, cfg.dim))
+                continue
             o = fused_qkv_rope_attention(
                 qkv,
                 rope[0] if rope is not None else None,
@@ -141,6 +181,27 @@ class Attention(nn.Module):
             outs.append(o.reshape(b * n, cfg.dim))
         o = outs[0] if len(outs) == 1 else torch.cat(outs)
         return linear(o, self.proj.weight, self.proj.bias, compute_dtype, precision)
+
+
+def apply_rope_bnhd(q: torch.Tensor, k: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
+    """RoPE on (B, N, H, hd) with full-length (N, hd) tables, in the tables'
+    dtype, cast back (``apply_rope_bnhd`` :280)."""
+    s, c = sin[None, :, None, :], cos[None, :, None, :]
+    return (rope_apply(q.to(sin.dtype), s, c).to(q.dtype),
+            rope_apply(k.to(sin.dtype), s, c).to(k.dtype))
+
+
+def sdpa_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int = 0,
+              precision: str = "float32") -> torch.Tensor:
+    """Attention over (B, N, H, hd) -> (B, N, H, hd) (``sdpa_bnhd`` :292):
+    ``flash_attention_bnhd`` for bf16 with every key valid when
+    ``flash_supported_bnhd`` holds, else the written-out math with key
+    columns ``>= n_valid`` masked."""
+    if n_valid in (0, q.shape[1]) and flash_supported_bnhd(q, k, v):
+        return flash_attention_bnhd(q, k, v)
+    o = sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       n_valid=n_valid, precision=precision)
+    return o.transpose(1, 2)
 
 
 class SwiGLUFFN(nn.Module):

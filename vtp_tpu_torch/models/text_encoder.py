@@ -3,10 +3,14 @@
 ``text_encode`` :343).
 
 A pre-LN residual transformer with torch ``nn.MultiheadAttention``
-parameter names (fused ``in_proj``). The plain causal case runs on the
-fused attention (``ops/flash_attention.py``: the kernel's causal arm on
-the card, no RoPE); with an appended cls token the pad-aware additive
-mask goes through the plain ``sdpa_reference``, as in the JAX package.
+parameter names (fused ``in_proj``). Attention routes as ``_text_block``
+(:139-148) does: the plain causal case runs on the fused attention
+(``ops/flash_attention.py``: the kernel's causal arm on the card, no
+RoPE); every other case goes through ``ops/attention.sdpa``, which takes
+``flash_attention`` for non-causal unmasked bf16 attention
+(``text_no_causal_mask``) on the permuted q, k, v views of the qkv GEMM
+output, and ``sdpa_reference`` for the pad-aware additive mask of an
+appended cls token.
 Parameter names are the reference checkpoint's (``token_embedding``,
 ``positional_embedding``, ``text_transformer.resblocks.{i}``,
 ``ln_final``, ``text_projection``).
@@ -24,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from vtp_tpu_torch.models.blocks import LayerScale, Norm, checkpoint_policy
 from vtp_tpu_torch.models.initializers import normal_
 from vtp_tpu_torch.ops.activations import ACT
-from vtp_tpu_torch.ops.attention import sdpa_reference
+from vtp_tpu_torch.ops.attention import sdpa
 from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention
 
@@ -99,11 +103,12 @@ class ResidualAttentionBlock(nn.Module):
         act = ACT["quick_gelu" if cfg.quick_gelu else "gelu"]
         h = self.ln_1(x)
         qkv = linear(h, self.attn.in_proj_weight, self.attn.in_proj_bias, compute_dtype)
-        if attn_mask is None:
-            o = fused_qkv_rope_attention(qkv, None, None, cfg.heads, is_causal=is_causal)
+        if is_causal and attn_mask is None:
+            o = fused_qkv_rope_attention(qkv, None, None, cfg.heads, is_causal=True)
         else:
             q, k, v = qkv.reshape(B, L, 3, cfg.heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
-            o = sdpa_reference(q, k, v, bias=attn_mask).transpose(1, 2).reshape(B, L, W)
+            o = sdpa(q, k, v, bias=attn_mask)
+            o = o.transpose(1, 2).reshape(B, L, W)
         o = linear(o, self.attn.out_proj.weight, self.attn.out_proj.bias, compute_dtype)
         if self.ls_1 is not None:
             o = self.ls_1(o)

@@ -50,6 +50,8 @@ class ViTConfig:
     rope_max_period: Optional[float] = None
     rope_normalize_coords: str = "separate"
     rope_dtype: str = "bf16"
+    # the head-major TP layout factor of the qkv parameters (parallel/sharding.py)
+    qkv_head_major: int = 1
 
     @property
     def block(self) -> BlockConfig:
@@ -58,7 +60,7 @@ class ViTConfig:
             ffn_layer=self.ffn_layer, norm_kind=self.norm_layer, qkv_bias=self.qkv_bias,
             proj_bias=self.proj_bias, ffn_bias=self.ffn_bias,
             layerscale_init=self.layerscale_init, use_qk_norm=self.use_qk_norm,
-            mask_k_bias=self.mask_k_bias,
+            mask_k_bias=self.mask_k_bias, qkv_head_major=self.qkv_head_major,
         )
 
     @property

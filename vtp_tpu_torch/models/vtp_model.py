@@ -7,6 +7,13 @@ feature API (port of ``vtp_tpu/models/vtp_model.py``: ``l2_normalize``
 ``VTPModel`` :276, its ``from_torch_checkpoint`` :297 and ``forward``
 :379).
 
+A config with ``vision_qkv_head_major > 1`` (the layout a tensor-parallel
+run writes) builds a trunk whose qkv columns are in that head-major
+layout, as the JAX package keeps them: ``init`` draws canonical weights and
+permutes them (``init_vtp_params`` :125-135), ``load_numpy_state_dict``
+permutes a canonical state dict into it, and ``convert.export_state_dict``
+permutes back.
+
 The dtype protocol is the reference's rFID protocol: encode in bf16
 (inputs and weights cast at each GEMM, fp32 norm statistics and softmax),
 decode in exact fp32 (``tools/test_reconstruction_hf.py:366-370``). As in
@@ -34,6 +41,7 @@ from vtp_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import patch_tokens_to_4d
 from vtp_tpu_torch.ops.precision import check_precision
+from vtp_tpu_torch.parallel.sharding import is_trunk_qkv_key, permute_qkv_state_dict
 
 DEFAULT_LOGIT_SCALE = math.log(1 / 0.07)
 # Checkpoint keys of the text tower, which lives under ``text.`` here
@@ -84,6 +92,7 @@ def vit_config_from(cfg: VTPConfig) -> ViTConfig:
         rope_max_period=cfg.rope_max_period,
         rope_normalize_coords=cfg.rope_normalize_coords,
         rope_dtype=cfg.rope_dtype,
+        qkv_head_major=cfg.vision_qkv_head_major,
     )
 
 
@@ -150,9 +159,6 @@ class VTPModel(nn.Module):
                  decode_dtype: Optional[torch.dtype] = None,
                  decode_precision: str = "float32"):
         super().__init__()
-        if config.vision_qkv_head_major != 1:
-            raise NotImplementedError(
-                "head-major qkv checkpoints (vision_qkv_head_major > 1) are not ported")
         check_precision(decode_precision)
         self.config = config
         self.encode_dtype = encode_dtype
@@ -193,14 +199,23 @@ class VTPModel(nn.Module):
                     model.logit_bias.fill_(config.init_logit_bias)
         if model.pixel_decoder is not None:
             model.pixel_decoder.reset_parameters(generator)
+        if config.vision_qkv_head_major > 1:
+            with torch.no_grad():
+                own = model.state_dict()
+                qkv = {k: v.clone() for k, v in own.items() if is_trunk_qkv_key(k)}
+                for k, v in permute_qkv_state_dict(qkv, config.vision_num_heads,
+                                                   config.vision_qkv_head_major).items():
+                    own[k].copy_(v)
         return model
 
     @classmethod
     def from_checkpoint(cls, path: str, device="cuda", config: Optional[VTPConfig] = None,
                         **kw) -> "VTPModel":
-        """A model loaded from an HF-layout checkpoint directory
-        (``config.json`` + ``*.safetensors``; ``convert.load_vtp_checkpoint``),
-        the counterpart of ``from_torch_checkpoint``."""
+        """A model loaded from a checkpoint directory: HF layout
+        (``config.json`` + ``*.safetensors``) or the JAX package's native
+        format (``save_pretrained``: ``model_format: "vtp_tpu"``, canonical
+        or head-major); ``convert.load_vtp_checkpoint``. The counterpart of
+        ``from_torch_checkpoint``."""
         from vtp_tpu_torch.convert import load_vtp_checkpoint
 
         config, sd = load_vtp_checkpoint(path, config)
@@ -217,9 +232,12 @@ class VTPModel(nn.Module):
     def load_numpy_state_dict(self, sd: Dict[str, np.ndarray]) -> None:
         """Load a reference-named, canonical-[Q|K|V] state dict of numpy
         arrays (as ``vtp_tpu.convert.to_torch.export_state_dict`` writes,
-        the layout of released checkpoints). Keys of the towers this model
-        does not build are set aside; any other unmatched or missing key,
-        or a shape mismatch, raises."""
+        the layout of released checkpoints), permuted into the config's
+        qkv layout. Keys of the towers this model does not build are set
+        aside; any other unmatched or missing key, or a shape mismatch,
+        raises."""
+        cfg = self.config
+        sd = permute_qkv_state_dict(sd, cfg.vision_num_heads, cfg.vision_qkv_head_major)
         own = self.state_dict()
         unbuilt = CLIP_PREFIXES if self.text is None else ()
         unexpected, loaded, masks = [], set(), {}

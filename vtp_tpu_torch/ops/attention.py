@@ -1,11 +1,17 @@
-"""Scaled dot-product attention, written out (port of
-``vtp_tpu/ops/attention.py:23`` ``sdpa_reference``).
+"""Scaled dot-product attention: ``sdpa_reference``, written out (port of
+``vtp_tpu/ops/attention.py:23``), and ``sdpa``, the dispatcher (:54).
 
 fp32 scores and softmax, probabilities cast to the value dtype before
 the PV product, which accumulates in fp32. This is the explicit-math
 oracle; ``F.scaled_dot_product_attention`` rounds differently and is not
 used by the port. ``precision="high"`` takes both products as the bf16x3
 split (``ops/precision.py``).
+
+``sdpa`` routes as the JAX dispatcher does: with no bias and no causal mask,
+and when ``flash_supported`` holds (bf16, one shape, head dim 32/64/128),
+to ``flash_attention`` (its kernel on the card, its plain version on the
+CPU); otherwise to ``sdpa_reference``. The predicate alone picks the
+route, on either device; a kernel failure raises.
 """
 
 from __future__ import annotations
@@ -49,3 +55,20 @@ def sdpa_reference(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = matmul(probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """Attention over ``(B, heads, N, head_dim)``: ``flash_attention`` where
+    ``flash_supported`` holds and there is no bias, else ``sdpa_reference``."""
+    if bias is None:
+        from vtp_tpu_torch.ops.flash_attention import flash_attention, flash_supported
+
+        if flash_supported(q, k, v, is_causal=is_causal):
+            return flash_attention(q, k, v, is_causal=is_causal)
+    return sdpa_reference(q, k, v, bias=bias, is_causal=is_causal)

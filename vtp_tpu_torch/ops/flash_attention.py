@@ -1,4 +1,5 @@
-"""Fused qkv-split + qk-RMSNorm + RoPE + attention, and its backward.
+"""Fused qkv-split + qk-RMSNorm + RoPE + attention, and its backward; and
+the strided attention without a prologue.
 
 Port of ``vtp_tpu/ops/flash_attention.py``: ``fused_qkv_rope_attention``
 (:398), its Pallas kernel ``_fused_kernel_call`` (:423), the custom VJP
@@ -28,6 +29,15 @@ precision ("high" is an inference mode). The RoPE tables
 get no gradient: the periods are a buffer, not a parameter. The TPU
 package's VMEM gate on the qk-norm arm (``_fused_bwd_qk_norm_fits``) has
 no counterpart here.
+
+``flash_attention_bnhd`` (:1024) and ``flash_attention`` (:1081) are
+non-causal, unmasked attention on separate q, k, v, in (B, N, H, d) and
+(B, H, N, d); their Hopper counterpart is ``csrc/flash_attention.cu``
+(one entry each, strided inputs), their plain versions
+``flash_attention_bnhd_reference`` and ``flash_attention_reference``.
+``flash_supported`` and ``flash_supported_bnhd`` are the JAX gates' dtype,
+shape and head-dim conditions, without the TPU's VMEM budget, sequence cap
+and mesh checks.
 """
 
 from __future__ import annotations
@@ -452,3 +462,170 @@ def fused_qkv_rope_attention(
     _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, fp32_precision)
     return _FusedAttention.apply(qkv, sin, cos, q_scale, k_scale, num_heads, int(n_valid),
                                  bool(is_causal), fp32_precision)
+
+
+# ------------------------------------------------- plain attention, no prologue
+#
+# Ports of ``flash_attention_bnhd`` (:1024; ``_flash_bnhd_impl`` :953, Pallas
+# call :992) and ``flash_attention`` (:1081; ``_attn_kernel`` :179, Pallas call
+# :1114): non-causal, unmasked softmax attention on separate q, k, v. Their
+# Hopper counterpart is ``csrc/flash_attention.cu``, one C entry point each,
+# which takes every input through its own (batch, token, head) strides.
+
+FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_BNHD_ENTRY = "vtp_flash_attention_bnhd_bf16"
+FLASH_BNHD_NAME = "flash_attention_bnhd"
+FLASH_ENTRY = "vtp_flash_attention_bhnd_bf16"
+FLASH_NAME = "flash_attention"
+
+
+def _flash_shapes_ok(q, k, v) -> bool:
+    return (q.dim() == 4 and tuple(q.shape) == tuple(k.shape) == tuple(v.shape)
+            and q.dtype == torch.bfloat16 and q.shape[-1] in FLASH_HEAD_DIMS)
+
+
+def flash_supported(q, k, v, *, is_causal: bool = False) -> bool:
+    """Whether ``flash_attention`` takes (B, H, N, d) q, k, v: the dtype,
+    shape and head-dim conditions of the JAX gate (:163), without its
+    TPU-only sequence cap and mesh checks."""
+    return not is_causal and _flash_shapes_ok(q, k, v) and q.shape[2] >= 2
+
+
+def flash_supported_bnhd(q, k, v) -> bool:
+    """Whether ``flash_attention_bnhd`` takes (B, N, H, d) q, k, v: the JAX
+    gate's (:935) dtype, shape and head-dim conditions, without its VMEM
+    budget, sequence cap and mesh checks."""
+    return _flash_shapes_ok(q, k, v) and q.shape[1] >= 2
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``flash_attention``: ``sdpa_reference`` on (B, H, N, d)."""
+    return sdpa_reference(q, k, v)
+
+
+def flash_attention_bnhd_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``flash_attention_bnhd``: ``sdpa_reference``'s math on
+    (B, N, H, d), the output (B, N, H, d)."""
+    o = sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return o.transpose(1, 2)
+
+
+def flash_attention_bnhd_bwd_reference(q, k, v, g):
+    """The VJP of ``flash_attention_bnhd`` as ``_flash_bnhd_bwd`` (:1054)
+    writes it out, in fp32: p = softmax(q·kᵀ·d^-½); dv = pᵀ g; dp = g vᵀ;
+    ds = p ⊙ (dp − rowsum(dp ⊙ p)) · d^-½; dq = ds k; dk = dsᵀ q; each
+    rounded to its input's dtype. There is no backward kernel, as in JAX."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))  # (B, H, N, d)
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return tuple(t.transpose(1, 2).to(x.dtype) for t, x in ((dq, q), (dk, k), (dv, v)))
+
+
+def _flash_kernel_fn(entry: str):
+    """The C entry point: four pointers, four ints (B, N, H, d), nine
+    strides, the scale, the device and the stream."""
+    from vtp_tpu_torch import _build
+
+    fn = getattr(_build.load_library(), entry)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernel can read it in place (a contiguous head dim, every
+    row 16-byte aligned), else a contiguous copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.contiguous()
+
+
+def _launch_flash(q, k, v, bnhd: bool) -> torch.Tensor:
+    if not _flash_shapes_ok(q, k, v):
+        raise ValueError(f"the flash attention kernel takes three bf16 tensors of one 4-d shape "
+                         f"with head dim in {FLASH_HEAD_DIMS}; got {tuple(q.shape)} {q.dtype}, "
+                         f"{tuple(k.shape)} {k.dtype}, {tuple(v.shape)} {v.dtype}")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("q, k and v must be on one device")
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    if bnhd:
+        B, N, H, d = q.shape
+        order = (0, 1, 2)
+        out = torch.empty((B, N, H * d), dtype=q.dtype, device=dev)
+        entry, name = FLASH_BNHD_ENTRY, FLASH_BNHD_NAME
+    else:
+        B, H, N, d = q.shape
+        order = (0, 2, 1)
+        out = torch.empty((B, H, N, d), dtype=q.dtype, device=dev)
+        entry, name = FLASH_ENTRY, FLASH_NAME
+    strides = [t.stride(i) for t in (q, k, v) for i in order]
+    rc = _flash_kernel_fn(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 B, N, H, d, *strides, d ** -0.5, dev.index,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
+    count_launch(name)
+    return out.view(B, N, H, d) if bnhd else out
+
+
+def _flash_bnhd_forward(q, k, v) -> torch.Tensor:
+    if on_kernel_device(q):
+        return _launch_flash(q, k, v, bnhd=True)
+    return flash_attention_bnhd_reference(q, k, v)
+
+
+def _flash_forward(q, k, v) -> torch.Tensor:
+    if on_kernel_device(q):
+        return _launch_flash(q, k, v, bnhd=False)
+    return flash_attention_reference(q, k, v)
+
+
+class _FlashAttentionBNHD(torch.autograd.Function):
+    """The differentiable ``flash_attention_bnhd`` (its ``custom_vjp``): the
+    forward picks the kernel or the plain version by device, the backward
+    is the plain adjoint on either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_bnhd_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return flash_attention_bnhd_bwd_reference(*ctx.saved_tensors, g)
+
+
+def flash_attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over (B, N, H, d) q, k, v -> (B, N, H, d),
+    differentiable: the kernel on a CUDA tensor (bf16, d in 32/64/128),
+    the plain version on a CPU tensor."""
+    if q.dim() != 4 or not tuple(q.shape) == tuple(k.shape) == tuple(v.shape):
+        raise ValueError(f"q, k, v must share one (B, N, H, d) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    return _FlashAttentionBNHD.apply(q, k, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    is_causal: bool = False) -> torch.Tensor:
+    """Non-causal attention over (B, H, N, d) q, k, v -> (B, H, N, d): the
+    kernel on a CUDA tensor (bf16, d in 32/64/128; strided views are read
+    in place), the plain version on a CPU tensor. Like the JAX function it
+    has no backward, so it raises when an input asks for a gradient."""
+    if is_causal:
+        raise ValueError("flash_attention is non-causal")
+    if q.dim() != 4 or not tuple(q.shape) == tuple(k.shape) == tuple(v.shape):
+        raise ValueError(f"q, k, v must share one (B, H, N, d) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward (nor has the JAX function); "
+                           "differentiate through sdpa_reference instead")
+    return _flash_forward(q, k, v)

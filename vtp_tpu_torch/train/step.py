@@ -106,6 +106,7 @@ def check_supported(cfg: VTPConfig, tcfg: TrainConfig) -> None:
         "sequence_parallel": tcfg.sequence_parallel,
         "pipeline_stages > 1": tcfg.pipeline_stages > 1,
         "tp_head_major > 1": tcfg.tp_head_major > 1,
+        "vision_qkv_head_major > 1 (training a head-major model)": cfg.vision_qkv_head_major > 1,
         "drop_shards > 1": tcfg.drop_shards > 1,
         "RoPE coordinate augmentation (rope_shift/jitter/rescale_coords)": any(
             v is not None for v in (cfg.rope_shift_coords, cfg.rope_jitter_coords,
