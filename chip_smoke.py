@@ -3,12 +3,19 @@
 
     python3 chip_smoke.py [--profile]
 
-1. builds the port's CUDA kernels from ``vtp_tpu_torch/csrc`` with nvcc;
+1. builds the port's CUDA kernels from ``vtp_tpu_torch/csrc`` with nvcc,
+   prints ptxas's registers and spills of each kernel and fails if any
+   kernel spills;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' VTP-L shapes and on small cases for every flag: the fused
    attention forward, its backward, the fused DINO/iBOT cross-entropy
    (forward and backward) and the strided attention without a prologue
    (both entries, head dims 32, 64 and 128, the text path's strided view);
+   the bf16 forward (with and without qk-norm) and both arms of the
+   backward also at the edges of their 64-row tiles, N in EDGE_N (one row,
+   ragged tiles, the text length, the 384^2 and 512^2 encodes), with RoPE,
+   causal and n_valid cases, the forward's on the inputs of each of
+   EDGE_SEEDS;
 3. runs the roundtrip once through the public API at full VTP-L width:
    ``VTPModel.init`` with seeded random weights, a batch of 8 random 256x256
    images -> bf16 latents -> exact-fp32 images; checks the outputs and that
@@ -93,6 +100,12 @@ SAMPLE_BATCH = 8   # images sampled
 SAMPLE_STEPS = 250
 # The DiT-XL/1 attention (B, N, H, rope grid): 16x16 latents, patch 1, 18 heads of 64
 DIT_ATTENTION = (DIT_BATCH, 256, 18, 16)
+# Sequence lengths of the attention kernels' edge cases (small B*H): one
+# row, ragged tiles of the 64-row tiles, the text length, and the 384^2 and
+# 512^2 encodes (24^2 + 1 and 32^2 + 1 tokens)
+EDGE_N = (1, 17, 37, 77, 577, 1025)
+# Seeds of the forward's edge cases
+EDGE_SEEDS = (0, 1, 2, 3, 4, 5, 6, 7)
 FLASH_SOURCE = "vtp_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"bnhd": "vtp_tpu/ops/flash_attention.py:953",
                   "bhnd": "vtp_tpu/ops/flash_attention.py:1081"}
@@ -196,6 +209,147 @@ def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False):
     return qkv, rope, scales
 
 
+def check_ptxas(report: str) -> None:
+    """Prints ptxas's registers and spills of each kernel (``-Xptxas -v``,
+    the report kept beside the library) and fails if the report names no
+    kernel or if any kernel spills."""
+    import re
+
+    name = None
+    props = {}
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line) or re.search(
+            r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            props.setdefault(name, {}).update(spill=(int(m.group(1)), int(m.group(2))))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            props.setdefault(name, {})["regs"] = int(m.group(1))
+    if not any("regs" in p for p in props.values()):
+        raise AssertionError("the ptxas report names no kernel's registers")
+    for fn, p in sorted(props.items()):
+        print(f"ptxas {fn}: {p.get('regs')} registers, spill stores/loads {p.get('spill')} bytes",
+              flush=True)
+        if p.get("spill", (0, 0)) != (0, 0):
+            raise AssertionError(f"the kernel {fn} spills: {p}")
+
+
+def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2):
+    """bf16 qkv (B, N, 3*H*64); with ``rope``, (N, 64) sin/cos tables of
+    random angles (column j and j+32 share an angle, as rotate-half RoPE
+    has it), for any N; with ``qk_norm``, (64,) scales."""
+    import torch
+
+    qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device="cuda").bfloat16()
+    sin = cos = None
+    if rope:
+        ang = 2 * math.pi * torch.rand((N, 32), generator=gen, device="cuda")
+        ang = torch.cat([ang, ang], dim=-1)
+        sin, cos = ang.sin(), ang.cos()
+    scales = (None, None)
+    if qk_norm:
+        scales = tuple(1.0 + 0.1 * torch.randn(64, generator=gen, device="cuda") for _ in range(2))
+    return qkv, (sin, cos), scales
+
+
+def _edge_cases():
+    """(name, N, rope, causal, n_valid) at every EDGE_N."""
+    cases = []
+    for N in EDGE_N:
+        nv = max(1, 2 * N // 3)
+        cases += [("plain", N, False, False, 0), ("rope", N, True, False, 0),
+                  ("causal_rope", N, True, True, 0), ("n_valid_rope", N, True, False, nv),
+                  ("causal_n_valid", N, False, True, nv)]
+    return cases
+
+
+def check_edges_fwd():
+    """The bf16 forward, with and without qk-norm, at every edge case, held
+    to 1e-2 of max|ref| as the bf16 arm's main shapes, on the inputs of each
+    of EDGE_SEEDS: its single sweep rounds p where the plain version does
+    not, so the margin to the gate is read over several draws."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import (
+        fused_qkv_rope_attention,
+        fused_qkv_rope_attention_reference,
+    )
+
+    worst = {}
+    for seed in EDGE_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        worst[seed] = (0.0, "")
+        for qk_norm in (False, True):
+            for name, N, rope, causal, n_valid in _edge_cases():
+                qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm)
+                got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
+                                               is_causal=causal)
+                torch.cuda.synchronize()
+                want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
+                                                          n_valid=n_valid, is_causal=causal)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
+                if err / scale > worst[seed][0]:
+                    worst[seed] = (err / scale, f"{name} qk_norm={qk_norm} N={N}")
+                if not ok:
+                    print(f"kernel edge fwd seed {seed} {name} qk_norm={qk_norm} N={N} n_valid="
+                          f"{n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; limit 1e-2 "
+                          f"rel) FAIL", flush=True)
+                    raise AssertionError(f"fused attention edge case {name} N={N} disagrees")
+    print(f"kernel edge fwd bf16, with and without qk-norm, {2 * len(_edge_cases())} cases at N in "
+          f"{EDGE_N}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err of max|ref| "
+          f"(limit 1e-2) by seed: "
+          + ", ".join(f"{sd}: {w:.3e} ({case})" for sd, (w, case) in worst.items()) + " ok",
+          flush=True)
+
+
+def check_edges_bwd(gen, qk_norm):
+    """The backward's arm (without or with qk-norm) at every edge case:
+    d(qkv) within 1e-2 of max|ref|, dw_q and dw_k within 1e-2 relative."""
+    import torch
+
+    from vtp_tpu_torch.ops import flash_attention as fa
+
+    worst = worst_dw = 0.0
+    for name, N, rope, causal, n_valid in _edge_cases():
+        qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm)
+        g = torch.randn((1, N, 2 * 64), generator=gen, device="cuda").bfloat16()
+        if qk_norm:
+            got = fa.fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, 2, n_valid,
+                                                          causal)
+            torch.cuda.synchronize()
+            want = fa.fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, 2,
+                                                                     n_valid, causal)
+        else:
+            got = (fa.fused_qkv_rope_attention_bwd(qkv, g, sin, cos, 2, n_valid, causal),)
+            torch.cuda.synchronize()
+            want = (fa.fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, 2, n_valid,
+                                                               causal),)
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        scale = want[0].float().abs().max().item()
+        # at N = 1 the one key takes p = 1, so ds, dq, dk and dw are exactly 0
+        dw_err = max([0.0] + [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                              for a, b in zip(got[1:], want[1:])])
+        worst, worst_dw = max(worst, err / scale), max(worst_dw, dw_err)
+        ok = (err <= 1e-2 * scale and dw_err <= 1e-2
+              and all(torch.isfinite(t).all().item() for t in got))
+        if not ok:
+            print(f"kernel edge bwd {name} qk_norm={qk_norm} N={N} n_valid={n_valid}: d(qkv) max "
+                  f"abs err {err:.3e} (max|ref| {scale:.3e}; limit 1e-2 rel), dw max rel err "
+                  f"{dw_err:.3e} (limit 1e-2) FAIL", flush=True)
+            raise AssertionError(f"attention backward edge case {name} N={N} disagrees")
+    arm = "qk-norm arm" if qk_norm else "no-norm arm"
+    print(f"kernel edge bwd {arm}, {len(_edge_cases())} cases at N in {EDGE_N}: worst d(qkv) max "
+          f"abs err {worst:.3e} of max|ref| (limit 1e-2)"
+          + (f", worst dw rel err {worst_dw:.3e} (limit 1e-2)" if qk_norm else "") + " ok",
+          flush=True)
+
+
 def check_kernel(gen):
     """Phase 2: the kernel against its plain version. Returns the error of
     each arm at the main path's shapes."""
@@ -248,6 +402,7 @@ def check_kernel(gen):
             raise AssertionError(f"fused attention {name} ({arm}) disagrees with its plain version")
         if name.startswith("vtpl_"):
             errs[arm] = err
+    check_edges_fwd()
     return errs
 
 
@@ -519,6 +674,7 @@ def check_train_kernels(gen):
             raise AssertionError(f"attention backward {name} disagrees with its plain version")
         if name == "trunk_globals":
             errs["attention_bwd"] = err
+    check_edges_bwd(gen, qk_norm=False)
     ragged = [("ragged_bf16", 5, 2051, torch.bfloat16), ("ragged_fp32", 37, 1000, torch.float32)]
     for name, R, C, dtype in [c + (torch.bfloat16,) for c in TRAIN_CE] + ragged:
         t = torch.randn((R, C), generator=gen, device="cuda").to(dtype)
@@ -575,7 +731,7 @@ def check_dit_kernels(gen):
           f"(max|ref| {scale:.3e}; limit 1e-2 rel) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("fused attention with qk-norm disagrees with its plain version")
-    errs = {}
+    errs = {"bf16_qk_norm": err}
     # name, B, N, H, rope grid (0 = none), prefix, causal, n_valid
     cases = [("dit_xl", B, N, H, grid, 0, False, 0),
              ("no_rope", 2, 197, 4, 0, 0, False, 0),
@@ -604,6 +760,7 @@ def check_dit_kernels(gen):
             raise AssertionError(f"attention backward qk-norm {name} disagrees with its plain version")
         if name == "dit_xl":
             errs["attention_bwd_qk_norm"] = err
+    check_edges_bwd(gen, qk_norm=True)
     return errs
 
 
@@ -937,14 +1094,12 @@ def dit_latents(gen, model):
 
 
 def expected_dit_launches(cfg):
-    """Launches per DiT train step at remat on: the forward (bf16 arm, qk-norm)
+    """Launches per DiT train step at remat on: the forward's qk-norm arm
     once a block in the forward and again in the backward's recompute, and
     the backward's qk-norm arm once a block."""
-    import torch
+    from vtp_tpu_torch.ops.flash_attention import NORM_BWD_NAME, NORM_NAME
 
-    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, NORM_BWD_NAME
-
-    return {ARM_NAME[torch.bfloat16]: 2 * cfg.depth, NORM_BWD_NAME: cfg.depth}
+    return {NORM_NAME: 2 * cfg.depth, NORM_BWD_NAME: cfg.depth}
 
 
 def run_dit_train(gen, latents):
@@ -1037,7 +1192,7 @@ def run_sampling(gen, state, tokenizer, stats):
 
     from vtp_tpu_torch.dit.sample import make_sampler, sample_images
     from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
-    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, NORM_NAME
 
     cfg = state.ema.config
     labels = torch.arange(SAMPLE_BATCH, device="cuda") * (cfg.num_classes // SAMPLE_BATCH)
@@ -1049,7 +1204,7 @@ def run_sampling(gen, state, tokenizer, stats):
     torch.cuda.synchronize()
     sample_s = time.perf_counter() - t0
     counts = launch_counts()
-    want = {ARM_NAME[torch.bfloat16]: SAMPLE_STEPS * cfg.depth,
+    want = {NORM_NAME: SAMPLE_STEPS * cfg.depth,
             ARM_NAME[torch.float32]: tokenizer.config.decoder_depth}
     print(f"sampling: kernel launches {counts} (expected {want})", flush=True)
     if counts != want:
@@ -1163,17 +1318,18 @@ def time_train_kernels(gen, card, errs, counts):
 
 
 def time_dit_kernels(gen, card, errs, counts):
-    """Phase 7, DiT kernels at DiT-XL/1's attention shape: the forward with
-    qk-norm (printed; its JSON row is the bf16 arm's at the roundtrip's
-    shape) and the backward's qk-norm arm (the JSON row) against their
-    plain versions and SDPA on split, pre-normed, pre-roped q/k/v (forward,
-    and forward+backward for the backward). SDPA leaves out the norm and
-    its adjoint."""
+    """Phase 7, DiT kernels at DiT-XL/1's attention shape: the forward's
+    qk-norm arm (a JSON row of its own; also printed at the sampler's batch)
+    and the backward's qk-norm arm (a JSON row) against their plain versions
+    and SDPA on split, pre-normed, pre-roped q/k/v (forward, and
+    forward+backward for the backward). SDPA leaves out the norm and its
+    adjoint."""
     import torch
     import torch.nn.functional as F
 
     from vtp_tpu_torch.ops.flash_attention import (
         NORM_BWD_NAME,
+        NORM_NAME,
         fused_qkv_rope_attention,
         fused_qkv_rope_attention_qk_norm_bwd,
         fused_qkv_rope_attention_qk_norm_bwd_reference,
@@ -1197,14 +1353,30 @@ def time_dit_kernels(gen, card, errs, counts):
         out = F.scaled_dot_product_attention(q, k, v)
         torch.autograd.grad(out, (q, k, v), gt)
 
-    fwd = (_time_ms(lambda: fused_qkv_rope_attention(qkv, sin, cos, H, qs, ks)),
-           _time_ms(lambda: fused_qkv_rope_attention_reference(qkv, sin, cos, H, qs, ks)),
-           _time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     D = H * 64
-    fwd_bytes, fwd_flops = B * N * 4 * D * 2, 4 * B * H * N * N * 64
-    print(f"timing fused_qkv_rope_attention_bf16 qk_norm DiT-XL/1 B={B} N={N} H={H} on {card}: "
-          f"kernel {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, sdpa {fwd[2]:.4f} ms (no norm), bound "
-          f"{max(fwd_bytes / bw, fwd_flops / bf16_peak) * 1e3:.4f} ms", flush=True)
+    rows = []
+    for batch in (B, SAMPLE_BATCH):
+        # the train step's batch (the JSON row), then the sampler's
+        xq = qkv[:batch]
+        with torch.no_grad():
+            fwd = (_time_ms(lambda: fused_qkv_rope_attention(xq, sin, cos, H, qs, ks)),
+                   _time_ms(lambda: fused_qkv_rope_attention_reference(xq, sin, cos, H, qs, ks)),
+                   _time_ms(lambda: F.scaled_dot_product_attention(q[:batch], k[:batch],
+                                                                   v[:batch])))
+        fwd_bytes, fwd_flops = batch * N * 4 * D * 2, 4 * batch * H * N * N * 64
+        t_bytes, t_ops = fwd_bytes / bw * 1e3, fwd_flops / bf16_peak * 1e3
+        print(f"timing {NORM_NAME} DiT-XL/1 B={batch} N={N} H={H} on {card}: kernel "
+              f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, sdpa {fwd[2]:.4f} ms (no norm), bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({fwd_bytes / 1e6:.1f} MB, {fwd_flops / 1e9:.2f} "
+              f"GFLOP)", flush=True)
+        if batch == B:
+            rows.append({
+                "name": NORM_NAME, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                "launches": counts.get(NORM_NAME, 0), "max_abs_err": errs["bf16_qk_norm"],
+                "ms": fwd[0], "plain_ms": fwd[1], "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": fwd[2],
+            })
     ms = _time_ms(lambda: fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, H))
     plain_ms = _time_ms(
         lambda: fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, H))
@@ -1218,7 +1390,7 @@ def time_dit_kernels(gen, card, errs, counts):
           f"plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms (no norm), bound "
           f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
           flush=True)
-    return [{
+    return rows + [{
         "name": NORM_BWD_NAME, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
         "launches": counts.get(NORM_BWD_NAME, 0), "max_abs_err": errs["attention_bwd_qk_norm"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -1378,6 +1550,7 @@ def main() -> int:
     lib = _build.load_library()
     print(f"built {os.path.basename(lib._name)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.nvcc_path()})", flush=True)
+    check_ptxas(_build.ptxas_report())
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     _set_phase("kernel vs plain")
@@ -1461,7 +1634,6 @@ def main() -> int:
     del state, tokenizer
     torch.cuda.empty_cache()
 
-    _set_phase("timing")
     # launches: each arm's count summed over the main paths' runs (one
     # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
     # one non-causal text call, one train step, one DiT train step, one
@@ -1470,6 +1642,7 @@ def main() -> int:
                 sample_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
+    _set_phase("timing")
     rows = time_kernels(gen, card_line, errs, counts)
     rows += time_train_kernels(gen, card_line, errs, counts)
     rows += time_dit_kernels(gen, card_line, errs, counts)

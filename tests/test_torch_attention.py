@@ -221,4 +221,18 @@ def test_build_moves_the_library_into_place_once(build_dirs, tmp_path, monkeypat
     assert _build.build() == lib
     assert (tmp_path / "calls").read_text() == "x\n"
     _, out = build_dirs
-    assert [p.name for p in out.iterdir()] == [lib.name]
+    assert sorted(p.name for p in out.iterdir()) == sorted([lib.name,
+                                                           _build.report_path(lib).name])
+
+
+def test_ptxas_report_is_kept_beside_the_library(build_dirs, tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path, 'echo "ptxas info    : Used 7 registers" >&2\n'
+                      'while [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n')
+    monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="no ptxas report"):
+        _build.ptxas_report()
+    _build.build()
+    assert "Used 7 registers" in _build.ptxas_report()
+    # a later process loads the built library and reads the same report
+    assert _build.build() == _build.library_path()
+    assert "Used 7 registers" in _build.ptxas_report()

@@ -8,7 +8,9 @@ sources, one ``nvcc -c`` per source runs at once and a last ``nvcc
 into ``vtp_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so a stale library is never loaded; it is written
 under a temporary name and moved into place, so a build cut short
-leaves nothing that a later run would load.
+leaves nothing that a later run would load. ptxas reports each kernel's
+registers, shared memory and spills (``-Xptxas -v``); the report is kept
+beside the library, under the same hash, and ``ptxas_report`` reads it.
 
 The first kernel launch on a CUDA tensor builds; nothing is built when
 the package is imported or when a CPU tensor takes the plain path.
@@ -28,7 +30,7 @@ from typing import List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                 "-Xcompiler", "-fPIC"]
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]
 BUILD_TIMEOUT_S = 600
 
@@ -65,11 +67,12 @@ def nvcc_command(out: Path, srcs: List[Path]) -> List[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
 
 
-def _run(cmds: List[List[str]]) -> None:
-    """Run the commands at once; raise with nvcc's output if any fails."""
+def _run(cmds: List[List[str]]) -> str:
+    """Run the commands at once; raise with nvcc's output if any fails,
+    else return their output."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    failed = []
+    failed, said = [], []
     for proc in procs:
         try:
             out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
@@ -78,41 +81,63 @@ def _run(cmds: List[List[str]]) -> None:
             out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{err}{out}")
+        said.append(err + out)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(said)
 
 
-def _compile(out: Path, srcs: List[Path]) -> None:
+def _compile(out: Path, srcs: List[Path]) -> str:
+    """Build the library ``out``; return ptxas's report."""
     if len(srcs) == 1:
-        _run([nvcc_command(out, srcs)])
-        return
+        return _run([nvcc_command(out, srcs)])
     objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in srcs]
     try:
-        _run([[nvcc_path(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
-              for obj, src in zip(objs, srcs)])
+        report = _run([[nvcc_path(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                       for obj, src in zip(objs, srcs)])
         _run([[nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, objs)]])
+        return report
     finally:
         for obj in objs:
             if obj.exists():
                 obj.unlink()
 
 
+def report_path(lib: Path) -> Path:
+    """Where ptxas's report of the library ``lib`` is kept."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists;
-    return its path. Raises with nvcc's output if the build fails."""
+    return its path. Raises with nvcc's output if the build fails. The
+    report is moved into place before the library, so a library that
+    exists has its report."""
     srcs = sources()
     lib = library_path(srcs)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    tmp_report = tmp.with_suffix(".txt")
     try:
-        _compile(tmp, srcs)
+        tmp_report.write_text(_compile(tmp, srcs))
+        os.replace(tmp_report, report_path(lib))
         os.replace(tmp, lib)
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        for p in (tmp, tmp_report):
+            if p.exists():
+                p.unlink()
     return lib
+
+
+def ptxas_report() -> str:
+    """ptxas's report (registers, shared memory, spills of each kernel) of
+    the library that the sources build; raises if there is none."""
+    path = report_path(library_path())
+    if not path.exists():
+        raise RuntimeError(f"no ptxas report at {path}: build the library first")
+    return path.read_text()
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,13 +1,16 @@
-// Pieces shared by the fused attention forward (fused_attention.cu) and
-// backward (fused_attention_bwd.cu) kernels for Hopper (sm_90a): the tile
-// geometry, bf16 rounding and the bf16x3 split, the row loader that applies
-// qk-RMSNorm and RoPE exactly as the plain PyTorch version rounds them, and
-// the score loops (plain, and split for the forward's bf16x3 arm).
+// Pieces of the attention kernels for Hopper (sm_90a): the tile geometry
+// and bf16 rounding, used by all of them (the bf16 tensor-core kernels add
+// tensor_core.cuh); and for the scalar fp32 arms of the fused forward
+// (fused_attention.cu) and the strided kernel (flash_attention.cu), the
+// bf16x3 split, the row loader that applies qk-RMSNorm and RoPE exactly as
+// the plain PyTorch version rounds them, and the score loops (plain, and
+// split for the forward's bf16x3 arm).
 //
-// Layout shared by both kernels: a block of 256 threads covers a tile of 64
+// Layout of the scalar kernels: a block of 256 threads covers a tile of 64
 // token rows, four threads per row; thread quarter c owns head-dim columns
 // [8c, 8c+8) and [32+8c, 32+8c+8) when it loads a row, so rotate-half pairs
-// (j, j+32) stay inside one thread.
+// (j, j+32) stay inside one thread. The tensor-core backward's epilogues
+// keep that layout.
 
 #pragma once
 

@@ -30,65 +30,80 @@
 // rounding points of the TPU kernel, whose block-diagonal mean dot also
 // rounds the operands of mean(dn x) to bf16: here that mean is fp32.
 //
-// Design: two passes, deterministic, no atomics.
-//   dq pass, one block per (query tile of 64, head, batch row): the Q and dO
-//     tiles stay in shared memory; key tiles stream through. A first sweep
-//     finds the row max m, the sum l of exp(s - m) and w = sum exp(s - m) dp
-//     online, so delta = w / l; a second sweep forms ds into shared memory
-//     and accumulates dq = ds k. It writes dq and the per-row (m, l, delta)
-//     into an fp32 workspace of shape (3, B, H, N).
-//   dk/dv pass, one block per (key tile of 64, head, batch row): the K and V
-//     tiles stay in shared memory and in registers (four threads per key,
-//     16 columns each); query tiles stream through with their saved row
-//     statistics, and each query row adds its p and ds terms to the key's
-//     dk and dv.
-//   qk-norm: Q and K rows are normalised and scaled on load, with r a
-//     four-lane shuffle, as in the forward. In each pass's epilogue a row's
-//     four threads reload its raw input, recompute r, and apply the RoPE
-//     adjoint and then the norm adjoint (mean(dn x) is again a four-lane
-//     shuffle). Each block sums its rows' dw terms through shared memory in
-//     a fixed order and writes one fp32 row of 64 into a workspace
-//     (2, B, H, tiles, 64); the wrapper sums that workspace with torch, as
-//     the JAX caller sums the TPU kernel's per-batch dw rows.
-// Keys and rows are masked by bounds, so N needs no padding.
+// Design: two passes, deterministic, no atomics, on tensor cores. Both
+// are blocks of four warps over a tile of 64 rows, warp w owning rows
+// [16w, 16w+16); every product is mma.sync.m16n8k16 bf16 with fp32
+// accumulators on bf16 tiles in shared memory (tensor_core.cuh), and its
+// operands are the reference's bf16 values: q and k after the prologue, v,
+// g, bf16(p), ds = bf16(p (dp - delta) / 8). Only the order of the fp32
+// sums differs from the plain version.
+//   dq pass, one block per (query tile, head, batch row): the Q tile
+//     (normalised and roped in place after its cp.async copy) and the dO
+//     tile are loaded once, their A fragments kept in registers; key tiles
+//     (K, roped in place, and V) stream through a ring. A first sweep
+//     computes S = Q K^T and dP = dO V^T, 32 keys at a time, and from them
+//     the row max m, the sum l of exp(s - m) and w = sum exp(s - m) dp
+//     online, so delta = w / l; a second sweep recomputes S and dP and forms
+//     ds at its rounding point as the A operand of dQ += dS K. It writes dq
+//     and the per-row (m, l, delta) into an fp32 workspace of shape
+//     (3, B, H, N).
+//   dk/dv pass, one block per (key tile, head, batch row): the K tile
+//     (normalised and roped) and the V tile are loaded once into A
+//     fragments; query tiles (Q normalised and roped in place, dO, and the
+//     rows' saved m, l, delta) stream through a ring. For 16 queries at a
+//     time it computes S^T = K Q^T and dP^T = V dO^T, forms bf16(p^T) and
+//     ds^T, and accumulates dV += bf16(P)^T dO and dK += dS^T Q. Holding dk,
+//     dv and the K and V fragments, it takes up to 255 registers at two
+//     blocks an SM (at three it spilled), and its prologue reads the RoPE
+//     tables as it goes.
+//   The rings have three stages: the copy of step i + 2 is issued at step i,
+//   and each thread ropes its own chunks of step i + 1's streamed Q or K
+//   tile at the end of step i while other warps still multiply, so a step
+//   takes one barrier.
+//   Epilogues: each pass stages its fp32 accumulators (dq~; dk~ and dv)
+//     through shared memory into the layout of four threads a row, where the
+//     RoPE adjoint (grad_row), the qk-norm adjoint (norm_adjoint_row: the
+//     row's raw input reloaded, r recomputed, mean(dn x) a four-lane
+//     shuffle) and the stores (store_row) run, 32 rows at a time. With
+//     qk-norm each block sums its rows' dw terms through shared memory in a
+//     fixed order (block_dw_row) and writes one fp32 row of 64 into a
+//     workspace (2, B, H, tiles, 64); the wrapper sums that workspace with
+//     torch, as the JAX caller sums the TPU kernel's per-batch dw rows.
+// Keys and rows are masked by bounds, so N needs no padding; with causal
+// masking the dq pass skips key tiles past its last row and the dk/dv pass
+// query tiles before its first key.
 //
 // Bound on an H100: at the trunk's global-crop shape (B=16, N=257, H=16) the
 // function moves 7*B*N*H*64*2 bytes (qkv and g in, d(qkv) out: 58.9 MB,
 // 17.6 us) and does 10*B*H*N^2*64 FLOP (scores recomputed, dv, dp, dq, dk:
 // 10.8 GFLOP, 10.9 us at the bf16 tensor-core peak), so it is bound by
 // bytes; the qk-norm arm at DiT-XL/1's shape (B=32, N=256, H=18) moves
-// 132 MB (39.4 us) and does 24.2 GFLOP (24.4 us), also bound by bytes. This
-// first version uses scalar fp32 FMAs from shared memory and recomputes the
-// scores in both passes; tensor cores are later work.
+// 132 MB (39.4 us) and does 24.2 GFLOP (24.4 us), also bound by bytes. The
+// kernels do 14*B*H*N^2*64 FLOP (S and dP twice in the dq pass, once more
+// in the dk/dv pass), re-read each streamed tile from L2 once per tile of
+// the other side, and redo the prologue of every streamed tile (three
+// times a pair of tiles); their issue slots go to that prologue, the
+// exponentials and the epilogues more than to the products.
 
-#include "attention_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr size_t kSmemDq = 5 * kTile * kStride * sizeof(float);
-constexpr size_t kSmemDkv = (4 * kTile * kStride + 3 * kTile) * sizeof(float);
-
-// Sixteen unscaled dots of the row `sa` with rows c + 4j of the tile `sb`.
-__device__ __forceinline__ void tile_dots(const float* __restrict__ sa,
-                                          const float* __restrict__ sb, int c,
-                                          float (&s)[16]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) s[j] = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < kHeadDim; i += 4) {
-    const float4 av = *reinterpret_cast<const float4*>(sa + i);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(sb + (c + 4 * j) * kStride + i);
-      s[j] = fmaf(av.x, bv.x, s[j]);
-      s[j] = fmaf(av.y, bv.y, s[j]);
-      s[j] = fmaf(av.z, bv.z, s[j]);
-      s[j] = fmaf(av.w, bv.w, s[j]);
-    }
-  }
-}
+// dq pass: the ring of (K, V) stages (Q and dO are first copied into the
+// last stage; the dq tile and the dw rows are staged in it at the end),
+// the scales.
+constexpr size_t kSmemDq = 2 * kStages * kTileBytes + 2 * kHeadDim * sizeof(float);
+// dk/dv pass: the ring of (Q, dO, (m, l, delta) rows) stages (K and V are
+// first copied into the last stage; the dk and dv tiles and the dw rows are
+// staged in it at the end), the scales.
+constexpr size_t kSmemDkv =
+    2 * kStages * kTileBytes + (kStages * 3 * kTile + 2 * kHeadDim) * sizeof(float);
+constexpr int kChunk = 32;     // keys a product step of the dq pass takes
+constexpr int kChunkKv = 16;   // queries a product step of the dk/dv pass takes
+constexpr size_t kStageFloats = kTile * kStride;  // an fp32 staging tile
+constexpr size_t kDwAt = 4 * kTileBytes / sizeof(float);  // the dw rows, past two staging tiles
+static_assert(2 * kStageFloats * sizeof(float) <= 4 * kTileBytes, "staging fits");
+static_assert((kTcThreads / 4) * kStride * sizeof(float) <= 2 * kTileBytes, "dw rows fit");
 
 // The accumulator layout of both passes: acc[4i + e] holds head-dim column
 // 4c + 16i + e, so columns j and j+32 (acc[e], acc[8+e] and acc[4+e],
@@ -170,12 +185,12 @@ __device__ void norm_adjoint_row(float (&dx)[16], const bf16* __restrict__ xrow,
   for (int j = 0; j < 16; ++j) dx[j] = r * dn[j] - x[j] * r3 * t;
 }
 
-// Sums the block's 64 rows of dw terms (this thread's 16 columns of row r, in
-// the accumulator layout) through the shared tile s_dw, rows in order, and
-// writes the block's row of 64 to dst. Called by every thread of the block
-// after the shared tile is free.
+// Sums the block's `rows` rows of dw terms (this thread's 16 columns of row
+// r, in the accumulator layout) through the shared tile s_dw, rows in order,
+// and writes the block's row of 64 to dst. Called by every thread of the
+// block after the shared tile is free.
 __device__ void block_dw_row(const float (&dw)[16], float* __restrict__ s_dw, int r, int c,
-                             float* __restrict__ dst) {
+                             int rows, float* __restrict__ dst) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -184,7 +199,7 @@ __device__ void block_dw_row(const float (&dw)[16], float* __restrict__ s_dw, in
   __syncthreads();
   if (threadIdx.x < kHeadDim) {
     float sum = 0.f;
-    for (int row = 0; row < kTile; ++row) sum += s_dw[row * kStride + threadIdx.x];
+    for (int row = 0; row < rows; ++row) sum += s_dw[row * kStride + threadIdx.x];
     dst[threadIdx.x] = sum;
   }
 }
@@ -197,266 +212,368 @@ __device__ __forceinline__ float* dw_row(float* dws, int a) {
   return dws + at * kHeadDim;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+
+// Loads the 16 staged fp32 columns of row r that thread quarter c owns in
+// the accumulator layout (column 4c + 16i + e at acc[4i + e]).
+__device__ __forceinline__ void unstage_row(const float* __restrict__ tile, int r, int c,
+                                            float (&acc)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(tile + r * kStride + 4 * c + 16 * i);
+    acc[4 * i] = v.x;
+    acc[4 * i + 1] = v.y;
+    acc[4 * i + 2] = v.z;
+    acc[4 * i + 3] = v.w;
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 3)
 attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                         const bf16* __restrict__ sin_t, const bf16* __restrict__ cos_t,
                         const float* __restrict__ q_scale, const float* __restrict__ k_scale,
                         bf16* __restrict__ dqkv, float* __restrict__ stats,
                         float* __restrict__ dws, int N, int H, int n_valid, int causal) {
   extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float* s_g = s_q + kTile * kStride;
-  float* s_k = s_g + kTile * kStride;
-  float* s_v = s_k + kTile * kStride;
-  float* s_ds = s_v + kTile * kStride;
+  bf16* s_k = reinterpret_cast<bf16*>(smem4);  // kStages K tiles
+  bf16* s_v = s_k + kStages * kTileB;          // kStages V tiles
+  float* s_w = reinterpret_cast<float*>(s_v + kStages * kTileB);  // q_scale, then k_scale
+  bf16* s_q = s_k + (kStages - 1) * kTileB;
+  bf16* s_g = s_v + (kStages - 1) * kTileB;
 
-  const int r = threadIdx.x >> 2;
-  const int c = threadIdx.x & 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = H * kHeadDim;
   const size_t row_stride = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * N * row_stride;
-  const int qrow = q0 + r;
+  const bf16* q_src = qkv + static_cast<size_t>(b) * N * row_stride + h * kHeadDim;
+  const bf16* k_src = q_src + D;
+  const bf16* v_src = q_src + 2 * D;
+  const bool norm = q_scale != nullptr;
   const bool rope = sin_t != nullptr;
-  auto sin_row = [&](int n) { return rope ? sin_t + static_cast<size_t>(n) * kHeadDim : nullptr; };
-  auto cos_row = [&](int n) { return rope ? cos_t + static_cast<size_t>(n) * kHeadDim : nullptr; };
-
-  const bf16* q_in = base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim;
-  load_row<bf16>(q_in, qrow < N, q_scale, sin_row(qrow), cos_row(qrow), s_q + r * kStride, c);
-  load_row<bf16>(g + (static_cast<size_t>(b) * N + qrow) * D + h * kHeadDim, qrow < N,
-                 nullptr, nullptr, nullptr, s_g + r * kStride, c);
-  const float* q = s_q + r * kStride;
-  const float* go = s_g + r * kStride;
+  const bool prologue = norm || rope;
+  const int row = q0 + 16 * warp + (lane >> 2);  // this lane's rows: row and row + 8
 
   int n_kt = (n_valid + kTile - 1) / kTile;
   if (causal) {
     const int last_row = min(q0 + kTile, N) - 1;
     n_kt = min(n_kt, last_row / kTile + 1);
   }
-  auto load_kv = [&](int k0) {
-    const int n = k0 + r;
-    const bf16* row = base + static_cast<size_t>(n) * row_stride + h * kHeadDim;
-    load_row<bf16>(row + D, n < N, k_scale, sin_row(n), cos_row(n), s_k + r * kStride, c);
-    load_row<bf16>(row + 2 * D, n < N, nullptr, nullptr, nullptr, s_v + r * kStride, c);
+  const int steps = 2 * n_kt;  // two sweeps over the key tiles; step i uses stage i % kStages
+  auto key0 = [&](int i) { return (i < n_kt ? i : i - n_kt) * kTile; };
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int st = i % kStages;
+      load_tile_async(s_k + st * kTileB, k_src, row_stride, key0(i), N);
+      load_tile_async(s_v + st * kTileB, v_src, row_stride, key0(i), N);
+    }
+    cp_async_commit();
   };
 
-  // Sweep 1: m, l = sum exp(s - m) and w = sum exp(s - m) dp, online.
-  float m = -INFINITY, l = 0.f, w = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  load_tile_async(s_q, q_src, row_stride, q0, N);
+  load_tile_async(s_g, g + static_cast<size_t>(b) * N * D + h * kHeadDim, D, q0, N);
+  cp_async_commit();
+  issue(0);
+  issue(1);
+  if (norm) {
+    if (threadIdx.x < 2 * kHeadDim)
+      s_w[threadIdx.x] = threadIdx.x < kHeadDim ? q_scale[threadIdx.x] : k_scale[threadIdx.x - kHeadDim];
     __syncthreads();
-    load_kv(kt * kTile);
-    __syncthreads();
-    float s[16], dp[16];
-    tile_scores(q, s_k, c, kt * kTile, qrow, n_valid, causal, s);
-    tile_dots(go, s_v, c, dp);
-    float mt = s[0];
-#pragma unroll
-    for (int j = 1; j < 16; ++j) mt = fmaxf(mt, s[j]);
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    if (m_new != -INFINITY) {
-      float part = 0.f, wpart = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float e = expf(s[j] - m_new);
-        part += e;
-        wpart += e * dp[j];
-      }
-      const float rescale = m == -INFINITY ? 0.f : expf(m - m_new);
-      l = l * rescale + part;
-      w = w * rescale + wpart;
-      m = m_new;
-    }
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  w += __shfl_xor_sync(0xffffffffu, w, 1);
-  w += __shfl_xor_sync(0xffffffffu, w, 2);
-  const float delta = w / l;
+  RopeRow tab;
+  if (prologue) {
+    rope_fetch(tab, sin_t, cos_t, q0, N);
+    cp_async_wait<2>();  // this thread's Q chunks
+    prologue_tile(s_q, q0, N, norm ? s_w : nullptr, sin_t, cos_t, &tab);
+    rope_fetch(tab, sin_t, cos_t, key0(0), N);
+    cp_async_wait<1>();  // and its chunks of step 0
+    prologue_tile(s_k, key0(0), N, norm ? s_w + kHeadDim : nullptr, sin_t, cos_t, &tab);
+  } else {
+    cp_async_wait<1>();
+  }
+  __syncthreads();
+  uint32_t qa[4][4], ga[4][4];
+  load_a_rows(qa, s_q, 16 * warp, lane);
+  load_a_rows(ga, s_g, 16 * warp, lane);
+  __syncthreads();  // the last stage is refilled at step 0
 
-  // Sweep 2: ds into shared memory, dq += ds k.
-  float acc[16];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, w[2] = {0.f, 0.f}, delta[2];
+  float dq[8][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_kv(k0);
-    __syncthreads();
-    float s[16], dp[16];
-    tile_scores(q, s_k, c, k0, qrow, n_valid, causal, s);
-    tile_dots(go, s_v, c, dp);
+  for (int j = 0; j < 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    issue(i + 2);
+    const bool next = prologue && i + 1 < steps;
+    if (next) rope_fetch(tab, sin_t, cos_t, key0(i + 1), N);
+    cp_async_wait<1>();  // this thread's chunks of step i + 1
+    const int k0 = key0(i);
+    const bf16* kb = s_k + (i % kStages) * kTileB;
+    const bf16* vb = s_v + (i % kStages) * kTileB;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m) / l;
-      s_ds[r * kStride + c + 4 * j] = bf16_round(p * (dp[j] - delta) * 0.125f);
+    for (int ch = 0; ch < kTile / kChunk; ++ch) {
+      float s[kChunk / 8][4], dp[kChunk / 8][4];
+      mma_a_tileT<kChunk / 8>(s, qa, kb, kChunk * ch, lane);
+      mma_a_tileT<kChunk / 8>(dp, ga, vb, kChunk * ch, lane);
+      mask_and_scale_acc(s, k0 + kChunk * ch, row, t, n_valid, causal);
+      if (i < n_kt) {
+        // Sweep 1: m, l = sum exp(s - m) and w = sum exp(s - m) dp, online.
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float mt = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < kChunk / 8; ++j) mt = fmaxf(mt, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+          const float m_new = fmaxf(m[hr], mt);
+          if (m_new != -INFINITY) {
+            float part = 0.f, wpart = 0.f;
+#pragma unroll
+            for (int j = 0; j < kChunk / 8; ++j) {
+#pragma unroll
+              for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+                const float x = expf(s[j][e] - m_new);
+                part += x;
+                wpart += x * dp[j][e];
+              }
+            }
+            const float rescale = m[hr] == -INFINITY ? 0.f : expf(m[hr] - m_new);
+            l[hr] = l[hr] * rescale + part;
+            w[hr] = w[hr] * rescale + wpart;
+            m[hr] = m_new;
+          }
+        }
+      } else {
+        // Sweep 2: ds = bf16(p (dp - delta) / 8); dq += ds k.
+#pragma unroll
+        for (int j = 0; j < kChunk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hr = e >> 1;
+            const float p = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[hr]) / l[hr];
+            s[j][e] = bf16_round(p * (dp[j][e] - delta[hr]) * 0.125f);
+          }
+        }
+        uint32_t da[kChunk / 16][4];
+        acc_to_a<kChunk / 8>(s, da);
+        mma_a_tile<kChunk / 16>(dq, da, kb, kChunk * ch, lane);
+      }
     }
-    __syncthreads();
-    const float* dsrow = s_ds + r * kStride;
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float ds = dsrow[kk];
-      const float* krow = s_k + kk * kStride;
+    if (i == n_kt - 1) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(krow + 4 * c + 16 * i);
-        acc[4 * i] = fmaf(ds, kv.x, acc[4 * i]);
-        acc[4 * i + 1] = fmaf(ds, kv.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(ds, kv.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(ds, kv.w, acc[4 * i + 3]);
+      for (int hr = 0; hr < 2; ++hr) {
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+        l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+        w[hr] += __shfl_xor_sync(0xffffffffu, w[hr], 1);
+        w[hr] += __shfl_xor_sync(0xffffffffu, w[hr], 2);
+        delta[hr] = w[hr] / l[hr];
+      }
+    }
+    if (next) {
+      prologue_tile(s_k + ((i + 1) % kStages) * kTileB, key0(i + 1), N,
+                    norm ? s_w + kHeadDim : nullptr, sin_t, cos_t, &tab);
+    }
+    __syncthreads();  // publishes step i + 1's K tile; frees stage i
+  }
+
+  if (t == 0) {
+    const size_t bhn = static_cast<size_t>(gridDim.z) * H * N;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int n = row + 8 * hr;
+      if (n < N) {
+        const size_t at = (static_cast<size_t>(b) * H + h) * N + n;
+        stats[at] = m[hr];
+        stats[bhn + at] = l[hr];
+        stats[2 * bhn + at] = delta[hr];
       }
     }
   }
 
-  float dq[16], dw[16];
+  // Epilogue, four threads a row, 32 rows at a time: the RoPE adjoint, the
+  // norm adjoint, the stores.
+  float* stage = reinterpret_cast<float*>(smem4);
+  stage_acc(dq, stage, 16 * warp, lane);
+  __syncthreads();
+  const int c = threadIdx.x & 3;
+  float dw[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dq[i] = dw[i] = 0.f;
-  if (qrow < N) grad_row(acc, sin_row(qrow), cos_row(qrow), rope, c, dq);
-  if (q_scale != nullptr) norm_adjoint_row(dq, q_in, qrow < N, q_scale, c, dw);
-  if (qrow < N) {
-    store_row(dq, c, dqkv + (static_cast<size_t>(b) * N + qrow) * row_stride + h * kHeadDim);
-    if (c == 0) {
-      const size_t bhn = static_cast<size_t>(gridDim.z) * H * N;
-      const size_t at = (static_cast<size_t>(b) * H + h) * N + qrow;
-      stats[at] = m;
-      stats[bhn + at] = l;
-      stats[2 * bhn + at] = delta;
-    }
+  for (int i = 0; i < 16; ++i) dw[i] = 0.f;
+#pragma unroll 1
+  for (int half = 0; half < kTile / (kTcThreads / 4); ++half) {
+    const int r = (threadIdx.x >> 2) + half * (kTcThreads / 4);
+    const int qrow = q0 + r;
+    float acc[16], dx[16];
+    unstage_row(stage, r, c, acc);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dx[i] = 0.f;
+    const bf16* q_in = q_src + static_cast<size_t>(qrow) * row_stride;
+    const bf16* sr = rope ? sin_t + static_cast<size_t>(qrow) * kHeadDim : nullptr;
+    const bf16* cr = rope ? cos_t + static_cast<size_t>(qrow) * kHeadDim : nullptr;
+    if (qrow < N) grad_row(acc, sr, cr, rope, c, dx);
+    if (norm) norm_adjoint_row(dx, q_in, qrow < N, q_scale, c, dw);
+    if (qrow < N) store_row(dx, c, dqkv + (static_cast<size_t>(b) * N + qrow) * row_stride + h * kHeadDim);
   }
-  if (q_scale != nullptr) {
-    __syncthreads();  // the last key tile's ds rows are read no more
-    block_dw_row(dw, s_ds, r, c, dw_row(dws, 0));
-  }
+  if (norm) block_dw_row(dw, stage + kDwAt, threadIdx.x >> 2, c, kTcThreads / 4, dw_row(dws, 0));
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kTcThreads, 2)
 attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g,
                          const bf16* __restrict__ sin_t, const bf16* __restrict__ cos_t,
                          const float* __restrict__ q_scale, const float* __restrict__ k_scale,
                          const float* __restrict__ stats, bf16* __restrict__ dqkv,
                          float* __restrict__ dws, int N, int H, int n_valid, int causal) {
   extern __shared__ float4 smem4[];
-  float* s_k = reinterpret_cast<float*>(smem4);
-  float* s_v = s_k + kTile * kStride;
-  float* s_q = s_v + kTile * kStride;
-  float* s_g = s_q + kTile * kStride;
-  float* s_m = s_g + kTile * kStride;
-  float* s_l = s_m + kTile;
-  float* s_d = s_l + kTile;
+  bf16* s_q = reinterpret_cast<bf16*>(smem4);  // kStages Q tiles
+  bf16* s_g = s_q + kStages * kTileB;          // kStages dO tiles
+  float* s_stat = reinterpret_cast<float*>(s_g + kStages * kTileB);  // kStages (m, l, delta) rows
+  float* s_w = s_stat + kStages * 3 * kTile;                         // q_scale, then k_scale
+  bf16* s_k = s_q + (kStages - 1) * kTileB;
+  bf16* s_v = s_g + (kStages - 1) * kTileB;
 
-  const int r = threadIdx.x >> 2;
-  const int c = threadIdx.x & 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3;
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = H * kHeadDim;
   const size_t row_stride = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * N * row_stride;
-  const int key = k0 + r;
+  const bf16* q_src = qkv + static_cast<size_t>(b) * N * row_stride + h * kHeadDim;
+  const bf16* k_src = q_src + D;
+  const bf16* v_src = q_src + 2 * D;
+  const bf16* g_src = g + static_cast<size_t>(b) * N * D + h * kHeadDim;
+  const bool norm = q_scale != nullptr;
   const bool rope = sin_t != nullptr;
-  auto sin_row = [&](int n) { return rope ? sin_t + static_cast<size_t>(n) * kHeadDim : nullptr; };
-  auto cos_row = [&](int n) { return rope ? cos_t + static_cast<size_t>(n) * kHeadDim : nullptr; };
+  const bool prologue = norm || rope;
+  const int key = k0 + 16 * warp + (lane >> 2);  // this lane's keys: key and key + 8
   const size_t bhn = static_cast<size_t>(gridDim.z) * H * N;
-  const size_t stat0 = (static_cast<size_t>(b) * H + h) * N;
-
-  const bf16* k_in = base + static_cast<size_t>(key) * row_stride + D + h * kHeadDim;
-  load_row<bf16>(k_in, key < N, k_scale, sin_row(key), cos_row(key), s_k + r * kStride, c);
-  load_row<bf16>(k_in + D, key < N, nullptr, nullptr, nullptr, s_v + r * kStride, c);
-  __syncthreads();
-  // This thread's 16 columns of its key's k and v, in the accumulator layout.
-  float kreg[16], vreg[16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      kreg[4 * i + e] = s_k[r * kStride + 4 * c + 16 * i + e];
-      vreg[4 * i + e] = s_v[r * kStride + 4 * c + 16 * i + e];
-    }
-  }
-  const bool key_masked = key >= n_valid;  // n_valid <= N also masks key >= N
-
-  float dk[16], dv[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) dk[i] = dv[i] = 0.f;
+  const float* stat_src = stats + (static_cast<size_t>(b) * H + h) * N;
 
   const int n_qt = (N + kTile - 1) / kTile;
-  const int qt0 = causal ? k0 / kTile : 0;
-  for (int qt = (k0 < n_valid ? qt0 : n_qt); qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    const int n = q0 + r;
-    __syncthreads();
-    {
-      const bf16* row = base + static_cast<size_t>(n) * row_stride + h * kHeadDim;
-      load_row<bf16>(row, n < N, q_scale, sin_row(n), cos_row(n), s_q + r * kStride, c);
-      load_row<bf16>(g + (static_cast<size_t>(b) * N + n) * D + h * kHeadDim, n < N, nullptr,
-                     nullptr, nullptr, s_g + r * kStride, c);
-      if (c == 0) {
-        s_m[r] = n < N ? stats[stat0 + n] : 0.f;
-        s_l[r] = n < N ? stats[bhn + stat0 + n] : 1.f;
-        s_d[r] = n < N ? stats[2 * bhn + stat0 + n] : 0.f;
+  const int qt0 = k0 >= n_valid ? n_qt : (causal ? k0 / kTile : 0);
+  const int steps = n_qt - qt0;  // query tiles; step i uses stage i % kStages
+  auto query0 = [&](int i) { return (qt0 + i) * kTile; };
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int st = i % kStages;
+      const int q0 = query0(i);
+      load_tile_async(s_q + st * kTileB, q_src, row_stride, q0, N);
+      load_tile_async(s_g + st * kTileB, g_src, D, q0, N);
+      float* dst = s_stat + st * 3 * kTile;
+      for (int id = threadIdx.x; id < 3 * kTile; id += kTcThreads) {
+        const int a = id / kTile, r = id % kTile;
+        const bool valid = q0 + r < N;
+        cp_async4(dst + id, stat_src + a * bhn + (valid ? q0 + r : 0), valid);
       }
     }
+    cp_async_commit();
+  };
+
+  load_tile_async(s_k, k_src, row_stride, k0, N);
+  load_tile_async(s_v, v_src, row_stride, k0, N);
+  cp_async_commit();
+  issue(0);
+  issue(1);
+  if (norm) {
+    if (threadIdx.x < 2 * kHeadDim)
+      s_w[threadIdx.x] = threadIdx.x < kHeadDim ? q_scale[threadIdx.x] : k_scale[threadIdx.x - kHeadDim];
     __syncthreads();
-    const int rows = min(kTile, N - q0);
-    for (int i = 0; i < rows; ++i) {
-      const int qi = q0 + i;
-      const float* qv = s_q + i * kStride;
-      const float* gv = s_g + i * kStride;
-      float s = 0.f, dp = 0.f;
+  }
+  // This pass holds dk, dv and the K and V fragments across a step, so its
+  // prologue reads the RoPE tables as it goes (no prefetched rows).
+  if (prologue) {
+    cp_async_wait<2>();  // this thread's K chunks
+    prologue_tile(s_k, k0, N, norm ? s_w + kHeadDim : nullptr, sin_t, cos_t, nullptr);
+    cp_async_wait<1>();  // and its chunks of step 0
+    if (steps > 0) prologue_tile(s_q, query0(0), N, norm ? s_w : nullptr, sin_t, cos_t, nullptr);
+  } else {
+    cp_async_wait<1>();
+  }
+  __syncthreads();
+  uint32_t ka[4][4], va[4][4];
+  load_a_rows(ka, s_k, 16 * warp, lane);
+  load_a_rows(va, s_v, 16 * warp, lane);
+  __syncthreads();  // the last stage is refilled at step 0
+
+  float dk[8][4], dv[8][4];
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float4 a = *reinterpret_cast<const float4*>(qv + 4 * c + 16 * x);
-        const float4 o = *reinterpret_cast<const float4*>(gv + 4 * c + 16 * x);
-        s = fmaf(a.x, kreg[4 * x], s);
-        s = fmaf(a.y, kreg[4 * x + 1], s);
-        s = fmaf(a.z, kreg[4 * x + 2], s);
-        s = fmaf(a.w, kreg[4 * x + 3], s);
-        dp = fmaf(o.x, vreg[4 * x], dp);
-        dp = fmaf(o.y, vreg[4 * x + 1], dp);
-        dp = fmaf(o.z, vreg[4 * x + 2], dp);
-        dp = fmaf(o.w, vreg[4 * x + 3], dp);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
-      const bool masked = key_masked || (causal && key > qi);
-      const float p = masked ? 0.f : expf(s * 0.125f - s_m[i]) / s_l[i];
-      const float p_lo = bf16_round(p);
-      const float ds = bf16_round(p * (dp - s_d[i]) * 0.125f);
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float4 a = *reinterpret_cast<const float4*>(qv + 4 * c + 16 * x);
-        const float4 o = *reinterpret_cast<const float4*>(gv + 4 * c + 16 * x);
-        dk[4 * x] = fmaf(ds, a.x, dk[4 * x]);
-        dk[4 * x + 1] = fmaf(ds, a.y, dk[4 * x + 1]);
-        dk[4 * x + 2] = fmaf(ds, a.z, dk[4 * x + 2]);
-        dk[4 * x + 3] = fmaf(ds, a.w, dk[4 * x + 3]);
-        dv[4 * x] = fmaf(p_lo, o.x, dv[4 * x]);
-        dv[4 * x + 1] = fmaf(p_lo, o.y, dv[4 * x + 1]);
-        dv[4 * x + 2] = fmaf(p_lo, o.z, dv[4 * x + 2]);
-        dv[4 * x + 3] = fmaf(p_lo, o.w, dv[4 * x + 3]);
-      }
-    }
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   }
 
-  float dkx[16], dw[16];
+  for (int i = 0; i < steps; ++i) {
+    issue(i + 2);
+    const bool next = prologue && i + 1 < steps;
+    cp_async_wait<1>();  // this thread's chunks of step i + 1
+    const int q0 = query0(i);
+    const bf16* qb = s_q + (i % kStages) * kTileB;
+    const bf16* gb = s_g + (i % kStages) * kTileB;
+    const float* st = s_stat + (i % kStages) * 3 * kTile;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dkx[i] = dw[i] = 0.f;
-  if (key < N) grad_row(dk, sin_row(key), cos_row(key), rope, c, dkx);
-  if (k_scale != nullptr) norm_adjoint_row(dkx, k_in, key < N, k_scale, c, dw);
-  if (key < N) {
-    bf16* row = dqkv + (static_cast<size_t>(b) * N + key) * row_stride + h * kHeadDim;
-    store_row(dkx, c, row + D);
-    grad_row(dv, nullptr, nullptr, false, c, dkx);
-    store_row(dkx, c, row + 2 * D);
+    for (int ch = 0; ch < kTile / kChunkKv; ++ch) {
+      float s[kChunkKv / 8][4], dp[kChunkKv / 8][4];
+      mma_a_tileT<kChunkKv / 8>(s, ka, qb, kChunkKv * ch, lane);
+      mma_a_tileT<kChunkKv / 8>(dp, va, gb, kChunkKv * ch, lane);
+#pragma unroll
+      for (int j = 0; j < kChunkKv / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = kChunkKv * ch + 8 * j + 2 * t + (e & 1);  // query row within the tile
+          const int kk = key + 8 * (e >> 1);
+          const bool masked = kk >= n_valid || q0 + qr >= N || (causal && kk > q0 + qr);
+          const float p = masked ? 0.f : expf(s[j][e] * 0.125f - st[qr]) / st[kTile + qr];
+          s[j][e] = bf16_round(p);
+          dp[j][e] = bf16_round(p * (dp[j][e] - st[2 * kTile + qr]) * 0.125f);
+        }
+      }
+      uint32_t pa[kChunkKv / 16][4], da[kChunkKv / 16][4];
+      acc_to_a<kChunkKv / 8>(s, pa);
+      acc_to_a<kChunkKv / 8>(dp, da);
+      mma_a_tile<kChunkKv / 16>(dv, pa, gb, kChunkKv * ch, lane);
+      mma_a_tile<kChunkKv / 16>(dk, da, qb, kChunkKv * ch, lane);
+    }
+    if (next) {
+      prologue_tile(s_q + ((i + 1) % kStages) * kTileB, query0(i + 1), N,
+                    norm ? s_w : nullptr, sin_t, cos_t, nullptr);
+    }
+    __syncthreads();  // publishes step i + 1's Q tile; frees stage i
   }
-  if (k_scale != nullptr) {
-    __syncthreads();  // the last query tile is read no more
-    block_dw_row(dw, s_q, r, c, dw_row(dws, 1));
+
+  // Epilogue, four threads a row, 32 rows at a time: dk through the RoPE and
+  // norm adjoints, dv as it stands.
+  float* stage_k = reinterpret_cast<float*>(smem4);
+  float* stage_v = stage_k + kStageFloats;
+  stage_acc(dk, stage_k, 16 * warp, lane);
+  stage_acc(dv, stage_v, 16 * warp, lane);
+  __syncthreads();
+  const int c = threadIdx.x & 3;
+  float dw[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dw[i] = 0.f;
+#pragma unroll 1
+  for (int half = 0; half < kTile / (kTcThreads / 4); ++half) {
+    const int r = (threadIdx.x >> 2) + half * (kTcThreads / 4);
+    const int n = k0 + r;
+    float acc[16], dx[16];
+    unstage_row(stage_k, r, c, acc);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dx[i] = 0.f;
+    const bf16* k_in = k_src + static_cast<size_t>(n) * row_stride;
+    const bf16* sr = rope ? sin_t + static_cast<size_t>(n) * kHeadDim : nullptr;
+    const bf16* cr = rope ? cos_t + static_cast<size_t>(n) * kHeadDim : nullptr;
+    if (n < N) grad_row(acc, sr, cr, rope, c, dx);
+    if (norm) norm_adjoint_row(dx, k_in, n < N, k_scale, c, dw);
+    if (n < N) {
+      bf16* out = dqkv + (static_cast<size_t>(b) * N + n) * row_stride + h * kHeadDim;
+      store_row(dx, c, out + D);
+      unstage_row(stage_v, r, c, acc);
+      grad_row(acc, nullptr, nullptr, false, c, dx);
+      store_row(dx, c, out + 2 * D);
+    }
   }
+  if (norm) block_dw_row(dw, stage_k + kDwAt, threadIdx.x >> 2, c, kTcThreads / 4, dw_row(dws, 1));
 }
 
 int launch_bwd(const void* qkv, const void* g, const void* sin_t, const void* cos_t,
@@ -478,12 +595,12 @@ int launch_bwd(const void* qkv, const void* g, const void* sin_t, const void* co
   const bf16* co = static_cast<const bf16*>(cos_t);
   const float* qs = static_cast<const float*>(q_scale);
   const float* ks = static_cast<const float*>(k_scale);
-  attention_bwd_dq_kernel<<<grid, kThreads, kSmemDq, stream>>>(
+  attention_bwd_dq_kernel<<<grid, kTcThreads, kSmemDq, stream>>>(
       q, go, s, co, qs, ks, static_cast<bf16*>(dqkv), static_cast<float*>(stats),
       static_cast<float*>(dws), N, H, n_valid, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, stream>>>(
+  attention_bwd_dkv_kernel<<<grid, kTcThreads, kSmemDkv, stream>>>(
       q, go, s, co, qs, ks, static_cast<const float*>(stats), static_cast<bf16*>(dqkv),
       static_cast<float*>(dws), N, H, n_valid, causal);
   return static_cast<int>(cudaGetLastError());

@@ -60,6 +60,8 @@ _ENTRY = {torch.bfloat16: "vtp_fused_qkv_rope_attention_bf16",
 # launch-count names, one per arm
 ARM_NAME = {torch.bfloat16: "fused_qkv_rope_attention_bf16",
             torch.float32: "fused_qkv_rope_attention_fp32"}
+# the bf16 arm with qk-norm scales (the DiT path): the same entry, counted apart
+NORM_NAME = "fused_qkv_rope_attention_bf16_qk_norm"
 HIGH_ENTRY = "vtp_fused_qkv_rope_attention_f32_bf16x3"
 HIGH_NAME = "fused_qkv_rope_attention_fp32_bf16x3"
 BWD_ENTRY = "vtp_fused_qkv_rope_attention_bwd_bf16"
@@ -147,9 +149,12 @@ def _kernel_fn(entry: str, n_pointers: int = 6):
     return fn
 
 
-def arm_name(dtype: torch.dtype, fp32_precision: str = "float32") -> str:
-    """The launch-count name of the forward arm a call takes."""
-    return HIGH_NAME if _is_high(dtype, fp32_precision) else ARM_NAME[dtype]
+def arm_name(dtype: torch.dtype, fp32_precision: str = "float32", qk_norm: bool = False) -> str:
+    """The launch-count name of the forward arm a call takes; a bf16 call
+    with qk-norm scales counts under ``NORM_NAME``."""
+    if _is_high(dtype, fp32_precision):
+        return HIGH_NAME
+    return NORM_NAME if qk_norm and dtype == torch.bfloat16 else ARM_NAME[dtype]
 
 
 def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
@@ -179,7 +184,7 @@ def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {rc}")
-    count_launch(arm_name(qkv.dtype, fp32_precision))
+    count_launch(arm_name(qkv.dtype, fp32_precision, q_scale is not None))
     return out
 
 
