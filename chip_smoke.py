@@ -15,7 +15,10 @@
    backward also at the edges of their 64-row tiles, N in EDGE_N (one row,
    ragged tiles, the text length, the 384^2 and 512^2 encodes), with RoPE,
    causal and n_valid cases, the forward's on the inputs of each of
-   EDGE_SEEDS;
+   EDGE_SEEDS; at the same N and on the same seeds the strided attention
+   (both entries, head dims 32, 64 and 128, the text view at N = 77;
+   ``check_edges_flash``) and the bf16x3 arm on fp32 inputs, with and
+   without qk-norm (``check_edges_high``);
 3. runs the roundtrip once through the public API at full VTP-L width:
    ``VTPModel.init`` with seeded random weights, a batch of 8 random 256x256
    images -> bf16 latents -> exact-fp32 images; checks the outputs and that
@@ -58,7 +61,12 @@
    cfg 1.0, then the VTP-L decode to uint8), counted and timed, and holds
    a 4-step sample's latents against the same on the plain versions;
 7. times each kernel arm against its plain version, a PyTorch yardstick
-   call where there is one, and its bound, and the roundtrip's images/s;
+   call where there is one, and its bound, each by CUDA events twice: as
+   the host issues the calls (``ms``, ``plain_ms``, ``library_ms``: a short
+   kernel behind a Python wrapper reads the host's cost of a call) and
+   queued behind a device sleep (``device_ms``, ``plain_device_ms``,
+   ``library_device_ms``: the device's time alone); and the roundtrip's
+   images/s;
 8. with --profile, traces one roundtrip, one train step and one DiT train
    step with torch.profiler and prints the device time by kernel and the
    device's idle share.
@@ -147,18 +155,40 @@ def _watchdog() -> None:
     os._exit(1)
 
 
-def _time_ms(fn, iters: int = 10, samples: int = 7) -> float:
+def _time_ms(fn, iters: int = 10, samples: int = 7, queued: bool = False) -> float:
     """Median over `samples` of the mean time of `iters` calls, by CUDA
-    events, after a warm-up."""
+    events, after a warm-up. The events bracket the calls as the host issues
+    them, so where a Python wrapper takes longer to issue a call than the
+    device to run it, the reading is the host's: what a call costs a path
+    that the host bounds. With `queued`, each sample's calls wait behind a
+    device sleep (``torch.cuda._sleep``) of twice the time the host took to
+    issue them, so they run back to back on the device and the reading is
+    the device's time alone."""
     import torch
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    sleep_cycles = 0
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e0, e1 = events()
+        e0.record()
+        torch.cuda._sleep(10 ** 6)
+        e1.record()
+        e1.synchronize()
+        sleep_cycles = int(min(2 * host_ms + 0.5, 200.0) * 10 ** 6 / e0.elapsed_time(e1))
     times = []
     for _ in range(samples):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+        e0, e1 = events()
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
         e0.record()
         for _ in range(iters):
             fn()
@@ -166,6 +196,28 @@ def _time_ms(fn, iters: int = 10, samples: int = 7) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / iters)
     return statistics.median(times)
+
+
+def _timings(kern, plain, lib=None) -> dict:
+    """A kernel row's times: ``ms``, ``plain_ms`` and ``library_ms`` as the
+    host issues the calls, and ``device_ms``, ``plain_device_ms`` and
+    ``library_device_ms`` queued behind a device sleep (``_time_ms``); the
+    library's are None where no single PyTorch call computes the function."""
+    out = {}
+    for key, fn in (("", kern), ("plain_", plain), ("library_", lib)):
+        out[f"{key}ms"] = None if fn is None else _time_ms(fn)
+        out[f"{key}device_ms"] = None if fn is None else _time_ms(fn, queued=True)
+    return out
+
+
+def _fmt_times(t: dict, lib: str = "sdpa") -> str:
+    """Kernel, plain and library times of ``_timings``, each with its device
+    time in brackets."""
+    parts = [f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f})",
+             f"plain {t['plain_ms']:.4f} ms (device {t['plain_device_ms']:.4f})"]
+    if t["library_ms"] is not None:
+        parts.append(f"{lib} {t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f})")
+    return ", ".join(parts)
 
 
 @contextlib.contextmanager
@@ -210,9 +262,10 @@ def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False):
 
 
 def check_ptxas(report: str) -> None:
-    """Prints ptxas's registers and spills of each kernel (``-Xptxas -v``,
-    the report kept beside the library) and fails if the report names no
-    kernel or if any kernel spills."""
+    """Prints ptxas's registers, stack frame and spills of each kernel
+    (``-Xptxas -v``, the report kept beside the library) and fails if the
+    report names no kernel, or if any kernel spills or keeps a stack frame
+    (a local array indexed at run time, or a pointer to a register value)."""
     import re
 
     name = None
@@ -223,28 +276,33 @@ def check_ptxas(report: str) -> None:
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m and name:
-            props.setdefault(name, {}).update(spill=(int(m.group(1)), int(m.group(2))))
+            props.setdefault(name, {}).update(stack=int(m.group(1)),
+                                              spill=(int(m.group(2)), int(m.group(3))))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             props.setdefault(name, {})["regs"] = int(m.group(1))
     if not any("regs" in p for p in props.values()):
         raise AssertionError("the ptxas report names no kernel's registers")
     for fn, p in sorted(props.items()):
-        print(f"ptxas {fn}: {p.get('regs')} registers, spill stores/loads {p.get('spill')} bytes",
-              flush=True)
+        print(f"ptxas {fn}: {p.get('regs')} registers, stack frame {p.get('stack')} bytes, spill "
+              f"stores/loads {p.get('spill')} bytes", flush=True)
         if p.get("spill", (0, 0)) != (0, 0):
             raise AssertionError(f"the kernel {fn} spills: {p}")
+        if p.get("stack", 0):
+            raise AssertionError(f"the kernel {fn} has a stack frame: {p}")
 
 
-def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2):
-    """bf16 qkv (B, N, 3*H*64); with ``rope``, (N, 64) sin/cos tables of
-    random angles (column j and j+32 share an angle, as rotate-half RoPE
-    has it), for any N; with ``qk_norm``, (64,) scales."""
+def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2, dtype=None):
+    """qkv (B, N, 3*H*64), bf16 unless ``dtype`` says otherwise; with
+    ``rope``, (N, 64) sin/cos tables of random angles (column j and j+32
+    share an angle, as rotate-half RoPE has it), for any N; with
+    ``qk_norm``, (64,) scales."""
     import torch
 
-    qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device="cuda").bfloat16()
+    qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device="cuda").to(dtype or torch.bfloat16)
     sin = cos = None
     if rope:
         ang = 2 * math.pi * torch.rand((N, 32), generator=gen, device="cuda")
@@ -306,6 +364,53 @@ def check_edges_fwd():
           f"(limit 1e-2) by seed: "
           + ", ".join(f"{sd}: {w:.3e} ({case})" for sd, (w, case) in worst.items()) + " ok",
           flush=True)
+
+
+def check_edges_high():
+    """The bf16x3 ("high") arm on fp32 inputs, with and without qk-norm, at
+    every edge case, on the inputs of each of EDGE_SEEDS, at the arm's gates:
+    1e-4 abs, and 1e-2 of max|ref| where qk-norm and RoPE meet (an ulp of
+    the fp32 norm can flip a bf16 rounding of RoPE, as in check_kernel).
+    The kernel splits p = exp(s - m_running) and divides by the row's sum
+    at the end, where the plain version splits the normalised p."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import (
+        fused_qkv_rope_attention,
+        fused_qkv_rope_attention_reference,
+    )
+
+    worst = {}
+    for seed in EDGE_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        worst[seed] = {"abs": (0.0, ""), "rel": (0.0, "")}
+        for qk_norm in (False, True):
+            for name, N, rope, causal, n_valid in _edge_cases():
+                qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm,
+                                                         dtype=torch.float32)
+                got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
+                                               is_causal=causal, fp32_precision="high")
+                torch.cuda.synchronize()
+                want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
+                                                          n_valid=n_valid, is_causal=causal,
+                                                          fp32_precision="high")
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                kind = "rel" if qk_norm and rope else "abs"
+                value = err / scale if kind == "rel" else err
+                limit = 1e-2 if kind == "rel" else 1e-4
+                if value > worst[seed][kind][0]:
+                    worst[seed][kind] = (value, f"{name} qk_norm={qk_norm} N={N}")
+                if not (value <= limit and torch.isfinite(got).all().item()):
+                    print(f"kernel edge fwd bf16x3 seed {seed} {name} qk_norm={qk_norm} N={N} "
+                          f"n_valid={n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; limit "
+                          f"{limit} {kind}) FAIL", flush=True)
+                    raise AssertionError(f"bf16x3 attention edge case {name} N={N} disagrees")
+    print(f"kernel edge fwd fp32_bf16x3, with and without qk-norm, {2 * len(_edge_cases())} cases "
+          f"at N in {EDGE_N}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err "
+          f"(limit 1e-4) and, with qk-norm and RoPE, worst of max|ref| (limit 1e-2) by seed: "
+          + ", ".join(f"{sd}: {w['abs'][0]:.3e} ({w['abs'][1]}) / {w['rel'][0]:.3e} "
+                      f"({w['rel'][1]})" for sd, w in worst.items()) + " ok", flush=True)
 
 
 def check_edges_bwd(gen, qk_norm):
@@ -403,6 +508,7 @@ def check_kernel(gen):
         if name.startswith("vtpl_"):
             errs[arm] = err
     check_edges_fwd()
+    check_edges_high()
     return errs
 
 
@@ -776,6 +882,52 @@ def _flash_inputs(gen, bnhd, B, N, H, d, view=False):
     return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
 
 
+def check_edges_flash():
+    """The strided attention, both entries, at N in EDGE_N and head dims 32,
+    64 and 128 (B = 1, H = 2), and the (B, H, N, d) entry on the text path's
+    strided view of a packed qkv at N = 77, on the inputs of each of
+    EDGE_SEEDS, held to 1e-2 of max|ref| against the plain versions: its
+    single sweep rounds p where the plain version does not, so the margin to
+    the gate is read over several draws. At N = 1 the output is v exactly."""
+    import torch
+
+    from vtp_tpu_torch.ops import flash_attention as fa
+
+    entries = {True: (fa.flash_attention_bnhd, fa.flash_attention_bnhd_reference),
+               False: (fa.flash_attention, fa.flash_attention_reference)}
+    cases = [(bnhd, N, d, False) for bnhd in (True, False) for N in EDGE_N for d in (32, 64, 128)]
+    cases += [(False, 77, d, True) for d in (32, 64, 128)]
+    worst = {}
+    for seed in EDGE_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        worst[seed] = (0.0, "")
+        for bnhd, N, d, view in cases:
+            kern, plain = entries[bnhd]
+            q, k, v = _flash_inputs(gen, bnhd, 1, N, 2, d, view)
+            with torch.no_grad():
+                got = kern(q, k, v)
+                torch.cuda.synchronize()
+                want = plain(q, k, v)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            case = f"{'bnhd' if bnhd else 'bhnd'}{' view' if view else ''} N={N} d={d}"
+            ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
+            if N == 1:
+                ok = ok and torch.equal(got.reshape(v.shape), v)
+            if err / scale > worst[seed][0]:
+                worst[seed] = (err / scale, case)
+            if not ok:
+                print(f"kernel edge flash seed {seed} {case}: max abs err {err:.3e} (max|ref| "
+                      f"{scale:.3e}; limit 1e-2 rel{'; v exactly at N = 1' if N == 1 else ''}) "
+                      f"FAIL", flush=True)
+                raise AssertionError(f"strided attention edge case {case} disagrees")
+    print(f"kernel edge flash, both entries, {len(cases)} cases (N in {EDGE_N}, d 32/64/128, the "
+          f"text view at N = 77), each on the inputs of seeds {EDGE_SEEDS}: worst max abs err of "
+          f"max|ref| (limit 1e-2; N = 1 exactly v) by seed: "
+          + ", ".join(f"{sd}: {w:.3e} ({case})" for sd, (w, case) in worst.items()) + " ok",
+          flush=True)
+
+
 def check_flash_kernels(gen):
     """Phase 2, the strided attention without a prologue: both entries at the
     head-major trunk's and the text tower's shapes, at head dims 32 and 128
@@ -811,6 +963,7 @@ def check_flash_kernels(gen):
             raise AssertionError(f"{label} {name} disagrees with its plain version")
         if (name, bnhd) in (("trunk", True), ("text_qkv_view", False)):
             errs[label] = err
+    check_edges_flash()
     return errs
 
 
@@ -1268,21 +1421,21 @@ def time_train_kernels(gen, card, errs, counts):
             out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
             torch.autograd.grad(out, (q, k, v), gt)
 
-        ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
+        tm = _timings(kern, plain, lib)
         nbytes = B * N * 7 * H * 64 * 2
         pairs = N * (N + 1) / 2 if causal else N * N
         flops = 10 * B * H * pairs * 64
         t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-        print(f"timing attention_bwd {name} B={B} N={N} H={H} on {card}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms, bound "
+        print(f"timing attention_bwd {name} B={B} N={N} H={H} on {card}: "
+              f"{_fmt_times(tm, 'sdpa fwd+bwd')}, bound "
               f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
               flush=True)
         if name == "trunk_globals":
             rows.append({
                 "name": BWD_NAME, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
                 "launches": counts.get(BWD_NAME, 0), "max_abs_err": errs["attention_bwd"],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+                **tm, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             })
     for name, R, C in TRAIN_CE:
         t = torch.randn((R, C), generator=gen, device="cuda").bfloat16()
@@ -1299,20 +1452,19 @@ def time_train_kernels(gen, card, errs, counts):
                     3 * R * C * 2 + C * 4 + 5 * R * 4),
         }
         for part, (kern, plain, nbytes) in timed.items():
-            ms, plain_ms = _time_ms(kern), _time_ms(plain)
+            tm = _timings(kern, plain)
             # about a dozen fp32 operations an element (two exps), outside the tensor cores
             t_bytes, t_ops = nbytes / bw * 1e3, 12 * R * C / fp32_peak * 1e3
-            print(f"timing fused_ce_{part} {name} R={R} C={C} on {card}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                  f"({nbytes / 1e6:.1f} MB)", flush=True)
+            print(f"timing fused_ce_{part} {name} R={R} C={C} on {card}: {_fmt_times(tm)}, "
+                  f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
             if name == "ibot":
                 kname = fused_ce.FWD_NAME if part == "fwd" else fused_ce.BWD_NAME
                 rows.append({
                     "name": kname, "route": "cuda", "source": CE_SOURCE,
                     "replaces": CE_REPLACES[part], "launches": counts.get(kname, 0),
-                    "max_abs_err": errs[f"fused_ce_{part}"], "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": errs[f"fused_ce_{part}"], **tm,
                     "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 })
     return rows
 
@@ -1359,42 +1511,40 @@ def time_dit_kernels(gen, card, errs, counts):
         # the train step's batch (the JSON row), then the sampler's
         xq = qkv[:batch]
         with torch.no_grad():
-            fwd = (_time_ms(lambda: fused_qkv_rope_attention(xq, sin, cos, H, qs, ks)),
-                   _time_ms(lambda: fused_qkv_rope_attention_reference(xq, sin, cos, H, qs, ks)),
-                   _time_ms(lambda: F.scaled_dot_product_attention(q[:batch], k[:batch],
-                                                                   v[:batch])))
+            tm = _timings(lambda: fused_qkv_rope_attention(xq, sin, cos, H, qs, ks),
+                         lambda: fused_qkv_rope_attention_reference(xq, sin, cos, H, qs, ks),
+                         lambda: F.scaled_dot_product_attention(q[:batch], k[:batch], v[:batch]))
         fwd_bytes, fwd_flops = batch * N * 4 * D * 2, 4 * batch * H * N * N * 64
         t_bytes, t_ops = fwd_bytes / bw * 1e3, fwd_flops / bf16_peak * 1e3
-        print(f"timing {NORM_NAME} DiT-XL/1 B={batch} N={N} H={H} on {card}: kernel "
-              f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, sdpa {fwd[2]:.4f} ms (no norm), bound "
+        print(f"timing {NORM_NAME} DiT-XL/1 B={batch} N={N} H={H} on {card}: "
+              f"{_fmt_times(tm)} (no norm), bound "
               f"{max(t_bytes, t_ops):.4f} ms ({fwd_bytes / 1e6:.1f} MB, {fwd_flops / 1e9:.2f} "
               f"GFLOP)", flush=True)
         if batch == B:
             rows.append({
                 "name": NORM_NAME, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
                 "launches": counts.get(NORM_NAME, 0), "max_abs_err": errs["bf16_qk_norm"],
-                "ms": fwd[0], "plain_ms": fwd[1], "bound_ms": max(t_bytes, t_ops),
+                **tm, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": fwd[2],
             })
-    ms = _time_ms(lambda: fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, H))
-    plain_ms = _time_ms(
-        lambda: fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, H))
-    lib_ms = _time_ms(lib_bwd)
+    tm = _timings(
+        lambda: fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, H),
+        lambda: fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, H),
+        lib_bwd)
     # qkv and g read once, d(qkv) written once (the scales and the dw rows are
     # under 0.2% of it); scores recomputed, dv, dp, dq, dk
     nbytes = 7 * B * N * D * 2
     flops = 10 * B * H * N * N * 64
     t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-    print(f"timing attention_bwd_qk_norm DiT-XL/1 B={B} N={N} H={H} on {card}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa fwd+bwd {lib_ms:.4f} ms (no norm), bound "
+    print(f"timing attention_bwd_qk_norm DiT-XL/1 B={B} N={N} H={H} on {card}: "
+          f"{_fmt_times(tm, 'sdpa fwd+bwd')} (no norm), bound "
           f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
           flush=True)
     return rows + [{
         "name": NORM_BWD_NAME, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
         "launches": counts.get(NORM_BWD_NAME, 0), "max_abs_err": errs["attention_bwd_qk_norm"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+        **tm, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }]
 
 
@@ -1431,7 +1581,7 @@ def time_kernels(gen, card, errs, counts):
         k = rope_apply(k.to(torch.bfloat16), s, c).to(dt).transpose(1, 2).contiguous()
         v = v.transpose(1, 2).contiguous()
         lib = lambda: F.scaled_dot_product_attention(q, k, v)
-        ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
+        tm = _timings(kern, plain, lib)
         item = torch.finfo(dt).bits // 8
         nbytes = BATCH * N * (3 * H * d + H * d) * item
         flops = passes * 4 * BATCH * H * N * N * d
@@ -1440,11 +1590,11 @@ def time_kernels(gen, card, errs, counts):
         rows.append({
             "name": arm, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
             "launches": counts.get(arm, 0), "max_abs_err": errs[key],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+            **tm, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
-        print(f"timing {arm} B={BATCH} N={N} H={H} on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms{' (exact fp32; no single call computes the split)' if passes > 1 else ''}, "
+        print(f"timing {arm} B={BATCH} N={N} H={H} on {card}: {_fmt_times(tm)}"
+              f"{' (exact fp32; no single call computes the split)' if passes > 1 else ''}, "
               f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
               flush=True)
     return rows
@@ -1471,9 +1621,8 @@ def time_flash_kernels(gen, card, errs, counts):
             name, kern, plain = fa.FLASH_NAME, fa.flash_attention, fa.flash_attention_reference
             lq, lk, lv = q, k, v
         with torch.no_grad():
-            ms = _time_ms(lambda: kern(q, k, v))
-            plain_ms = _time_ms(lambda: plain(q, k, v))
-            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+            tm = _timings(lambda: kern(q, k, v), lambda: plain(q, k, v),
+                         lambda: F.scaled_dot_product_attention(lq, lk, lv))
         nbytes = 4 * B * N * H * d * 2
         flops = 4 * B * H * N * N * d
         t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
@@ -1481,11 +1630,11 @@ def time_flash_kernels(gen, card, errs, counts):
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES["bnhd" if bnhd else "bhnd"],
             "launches": counts.get(name, 0), "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+            **tm, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
-        print(f"timing {name} B={B} N={N} H={H} d={d} on {card}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+        print(f"timing {name} B={B} N={N} H={H} d={d} on {card}: {_fmt_times(tm)}, "
+              f"bound {max(t_bytes, t_ops):.4f} ms "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
     return rows
 

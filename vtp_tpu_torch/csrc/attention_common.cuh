@@ -1,12 +1,11 @@
 // Pieces of the attention kernels for Hopper (sm_90a): the tile geometry
-// and bf16 rounding, used by all of them (the bf16 tensor-core kernels add
-// tensor_core.cuh); and for the scalar fp32 arms of the fused forward
-// (fused_attention.cu) and the strided kernel (flash_attention.cu), the
-// bf16x3 split, the row loader that applies qk-RMSNorm and RoPE exactly as
-// the plain PyTorch version rounds them, and the score loops (plain, and
-// split for the forward's bf16x3 arm).
+// and bf16 rounding, used by all of them (the tensor-core kernels add
+// tensor_core.cuh); the bf16x3 split; and, for the scalar exact fp32 arm of
+// the fused forward (fused_attention.cu), the row loader that applies
+// qk-RMSNorm and RoPE exactly as the plain PyTorch version rounds them and
+// the score loop.
 //
-// Layout of the scalar kernels: a block of 256 threads covers a tile of 64
+// Layout of the scalar kernel: a block of 256 threads covers a tile of 64
 // token rows, four threads per row; thread quarter c owns head-dim columns
 // [8c, 8c+8) and [32+8c, 32+8c+8) when it loads a row, so rotate-half pairs
 // (j, j+32) stay inside one thread. The tensor-core backward's epilogues
@@ -38,54 +37,36 @@ __device__ __forceinline__ void split_bf16(float x, float& hi, float& lo) {
   lo = bf16_round(x - hi);
 }
 
-template <typename T>
-struct Io;
+__device__ __forceinline__ void load8(const float* p, float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
 
-template <>
-struct Io<float> {
-  __device__ static void load8(const float* p, float* dst) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 4);
-    dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-    dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static float store_value(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  __device__ static void load8(const __nv_bfloat16* p, float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(v[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(v[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
   }
-  __device__ static float round(float x) { return bf16_round(x); }
-  __device__ static __nv_bfloat16 store_value(float x) { return __float2bfloat16_rn(x); }
-};
+}
 
 // Loads token row `n` of one head's Q or K (or V, with no prologue) into
 // `dst`, a padded shared-memory row. Thread quarter `c` owns columns
 // [8c, 8c+8) and [32+8c, 32+8c+8). Rows at or past N load as zeros.
-// kSplit (the forward's bf16x3 arm, fp32 input): the RMSNorm's mean of
-// squares sums the split halves of each square, and the row is stored as
-// its split halves, hi in `dst` and lo in `dst_lo`.
-template <typename T, bool kSplit = false>
-__device__ void load_row(const T* __restrict__ row, bool in_range,
+__device__ void load_row(const float* __restrict__ row, bool in_range,
                          const float* __restrict__ norm_w,
                          const __nv_bfloat16* __restrict__ sin_row,
                          const __nv_bfloat16* __restrict__ cos_row,
-                         float* __restrict__ dst, int c,
-                         float* __restrict__ dst_lo = nullptr) {
+                         float* __restrict__ dst, int c) {
   float x[16];
   if (in_range) {
-    Io<T>::load8(row + 8 * c, x);
-    Io<T>::load8(row + 32 + 8 * c, x + 8);
+    load8(row + 8 * c, x);
+    load8(row + 32 + 8 * c, x + 8);
   } else {
 #pragma unroll
     for (int i = 0; i < 16; ++i) x[i] = 0.f;
@@ -93,30 +74,22 @@ __device__ void load_row(const T* __restrict__ row, bool in_range,
   if (norm_w != nullptr) {
     float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      if constexpr (kSplit) {
-        float hi, lo;
-        split_bf16(x[i] * x[i], hi, lo);
-        ss += hi + lo;
-      } else {
-        ss += x[i] * x[i];
-      }
-    }
+    for (int i = 0; i < 16; ++i) ss += x[i] * x[i];
     ss += __shfl_xor_sync(0xffffffffu, ss, 1);
     ss += __shfl_xor_sync(0xffffffffu, ss, 2);
     const float inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int col = (i < 8 ? 8 * c : 32 + 8 * c) + (i & 7);
-      x[i] = Io<T>::round(Io<T>::round(x[i] * inv) * norm_w[col]);
+      x[i] = x[i] * inv * norm_w[col];
     }
   }
   if (sin_row != nullptr && in_range) {
     float s[16], co[16];
-    Io<__nv_bfloat16>::load8(sin_row + 8 * c, s);
-    Io<__nv_bfloat16>::load8(sin_row + 32 + 8 * c, s + 8);
-    Io<__nv_bfloat16>::load8(cos_row + 8 * c, co);
-    Io<__nv_bfloat16>::load8(cos_row + 32 + 8 * c, co + 8);
+    load8(sin_row + 8 * c, s);
+    load8(sin_row + 32 + 8 * c, s + 8);
+    load8(cos_row + 8 * c, co);
+    load8(cos_row + 32 + 8 * c, co + 8);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float lo = bf16_round(x[i]);
@@ -128,13 +101,8 @@ __device__ void load_row(const T* __restrict__ row, bool in_range,
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    if constexpr (kSplit) {
-      split_bf16(x[i], dst[8 * c + i], dst_lo[8 * c + i]);
-      split_bf16(x[i + 8], dst[32 + 8 * c + i], dst_lo[32 + 8 * c + i]);
-    } else {
-      dst[8 * c + i] = x[i];
-      dst[32 + 8 * c + i] = x[i + 8];
-    }
+    dst[8 * c + i] = x[i];
+    dst[32 + 8 * c + i] = x[i + 8];
   }
 }
 
@@ -166,33 +134,6 @@ __device__ __forceinline__ void tile_scores(const float* __restrict__ sq,
       s[j] = fmaf(qv.y, kv.y, s[j]);
       s[j] = fmaf(qv.z, kv.z, s[j]);
       s[j] = fmaf(qv.w, kv.w, s[j]);
-    }
-  }
-  mask_and_scale(k0, c, qrow, n_valid, causal, s);
-}
-
-// tile_scores on split rows (hi in `sq`/`sk`, lo in `sq_lo`/`sk_lo`): each
-// product is hi*hi + hi*lo + lo*hi, three fp32 FMAs into the same sum.
-__device__ __forceinline__ void tile_scores_split(const float* __restrict__ sq,
-                                                  const float* __restrict__ sq_lo,
-                                                  const float* __restrict__ sk,
-                                                  const float* __restrict__ sk_lo, int c,
-                                                  int k0, int qrow, int n_valid,
-                                                  int causal, float (&s)[16]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) s[j] = 0.f;
-#pragma unroll 2
-  for (int i = 0; i < kHeadDim; i += 4) {
-    const float4 qh = *reinterpret_cast<const float4*>(sq + i);
-    const float4 ql = *reinterpret_cast<const float4*>(sq_lo + i);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float4 kh = *reinterpret_cast<const float4*>(sk + (c + 4 * j) * kStride + i);
-      const float4 kl = *reinterpret_cast<const float4*>(sk_lo + (c + 4 * j) * kStride + i);
-      s[j] = fmaf(qh.x, kh.x, fmaf(qh.x, kl.x, fmaf(ql.x, kh.x, s[j])));
-      s[j] = fmaf(qh.y, kh.y, fmaf(qh.y, kl.y, fmaf(ql.y, kh.y, s[j])));
-      s[j] = fmaf(qh.z, kh.z, fmaf(qh.z, kl.z, fmaf(ql.z, kh.z, s[j])));
-      s[j] = fmaf(qh.w, kh.w, fmaf(qh.w, kl.w, fmaf(ql.w, kh.w, s[j])));
     }
   }
   mask_and_scale(k0, c, qrow, n_valid, causal, s);

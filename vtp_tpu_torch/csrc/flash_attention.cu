@@ -25,182 +25,156 @@
 // (the wrapper checks, and copies an input that is not). The text path
 // passes the permuted views of its packed qkv GEMM output with no copy.
 //
-// Design: the fused kernel's bf16 arm without its prologue, templated on the
-// head dim (32, 64, 128). One block per (query tile of 64 rows, head, batch
-// row); 256 threads, four per row. A thread loads a quarter of a row's head
-// dim, computes 16 scores per key tile (the key columns c + 4j) over the
-// whole head dim from shared memory, and accumulates the output columns
-// 4c + 16i + e. Softmax takes two passes over the key tiles: the first finds
-// the row max and the fp32 sum of exp(s - max), the second forms p, rounds it
-// to bf16 and accumulates p.v.
+// Design: the fused forward's bf16 arm on tensor cores (tensor_core.cuh)
+// without its prologue, templated on the head dim D (32, 64, 128). One block
+// per (query tile of 64 rows, head, batch row): four warps, warp w owning
+// query rows [16w, 16w+16). Q, K and V tiles are copied raw by cp.async
+// into bf16 tiles in shared memory (rows padded to D + 8), each from its own
+// strided source: the batch and head go into the base pointer, the token
+// stride is the row stride, so views are read in place. The Q tile's A
+// fragments stay in registers; K and V tiles stream through a ring of
+// three stages (the copy of step i + 2 is issued at step i, one barrier a
+// step). Products: mma.sync.m16n8k16 bf16 with fp32 accumulators, S = Q K^T
+// a 16 x 64 accumulator a warp, O += P V a 16 x D one, fragments by
+// ldmatrix (.trans for V). Softmax is one sweep (FlashAttention-2's online
+// form, online_softmax_tile): per key tile the row max m moves, o and the
+// fp32 sum l are rescaled, p = exp(s - m) is rounded to bf16 as the A
+// operand of P V, and o is divided by l (the sum of the unrounded
+// exponentials) at the end. Keys past N are masked by bounds (n_valid = N,
+// no causal mask); warps whose 16 rows all lie at or past N (three of the
+// four in the text path's second query tile, N = 77) skip their products
+// and keep the block's barriers. The output tile is staged through shared
+// memory into 16-byte stores.
+//
+// Rounding. Both products take the plain version's bf16 operands exactly
+// (q, k, v and the bf16 p), so they differ from it only in the order of
+// their fp32 sums, except at one point: the plain version rounds
+// p = exp(s - max) / sum to bf16, the kernel rounds exp(s - m_running)
+// before the row's final max and sum are known and divides afterwards.
+// bf16 keeps 8 significant bits, so each rounding is off by up to 2^-8 of
+// p, a key's two weights differ by up to 2^-7 of p, and an output before
+// its own rounding differs from the plain version's by up to
+// 2^-7 * sum_k p_k |v_k|. That is no bound by one output ulp, nor by 2^-7
+// of max|ref| where v's values cancel: the 1e-2-of-max|ref| gate holds
+// because the per-key errors have random signs and largely cancel, which
+// chip_smoke.py's check_edges_flash measures at every head dim, both
+// entries and N in EDGE_N over several seeds. At N = 1 the output is v
+// exactly (p = 1).
+//
+// Resources (ptxas, sm_90a; chip_smoke.py prints them from the build's
+// report): D = 32, 64, 128 take 128, 155 and 240 registers, no stack, and
+// 2 * 3 * 64 * (D + 8) * 2 bytes of dynamic shared memory (30,720, 55,296,
+// 104,448); __launch_bounds__ asks for 4, 3 and 2 blocks an SM.
 //
 // Bound on an H100: at the head-major trunk's shape (B=8, N=257, H=16, d=64)
 // the call moves 16.8 MB and does 2.16 GFLOP; at the text tower's
 // (B=32, H=12, N=77, d=64), 15.1 MB and 0.58 GFLOP. Both are bytes-bound
-// (5 us and 4.5 us at 3.35 TB/s). This first version computes the scores
-// twice with scalar FMAs from shared memory on CUDA cores; mma/wgmma with an
-// online softmax and TMA loads are later work.
+// (5 us and 4.5 us at 3.35 TB/s). The kernel re-reads K and V from L2 once
+// per query tile, and a block runs only ceil(N/64) steps, so its time goes
+// to the latency of each step (copy, products, exponentials, barrier) more
+// than to bytes or products.
 
-#include "attention_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
-
-constexpr int kPStride = kTile + 4;  // padded row of the probability tile
 
 struct Strides {
   long long b, n, h;
 };
 
-// Shared memory: the Q, K and V tiles (fp32 rows of d + 4) and the P tile.
+// Blocks an SM that __launch_bounds__ asks for: the shared memory of D = 128
+// admits two; D = 64 keeps the fused forward's three (at most 170
+// registers a thread).
+template <int D>
+constexpr int kFlashBlocks = D == 128 ? 2 : (D == 64 ? 3 : 4);
+
+// Shared memory: a ring of three stages, each a K and a V tile (the Q tile
+// is copied into the third stage's K tile before the ring starts, and the
+// output tile is staged in the first stage's K tile at the end).
 template <int D>
 constexpr size_t flash_smem_bytes() {
-  return (3 * kTile * (D + 4) + kTile * kPStride) * sizeof(float);
-}
-
-// Loads one token row of one head into `dst`, a padded shared-memory row:
-// thread quarter c loads the columns [c*D/4, (c+1)*D/4), eight at a time.
-// Rows at or past N load as zeros.
-template <int D>
-__device__ __forceinline__ void load_plain_row(const __nv_bfloat16* __restrict__ row,
-                                               bool in_range, float* __restrict__ dst,
-                                               int c) {
-  constexpr int kPer = D / 4;
-#pragma unroll
-  for (int g = 0; g < kPer / 8; ++g) {
-    const int col = c * kPer + 8 * g;
-    float x[8];
-    if (in_range) {
-      Io<__nv_bfloat16>::load8(row + col, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = 0.f;
-    }
-    *reinterpret_cast<float4*>(dst + col) = make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(dst + col + 4) = make_float4(x[4], x[5], x[6], x[7]);
-  }
+  return 2 * kStages * kTile * kRowOf<D> * sizeof(bf16);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, int N, Strides sq,
+__global__ void __launch_bounds__(kTcThreads, kFlashBlocks<D>)
+flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int N, Strides sq,
                        Strides sk, Strides sv, Strides so, float scale) {
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-  constexpr int kS = D + 4;
-  constexpr int kT = kTile * kS;
+  constexpr int kT = kTile * kRowOf<D>;
   extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float* s_k = s_q + kT;
-  float* s_v = s_k + kT;
-  float* s_p = s_v + kT;
+  bf16* s_k = reinterpret_cast<bf16*>(smem4);  // kStages K tiles
+  bf16* s_v = s_k + kStages * kT;              // kStages V tiles
+  bf16* s_q = s_k + (kStages - 1) * kT;
 
-  const int r = threadIdx.x >> 2;  // row within the tile
-  const int c = threadIdx.x & 3;   // quarter of the row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int qrow = q0 + r;
-  auto row_of = [&](const __nv_bfloat16* base, const Strides& s, int n) {
-    return base + b * s.b + static_cast<long long>(n) * s.n + h * s.h;
-  };
+  const bf16* q_src = q + b * sq.b + h * sq.h;
+  const bf16* k_src = k + b * sk.b + h * sk.h;
+  const bf16* v_src = v + b * sv.b + h * sv.h;
+  const int row = q0 + 16 * warp + (lane >> 2);  // this lane's rows: row and row + 8
+  const bool active = q0 + 16 * warp < N;        // the warp has a row below N
 
-  load_plain_row<D>(row_of(q, sq, qrow), qrow < N, s_q + r * kS, c);
-  const float* qr = s_q + r * kS;
-  const int n_kt = (N + kTile - 1) / kTile;
-
-  auto load_k = [&](int k0) {
-    load_plain_row<D>(row_of(k, sk, k0 + r), k0 + r < N, s_k + r * kS, c);
-  };
-  auto load_v = [&](int k0) {
-    load_plain_row<D>(row_of(v, sv, k0 + r), k0 + r < N, s_v + r * kS, c);
-  };
-  // Scores of this thread's query row against key columns k0 + c + 4j; the
-  // sixteen sums are independent, each over the head dim in order.
-  auto scores = [&](int k0, float (&s)[16]) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < D; i += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + i);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(s_k + (c + 4 * j) * kS + i);
-        s[j] = fmaf(qv.x, kv.x, s[j]);
-        s[j] = fmaf(qv.y, kv.y, s[j]);
-        s[j] = fmaf(qv.z, kv.z, s[j]);
-        s[j] = fmaf(qv.w, kv.w, s[j]);
-      }
+  const int steps = (N + kTile - 1) / kTile;  // key tiles; step i uses stage i % kStages
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int st = i % kStages;
+      load_tile_rows_async<D>(s_k + st * kT, k_src, sk.n, i * kTile, N);
+      load_tile_rows_async<D>(s_v + st * kT, v_src, sv.n, i * kTile, N);
     }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) s[j] = (k0 + c + 4 * j < N) ? s[j] * scale : -INFINITY;
+    cp_async_commit();
   };
 
-  // Pass 1: row max and the fp32 sum of exp(s - max).
-  float m = -INFINITY, l = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_k(kt * kTile);
-    __syncthreads();
-    float s[16];
-    scores(kt * kTile, s);
-    float mt = s[0];
+  load_tile_rows_async<D>(s_q, q_src, sq.n, q0, N);
+  cp_async_commit();
+  issue(0);
+  issue(1);
+  cp_async_wait<1>();  // the Q tile and step 0
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+  load_a_rows<D>(qa, s_q, 16 * warp, lane);
+  __syncthreads();  // s_q is the stage that step 2 refills
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-    for (int j = 1; j < 16; ++j) mt = fmaxf(mt, s[j]);
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    if (m_new != -INFINITY) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) part += expf(s[j] - m_new);
-      l = (m == -INFINITY ? 0.f : l * expf(m - m_new)) + part;
-      m = m_new;
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    issue(i + 2);
+    if (active) {
+      const int st = i % kStages;
+      float s[8][4];
+      mma_a_tileT<8, D>(s, qa, s_k + st * kT, 0, lane);
+      mask_and_scale_acc(s, i * kTile, row, t, N, 0, scale);
+      online_softmax_tile(s, m, l, o);
+      uint32_t pa[4][4];
+      acc_to_a<8>(s, pa);  // p rounded to bf16 here, before its row's final max and sum are known
+      mma_a_tile<4, D>(o, pa, s_v + st * kT, 0, lane);
     }
+    cp_async_wait<1>();  // this thread's chunks of step i + 1
+    __syncthreads();     // publishes step i + 1; frees stage i
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (active) online_softmax_finish(l, o);
 
-  // Pass 2: p = exp(s - max) / sum, rounded to bf16; out += p.v.
-  constexpr int kAcc = D / 4;
-  float acc[kAcc];
+  // Output tile: bf16 rows through shared memory, 16-byte stores.
+  bf16* s_o = s_k;
+  stage_acc_bf16<D>(o, s_o, 16 * warp, lane);
+  __syncthreads();
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_k(k0);
-    load_v(k0);
-    __syncthreads();
-    float s[16];
-    scores(k0, s);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      s_p[r * kPStride + c + 4 * j] = s[j] == -INFINITY ? 0.f : bf16_round(expf(s[j] - m) / l);
-    }
-    __syncthreads();
-    const float* prow = s_p + r * kPStride;
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float p = prow[kk];
-      const float* vrow = s_v + kk * kS;
-#pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-        const float4 vv = *reinterpret_cast<const float4*>(vrow + 4 * c + 16 * i);
-        acc[4 * i] = fmaf(p, vv.x, acc[4 * i]);
-        acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
-      }
-    }
-  }
-
-  if (qrow < N) {
-    __nv_bfloat16* orow = out + b * so.b + static_cast<long long>(qrow) * so.n + h * so.h;
-#pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) orow[4 * c + 16 * i + e] = __float2bfloat16_rn(acc[4 * i + e]);
+  for (int it = 0; it < kTile * kChunks / kTcThreads; ++it) {
+    const int id = threadIdx.x + kTcThreads * it;
+    const int r = id / kChunks, chunk = id % kChunks;
+    const int n = q0 + r;
+    if (n < N) {
+      *reinterpret_cast<uint4*>(out + b * so.b + static_cast<long long>(n) * so.n + h * so.h +
+                                8 * chunk) =
+          *reinterpret_cast<const uint4*>(s_o + r * kRowOf<D> + 8 * chunk);
     }
   }
 }
@@ -215,10 +189,9 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int B, 
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kTile - 1) / kTile, H, B);
-  flash_attention_kernel<D><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), N, sq, sk,
-      sv, so, scale);
+  flash_attention_kernel<D><<<grid, kTcThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), N, sq, sk, sv, so, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

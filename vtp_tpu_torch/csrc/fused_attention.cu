@@ -17,8 +17,9 @@
 //          causal mask (column > row);
 //   p    = exp(s - max) / sum in fp32, rounded to the value dtype;
 //   out  = p.v accumulated in fp32, rounded to the output dtype (B, N, H*64).
-// Three arms: bf16 in/out (fp32 scores and softmax); exact fp32 with plain
-// fp32 FMAs (no TF32, no tensor cores); and fp32 bf16x3 (the TPU kernel's
+// Three arms: bf16 in/out (fp32 scores and softmax), on tensor cores; exact
+// fp32 with plain fp32 FMAs (no TF32, no tensor cores); and fp32 bf16x3,
+// on tensor cores (the TPU kernel's
 // dot_mode "bf16_3x", :466-475 and mxu_dot :516-526, which backs the JAX
 // package's decode_precision="high"): every fp32 operand of the two dots,
 // q and k, then p and v, is split into bf16 halves hi + lo, and each
@@ -32,7 +33,7 @@
 // exists. Every tile is bf16 in shared memory (rows padded to 72). Tiles are
 // copied raw with cp.async; the Q tile and each K tile are then normalised
 // and roped in place (prologue_tile, tensor_core.cuh: two threads a row,
-// load_row's rounding points), so the operands of both products are the
+// the rounding points above), so the operands of both products are the
 // bf16 values the reference multiplies. The Q tile's A fragments then stay
 // in registers. K and V tiles stream through a ring of three stages: the
 // copy of step i + 2 is issued at step i, and each thread ropes its own
@@ -62,14 +63,39 @@
 // the TPU kernel were workarounds for its vector unit: here rotate-half is
 // an index and the RMS a shuffle between two lanes.
 //
-// The fp32 arms (exact, and bf16x3) keep the first version's scalar body:
-// 256 threads, four a row, each owning 16 of the row's 64 head-dim columns
-// (the pairs j and j+32); Q in shared memory, key tiles normalised and roped
-// on load, scalar fp32 FMAs from shared memory, two sweeps (p formed at the
-// reference's rounding point). The bf16x3 arm keeps each split row as two
-// fp32 rows (hi, lo) in shared memory; to stay at two blocks an SM it holds
-// five tiles, not seven: in its second pass V's halves are loaded into K's
-// buffers once a tile's scores are taken.
+// Design of the bf16x3 arm (tensor cores, the same block and ring). Each
+// fp32 tile (Q, then K and V per step) is copied raw by cp.async into a
+// split tile of 64 rows of 272 bytes; split_tile then rewrites it in place,
+// two threads a row (the rotate-half pairs in one thread, a row's mean of
+// squares one shuffle): the prologue at load_row's rounding points
+// (the qk-norm's mean of squares summed over the split halves of each
+// square, as _rms_norm_high, x = (x r) w in fp32; RoPE in bf16 as the
+// reference rounds it), then hi = bf16(x) in the row's first 128 bytes and
+// lo = bf16(x - hi) in the next 128. cp.async into shared memory, not a
+// register prefetch, brings the fp32 rows: the copy is issued two steps
+// ahead and holds no registers beside the accumulators, and the split lands
+// where the copy did, so the ring needs no staging tiles (104,960 bytes,
+// two blocks an SM). K and V are split one step ahead, while other warps
+// multiply. Products: mma.sync bf16 into fp32 accumulators, hi.hi + hi.lo +
+// lo.hi (lo.lo dropped) for each of S = Q K^T and O += P V, the three terms
+// summed in one accumulator k-step by k-step, where the plain version
+// (matmul_high_reference) sums three whole products: the fp32 sums differ
+// in order only. With RoPE, q and k are bf16-valued after the prologue, so
+// their lo halves are 0 and S takes the one product hi.hi, bit for bit the
+// same sum. Softmax: one sweep, online; p = exp(s - m_running) stays fp32 and
+// is split into (hi, lo) as the A operand of P V, o and l are rescaled by
+// exp(m_old - m_new) in fp32 and o is divided by l at the end. The plain
+// version splits the normalised p instead: the two differ in that split
+// and in the rescales, at about 2^-16 of p, and no bf16 rounding point
+// moves (tests/test_torch_tensor_core.py holds a torch emulation of this
+// sweep within 1e-5 of max|ref| to the plain arm; chip_smoke.py holds the
+// kernel to 1e-4 abs at every edge case).
+//
+// The exact fp32 arm keeps the first version's scalar body (it must stay
+// off TF32 and the tensor cores): 256 threads, four a row, each owning 16 of
+// the row's 64 head-dim columns (the pairs j and j+32); Q in shared memory,
+// key tiles normalised and roped on load, scalar fp32 FMAs from shared
+// memory, two sweeps (p formed at the reference's rounding point).
 //
 // Bound on an H100: at the VTP-L shapes (B=8, N=257, H=16) the bf16 arm
 // moves 16.8 MB and does 2.2 GFLOP (bytes-bound, 5 us); with qk-norm at
@@ -80,41 +106,39 @@
 // tiles are re-read from L2 by every query tile. The fp32 arm moves 33.6 MB
 // and does 2.15 GFLOP of fp32 FMAs (operations-bound at the 67 TFLOP/s
 // non-tensor rate, 32 us). The bf16x3 arm at the decode's shape (B=8,
-// N=256) moves the same 33.6 MB and does 3 x 2.15 GFLOP, which at the bf16
-// tensor-core rate it was defined for is 6.5 us: bytes-bound, 10 us; it
-// runs on CUDA cores, three FMAs a product.
+// N=256) moves the same 33.6 MB and does 3 x 2.15 GFLOP of bf16 products
+// (6.5 us at the tensor-core rate): bytes-bound, 10 us; like the bf16 arm
+// it redoes the prologue and split of each K and V tile in every query
+// tile.
+//
+// ptxas (sm_90a; chip_smoke.py prints every kernel's registers and fails on
+// a spill): bf16 arm 164 registers, 55,808 bytes of dynamic shared memory
+// (three blocks an SM); bf16x3 arm 238 registers, 104,960 bytes (two);
+// exact fp32 arm 128 registers, 69,632 bytes (two).
 
 #include "tensor_core.cuh"
 
 namespace {
 
-// Shared memory: Q, K, V and P tiles; the bf16x3 arm holds Q, K (then V),
-// P and the lo halves of Q and of K (then V).
-template <bool kSplit>
-constexpr size_t smem_bytes() {
-  return (kSplit ? 5 : 4) * kTile * kStride * sizeof(float);
-}
+// Shared memory of the exact fp32 arm: Q, K, V and P tiles.
+constexpr size_t kSmemF32 = 4 * kTile * kStride * sizeof(float);
 
-// The fp32 arms' scalar body: kSplit false is the exact arm, true the
-// bf16x3 arm.
-template <bool kSplit>
+// The exact fp32 arm's scalar body (plain fp32 FMAs: no TF32, no tensor
+// cores).
 __global__ void __launch_bounds__(kThreads, 2)
-fused_qkv_rope_attention_kernel(const float* __restrict__ qkv,
-                                const __nv_bfloat16* __restrict__ sin_t,
-                                const __nv_bfloat16* __restrict__ cos_t,
-                                const float* __restrict__ q_scale,
-                                const float* __restrict__ k_scale,
-                                float* __restrict__ out, int N, int H, int n_valid,
-                                int causal) {
+fused_qkv_rope_attention_f32_kernel(const float* __restrict__ qkv,
+                                    const __nv_bfloat16* __restrict__ sin_t,
+                                    const __nv_bfloat16* __restrict__ cos_t,
+                                    const float* __restrict__ q_scale,
+                                    const float* __restrict__ k_scale,
+                                    float* __restrict__ out, int N, int H, int n_valid,
+                                    int causal) {
   constexpr int kT = kTile * kStride;
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);
   float* s_k = s_q + kT;
   float* s_p = s_k + kT;
-  float* s_v = kSplit ? s_k : s_p + kT;        // the bf16x3 arm loads V over K
-  float* s_q_lo = kSplit ? s_p + kT : nullptr;
-  float* s_k_lo = kSplit ? s_p + 2 * kT : nullptr;
-  float* s_v_lo = s_k_lo;
+  float* s_v = s_p + kT;
 
   const int r = threadIdx.x >> 2;  // row within the tile
   const int c = threadIdx.x & 3;   // quarter of the row
@@ -130,17 +154,15 @@ fused_qkv_rope_attention_kernel(const float* __restrict__ qkv,
     sr = sin_t == nullptr ? nullptr : sin_t + static_cast<size_t>(n) * kHeadDim;
     cr = cos_t == nullptr ? nullptr : cos_t + static_cast<size_t>(n) * kHeadDim;
   };
-  auto lo_row = [&](float* buf) { return kSplit ? buf + r * kStride : nullptr; };
 
   // Q tile: prologue into shared memory, where it stays.
   {
     const __nv_bfloat16 *sr, *cr;
     tables(qrow, sr, cr);
-    load_row<float, kSplit>(base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim,
-                            qrow < N, q_scale, sr, cr, s_q + r * kStride, c, lo_row(s_q_lo));
+    load_row(base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim, qrow < N,
+                    q_scale, sr, cr, s_q + r * kStride, c);
   }
   const float* q = s_q + r * kStride;
-  const float* q_lo = kSplit ? s_q_lo + r * kStride : nullptr;
 
   // Key tiles that hold any unmasked column for this block's rows.
   int n_kt = (n_valid + kTile - 1) / kTile;
@@ -153,21 +175,13 @@ fused_qkv_rope_attention_kernel(const float* __restrict__ qkv,
     const int n = k0 + r;
     const __nv_bfloat16 *sr, *cr;
     tables(n, sr, cr);
-    load_row<float, kSplit>(base + static_cast<size_t>(n) * row_stride + D + h * kHeadDim,
-                            n < N, k_scale, sr, cr, s_k + r * kStride, c, lo_row(s_k_lo));
+    load_row(base + static_cast<size_t>(n) * row_stride + D + h * kHeadDim, n < N,
+                    k_scale, sr, cr, s_k + r * kStride, c);
   };
   auto load_v = [&](int k0) {
     const int n = k0 + r;
-    load_row<float, kSplit>(base + static_cast<size_t>(n) * row_stride + 2 * D + h * kHeadDim,
-                            n < N, nullptr, nullptr, nullptr, s_v + r * kStride, c,
-                            lo_row(s_v_lo));
-  };
-  auto scores = [&](int k0, float (&s)[16]) {
-    if constexpr (kSplit) {
-      tile_scores_split(q, q_lo, s_k, s_k_lo, c, k0, qrow, n_valid, causal, s);
-    } else {
-      tile_scores(q, s_k, c, k0, qrow, n_valid, causal, s);
-    }
+    load_row(base + static_cast<size_t>(n) * row_stride + 2 * D + h * kHeadDim, n < N,
+                    nullptr, nullptr, nullptr, s_v + r * kStride, c);
   };
 
   // Pass 1: row max and the fp32 sum of exp(s - max).
@@ -177,7 +191,7 @@ fused_qkv_rope_attention_kernel(const float* __restrict__ qkv,
     load_k(kt * kTile);
     __syncthreads();
     float s[16];
-    scores(kt * kTile, s);
+    tile_scores(q, s_k, c, kt * kTile, qrow, n_valid, causal, s);
     float mt = s[0];
 #pragma unroll
     for (int j = 1; j < 16; ++j) mt = fmaxf(mt, s[j]);
@@ -203,46 +217,27 @@ fused_qkv_rope_attention_kernel(const float* __restrict__ qkv,
     const int k0 = kt * kTile;
     __syncthreads();
     load_k(k0);
-    if constexpr (!kSplit) load_v(k0);
+    load_v(k0);
     __syncthreads();
     float s[16];
-    scores(k0, s);
+    tile_scores(q, s_k, c, k0, qrow, n_valid, causal, s);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m) / l;
       s_p[r * kStride + c + 4 * j] = p;
     }
-    if constexpr (kSplit) {
-      __syncthreads();  // every thread's scores are taken: V may overwrite K
-      load_v(k0);
-    }
     __syncthreads();
     const float* prow = s_p + r * kStride;
     for (int kk = 0; kk < kTile; ++kk) {
       const float* vrow = s_v + kk * kStride;
-      if constexpr (kSplit) {
-        float ph, pl;
-        split_bf16(prow[kk], ph, pl);
-        const float* vrow_lo = s_v_lo + kk * kStride;
+      const float p = prow[kk];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 vh = *reinterpret_cast<const float4*>(vrow + 4 * c + 16 * i);
-          const float4 vl = *reinterpret_cast<const float4*>(vrow_lo + 4 * c + 16 * i);
-          acc[4 * i] = fmaf(ph, vh.x, fmaf(ph, vl.x, fmaf(pl, vh.x, acc[4 * i])));
-          acc[4 * i + 1] = fmaf(ph, vh.y, fmaf(ph, vl.y, fmaf(pl, vh.y, acc[4 * i + 1])));
-          acc[4 * i + 2] = fmaf(ph, vh.z, fmaf(ph, vl.z, fmaf(pl, vh.z, acc[4 * i + 2])));
-          acc[4 * i + 3] = fmaf(ph, vh.w, fmaf(ph, vl.w, fmaf(pl, vh.w, acc[4 * i + 3])));
-        }
-      } else {
-        const float p = prow[kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(vrow + 4 * c + 16 * i);
-          acc[4 * i] = fmaf(p, v.x, acc[4 * i]);
-          acc[4 * i + 1] = fmaf(p, v.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(p, v.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(p, v.w, acc[4 * i + 3]);
-        }
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(vrow + 4 * c + 16 * i);
+        acc[4 * i] = fmaf(p, v.x, acc[4 * i]);
+        acc[4 * i + 1] = fmaf(p, v.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(p, v.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(p, v.w, acc[4 * i + 3]);
       }
     }
   }
@@ -257,26 +252,22 @@ fused_qkv_rope_attention_kernel(const float* __restrict__ qkv,
   }
 }
 
-template <bool kSplit = false>
-int launch(const void* qkv, const void* sin_t, const void* cos_t,
-           const void* q_scale, const void* k_scale, void* out, int B, int N,
-           int H, int n_valid, int causal, int device, cudaStream_t stream) {
+int launch_f32(const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
+               const void* k_scale, void* out, int B, int N, int H, int n_valid, int causal,
+               int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr size_t kSmemBytes = smem_bytes<kSplit>();
-  err = cudaFuncSetAttribute(fused_qkv_rope_attention_kernel<kSplit>,
+  err = cudaFuncSetAttribute(fused_qkv_rope_attention_f32_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytes));
+                             static_cast<int>(kSmemF32));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kTile - 1) / kTile, H, B);
-  fused_qkv_rope_attention_kernel<kSplit><<<grid, kThreads, kSmemBytes, stream>>>(
+  fused_qkv_rope_attention_f32_kernel<<<grid, kThreads, kSmemF32, stream>>>(
       static_cast<const float*>(qkv), static_cast<const __nv_bfloat16*>(sin_t),
-      static_cast<const __nv_bfloat16*>(cos_t),
-      static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
-      static_cast<float*>(out), N, H, n_valid, causal);
+      static_cast<const __nv_bfloat16*>(cos_t), static_cast<const float*>(q_scale),
+      static_cast<const float*>(k_scale), static_cast<float*>(out), N, H, n_valid, causal);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // The bf16 arm on tensor cores (see the note above). Shared memory: a ring
 // of three stages, each a K and a V tile (the Q tile is copied into the
@@ -356,9 +347,8 @@ fused_qkv_rope_attention_bf16_kernel(const bf16* __restrict__ qkv,
   load_a_rows(qa, s_q, 16 * warp, lane);
   __syncthreads();  // s_q is the stage that step 2 refills
 
-  // Online softmax: m is each row's running max (the same in the row's four
-  // lanes), l this lane's part of the running sum of exp(s - m), o the
-  // running P V, rescaled by exp(m_old - m_new) when the max moves.
+  // Online softmax state (online_softmax_tile): row max, this lane's part of
+  // the row sum, the running P V.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float o[8][4];
 #pragma unroll
@@ -372,33 +362,8 @@ fused_qkv_rope_attention_bf16_kernel(const bf16* __restrict__ qkv,
     const int st = i % kStages;
     float s[8][4];
     mma_a_tileT<8>(s, qa, s_k + st * kTileB, 0, lane);
-    mask_and_scale_acc(s, i * kTile, row, t, n_valid, causal);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mt = fmaxf(mt, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m[hr], mt);
-      // a row with no unmasked key yet keeps m = -inf, l = 0, o = 0
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float rescale = expf(m[hr] - base);  // 0 while m is -inf
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          const float p = expf(s[j][e] - base);  // 0 where masked
-          part += p;
-          s[j][e] = p;
-        }
-        o[j][2 * hr] *= rescale;
-        o[j][2 * hr + 1] *= rescale;
-      }
-      l[hr] = l[hr] * rescale + part;
-      m[hr] = m_new;
-    }
+    mask_and_scale_acc(s, i * kTile, row, t, n_valid, causal, 0.125f);  // 64^-1/2
+    online_softmax_tile(s, m, l, o);
     uint32_t pa[4][4];
     acc_to_a<8>(s, pa);  // p rounded to bf16 here, before its row's final max and sum are known
     mma_a_tile<4>(o, pa, s_v + st * kTileB, 0, lane);
@@ -410,27 +375,11 @@ fused_qkv_rope_attention_bf16_kernel(const bf16* __restrict__ qkv,
     }
     __syncthreads();
   }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    const float inv = 1.0f / l[hr];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j][2 * hr] *= inv;
-      o[j][2 * hr + 1] *= inv;
-    }
-  }
+  online_softmax_finish(l, o);
 
   // Output tile: bf16 rows through shared memory, 16-byte stores.
   bf16* s_o = s_k;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    *reinterpret_cast<uint32_t*>(s_o + (16 * warp + g) * kRowB + col) = pack_bf16(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(s_o + (16 * warp + g + 8) * kRowB + col) =
-        pack_bf16(o[j][2], o[j][3]);
-  }
+  stage_acc_bf16<kHeadDim>(o, s_o, 16 * warp, lane);
   __syncthreads();
 #pragma unroll
   for (int it = 0; it < kTile * 8 / kTcThreads; ++it) {
@@ -462,6 +411,308 @@ int launch_bf16(const void* qkv, const void* sin_t, const void* cos_t, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16x3 arm on tensor cores (see the note above). A split tile is 64
+// rows of kSplitRow = 136 bf16 (272 bytes, an odd multiple of 16, so
+// ldmatrix reads it without bank conflicts): row r holds hi = bf16(x) in
+// columns [0, 64) and lo = bf16(x - hi) in [64, 128) of the fp32 row x,
+// which cp.async first copies raw into the same 256 bytes and split_tile
+// rewrites in place. Shared memory: a ring of three stages, each a K and a
+// V split tile (the Q tile is copied into the third stage's K tile before
+// the ring starts, and the fp32 output tile, rows of 68 floats, is staged
+// in the first stage's K tile at the end), and the two (64,) RMSNorm scale
+// vectors: 104,960 bytes, two blocks an SM.
+constexpr int kSplitRow = kRowOf<2 * kHeadDim>;
+constexpr int kSplitTile = kTile * kSplitRow;
+constexpr size_t kSmemBf16x3 =
+    2 * kStages * kSplitTile * sizeof(bf16) + 2 * kHeadDim * sizeof(float);
+static_assert(kSplitRow * sizeof(bf16) == kStride * sizeof(float), "an fp32 row fills a split row");
+
+// Starts the raw copy of fp32 token rows [n0, n0+64) of one head into a
+// split tile: a row's 256 bytes go as 128 bf16-sized elements through
+// load_tile_async<128>, so half f of row threadIdx.x/2 copies the fp32
+// columns [16f, 16f+16) and [32+16f, 32+16f+16), the ones split_tile then
+// reads in the same thread. `row_stride` is in floats.
+__device__ __forceinline__ void load_split_tile_async(bf16* __restrict__ dst,
+                                                      const float* __restrict__ src,
+                                                      size_t row_stride, int n0, int N) {
+  load_tile_async<2 * kHeadDim>(dst, reinterpret_cast<const bf16*>(src), 2 * row_stride, n0, N);
+}
+
+// hi = bf16(x) and lo = bf16(x - hi) of two fp32 values, as packed pairs.
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = pack_bf16(x0 - h.x, x1 - h.y);
+}
+
+// load_row's prologue with the bf16x3 arm's rounding points, then the
+// split, in place on a split tile of token rows [n0, n0+64) that holds the
+// raw fp32 rows. Two threads a row: half f of row threadIdx.x/2 owns the
+// fp32 columns [16f, 16f+16) and [32+16f, 32+16f+16), so the rotate-half
+// pairs (j, j+32) stay in one thread and a row's mean of squares is one
+// shuffle. With `w` (the (64,) fp32 RMSNorm scales): the mean of squares
+// sums the split halves of each square (the plain version's _rms_norm_high)
+// and x = (x r) w in fp32. With `rope` (`tab`: the row's RoPE tables,
+// rope_fetch): RoPE in bf16 at load_row's rounding points, so the row comes out
+// bf16-valued and its lo half 0. Then hi goes to bf16 column j and lo to
+// 64 + j. The two threads of a row are neighbouring lanes, and each one's
+// bf16 columns overlap the other's fp32 bytes: both read before a
+// __syncwarp and write after it, so every lane of the warp must call this.
+// Rows at or past N are zeros and stay zeros.
+__device__ __forceinline__ void split_tile(bf16* __restrict__ tile, int n0, int N,
+                                           const float* __restrict__ w, const RopeRow& tab,
+                                           bool rope) {
+  const int row = threadIdx.x >> 1, f = threadIdx.x & 1;
+  bf16* p = tile + row * kSplitRow;
+  float x[32];  // x[i]: column 16f + i; x[16 + i]: column 32 + 16f + i
+  const float4* src = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 a = src[4 * f + i], b = src[8 + 4 * f + i];
+    x[4 * i] = a.x; x[4 * i + 1] = a.y; x[4 * i + 2] = a.z; x[4 * i + 3] = a.w;
+    x[16 + 4 * i] = b.x; x[17 + 4 * i] = b.y; x[18 + 4 * i] = b.z; x[19 + 4 * i] = b.w;
+  }
+  __syncwarp();
+  if (w != nullptr) {
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float hi, lo;
+      split_bf16(x[i] * x[i], hi, lo);
+      ss += hi + lo;
+    }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    const float inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = (x[i] * inv) * w[(i < 16 ? 16 * f : 32 + 16 * f) + (i & 15)];
+  }
+  if (rope && n0 + row < N) {
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      float sa[8], ca[8], sb[8], cb[8];  // columns 16f + 8 part + e (a) and 32 + the same (b)
+      unpack8(tab.s[part], sa);
+      unpack8(tab.c[part], ca);
+      unpack8(tab.s[2 + part], sb);
+      unpack8(tab.c[2 + part], cb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // rotate-half: rot[j] = -x[j+32] for j < 32, x[j-32] for j >= 32
+        const int i = 8 * part + e;
+        const float lo = bf16_round(x[i]), hi = bf16_round(x[16 + i]);
+        x[i] = bf16_round(bf16_round(lo * ca[e]) + bf16_round(-hi * sa[e]));
+        x[16 + i] = bf16_round(bf16_round(hi * cb[e]) + bf16_round(lo * sb[e]));
+      }
+    }
+  }
+  uint4* hi_out = reinterpret_cast<uint4*>(p);
+  uint4* lo_out = reinterpret_cast<uint4*>(p + kHeadDim);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // x[8q .. 8q+8): bf16 chunk (q < 2 ? 2f : 4 + 2f) + q % 2
+    uint32_t hw[4], lw[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_pack(x[8 * q + 2 * e], x[8 * q + 2 * e + 1], hw[e], lw[e]);
+    const int chunk = (q < 2 ? 2 * f : 4 + 2 * f) + (q & 1);
+    hi_out[chunk] = make_uint4(hw[0], hw[1], hw[2], hw[3]);
+    lo_out[chunk] = make_uint4(lw[0], lw[1], lw[2], lw[3]);
+  }
+}
+
+// s = q . k^T over the head dim for the 64 keys of a split K tile, q given
+// by the A fragments of its halves (qh, ql): qh k_hi^T, and with kThree
+// also + qh k_lo^T + ql k_hi^T, all into one fp32 accumulator (the lo.lo
+// term is dropped). Without kThree the caller knows q and k are
+// bf16-valued (roped), so the two other terms are exact zeros.
+template <bool kThree>
+__device__ __forceinline__ void scores_split(float (&s)[8][4], const uint32_t (&qh)[4][4],
+                                             const uint32_t (&ql)[4][4], const bf16* tile,
+                                             int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const bf16* at = tile + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * kSplitRow + 16 * ks +
+                       ((lane >> 3) & 1) * 8;
+      uint32_t bh[4];
+      ldmatrix_x4(bh, at);
+      mma_bf16(s[2 * p], qh[ks], bh[0], bh[1]);
+      mma_bf16(s[2 * p + 1], qh[ks], bh[2], bh[3]);
+      if constexpr (kThree) {
+        uint32_t bl[4];
+        ldmatrix_x4(bl, at + kHeadDim);
+        mma_bf16(s[2 * p], qh[ks], bl[0], bl[1]);
+        mma_bf16(s[2 * p + 1], qh[ks], bl[2], bl[3]);
+        mma_bf16(s[2 * p], ql[ks], bh[0], bh[1]);
+        mma_bf16(s[2 * p + 1], ql[ks], bh[2], bh[3]);
+      }
+    }
+  }
+}
+
+// o += p . v over the 64 keys of a split V tile: p (fp32, in this lane's
+// accumulator layout) split into bf16 halves as the A operand, and
+// p_hi v_hi + p_hi v_lo + p_lo v_hi into o.
+__device__ __forceinline__ void pv_split(float (&o)[8][4], const float (&p)[8][4],
+                                         const bf16* tile, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t ah[4], al[4];
+    split_pack(p[2 * ks][0], p[2 * ks][1], ah[0], al[0]);
+    split_pack(p[2 * ks][2], p[2 * ks][3], ah[1], al[1]);
+    split_pack(p[2 * ks + 1][0], p[2 * ks + 1][1], ah[2], al[2]);
+    split_pack(p[2 * ks + 1][2], p[2 * ks + 1][3], ah[3], al[3]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bf16* at = tile + (16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3)) * kSplitRow +
+                       16 * q + (lane >> 4) * 8;
+      uint32_t bh[4], bl[4];
+      ldmatrix_x4_trans(bh, at);
+      ldmatrix_x4_trans(bl, at + kHeadDim);
+      mma_bf16(o[2 * q], ah, bh[0], bh[1]);
+      mma_bf16(o[2 * q + 1], ah, bh[2], bh[3]);
+      mma_bf16(o[2 * q], ah, bl[0], bl[1]);
+      mma_bf16(o[2 * q + 1], ah, bl[2], bl[3]);
+      mma_bf16(o[2 * q], al, bh[0], bh[1]);
+      mma_bf16(o[2 * q + 1], al, bh[2], bh[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+fused_qkv_rope_attention_bf16x3_kernel(const float* __restrict__ qkv,
+                                       const bf16* __restrict__ sin_t,
+                                       const bf16* __restrict__ cos_t,
+                                       const float* __restrict__ q_scale,
+                                       const float* __restrict__ k_scale,
+                                       float* __restrict__ out, int N, int H, int n_valid,
+                                       int causal) {
+  extern __shared__ float4 smem4[];
+  bf16* s_k = reinterpret_cast<bf16*>(smem4);  // kStages K split tiles
+  bf16* s_v = s_k + kStages * kSplitTile;      // kStages V split tiles
+  float* s_w = reinterpret_cast<float*>(s_v + kStages * kSplitTile);  // q_scale, then k_scale
+  bf16* s_q = s_k + (kStages - 1) * kSplitTile;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int D = H * kHeadDim;
+  const size_t row_stride = 3 * static_cast<size_t>(D);
+  const float* q_src = qkv + static_cast<size_t>(b) * N * row_stride + h * kHeadDim;
+  const float* k_src = q_src + D;
+  const float* v_src = q_src + 2 * D;
+  const bool norm = q_scale != nullptr;
+  const bool rope = sin_t != nullptr;
+  const int row = q0 + 16 * warp + g;  // this lane's rows: row and row + 8
+
+  // Key tiles that hold any unmasked column for this block's rows.
+  int n_kt = (n_valid + kTile - 1) / kTile;
+  if (causal) {
+    const int last_row = min(q0 + kTile, N) - 1;
+    n_kt = min(n_kt, last_row / kTile + 1);
+  }
+  // One sweep over the key tiles: step i uses stage i % kStages; its copy is
+  // issued two steps ahead and its K and V tiles split one step ahead.
+  const int steps = n_kt;
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int st = i % kStages;
+      load_split_tile_async(s_k + st * kSplitTile, k_src, row_stride, i * kTile, N);
+      load_split_tile_async(s_v + st * kSplitTile, v_src, row_stride, i * kTile, N);
+    }
+    cp_async_commit();
+  };
+  RopeRow tab;
+  auto split_step = [&](int i) {  // this thread's rows of step i's K and V tiles
+    const int st = i % kStages;
+    split_tile(s_k + st * kSplitTile, i * kTile, N, norm ? s_w + kHeadDim : nullptr, tab, rope);
+    split_tile(s_v + st * kSplitTile, i * kTile, N, nullptr, tab, false);
+  };
+
+  load_split_tile_async(s_q, q_src, row_stride, q0, N);
+  cp_async_commit();
+  issue(0);
+  issue(1);
+  if (norm) {
+    if (threadIdx.x < 2 * kHeadDim)
+      s_w[threadIdx.x] = threadIdx.x < kHeadDim ? q_scale[threadIdx.x] : k_scale[threadIdx.x - kHeadDim];
+    __syncthreads();
+  }
+  rope_fetch(tab, sin_t, cos_t, q0, N);
+  cp_async_wait<2>();  // this thread's Q chunks
+  split_tile(s_q, q0, N, norm ? s_w : nullptr, tab, rope);
+  rope_fetch(tab, sin_t, cos_t, 0, N);
+  cp_async_wait<1>();  // and its chunks of step 0
+  split_step(0);
+  __syncthreads();
+  uint32_t qh[4][4], ql[4][4];
+  load_a_rows<kHeadDim, kSplitRow>(qh, s_q, 16 * warp, lane);
+  load_a_rows<kHeadDim, kSplitRow>(ql, s_q + kHeadDim, 16 * warp, lane);
+  __syncthreads();  // s_q is the stage that step 2 refills
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    issue(i + 2);
+    const bool next = i + 1 < steps;
+    if (next) rope_fetch(tab, sin_t, cos_t, (i + 1) * kTile, N);
+    cp_async_wait<1>();  // this thread's chunks of step i + 1
+    const int st = i % kStages;
+    float s[8][4];
+    if (rope) {
+      scores_split<false>(s, qh, ql, s_k + st * kSplitTile, lane);
+    } else {
+      scores_split<true>(s, qh, ql, s_k + st * kSplitTile, lane);
+    }
+    mask_and_scale_acc(s, i * kTile, row, t, n_valid, causal, 0.125f);  // 64^-1/2
+    online_softmax_tile(s, m, l, o);  // p stays fp32
+    pv_split(o, s, s_v + st * kSplitTile, lane);
+    // Split step i + 1's tiles (this thread's own chunks) while other warps
+    // still multiply; the barrier publishes them and frees stage i's buffers.
+    if (next) split_step(i + 1);
+    __syncthreads();
+  }
+  online_softmax_finish(l, o);
+
+  // Output tile: fp32 rows through shared memory, 16-byte stores.
+  float* s_o = reinterpret_cast<float*>(s_k);
+  stage_acc(o, s_o, 16 * warp, lane);
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kTile * 16 / kTcThreads; ++it) {
+    const int id = threadIdx.x + kTcThreads * it;
+    const int r = id >> 4, chunk = id & 15;
+    const int n = q0 + r;
+    if (n < N) {
+      *reinterpret_cast<float4*>(out + (static_cast<size_t>(b) * N + n) * D + h * kHeadDim +
+                                 4 * chunk) =
+          *reinterpret_cast<const float4*>(s_o + r * kStride + 4 * chunk);
+    }
+  }
+}
+
+int launch_bf16x3(const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
+                  const void* k_scale, void* out, int B, int N, int H, int n_valid, int causal,
+                  int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fused_qkv_rope_attention_bf16x3_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBf16x3));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kTile - 1) / kTile, H, B);
+  fused_qkv_rope_attention_bf16x3_kernel<<<grid, kTcThreads, kSmemBf16x3, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const bf16*>(sin_t),
+      static_cast<const bf16*>(cos_t), static_cast<const float*>(q_scale),
+      static_cast<const float*>(k_scale), static_cast<float*>(out), N, H, n_valid, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qkv: (B, N, 3*H*64) contiguous, bf16 or fp32; sin/cos: (N, 64) bf16 or
@@ -479,8 +730,8 @@ extern "C" int vtp_fused_qkv_rope_attention_f32(
     const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
     const void* k_scale, void* out, int B, int N, int H, int n_valid,
     int causal, int device, cudaStream_t stream) {
-  return launch(qkv, sin_t, cos_t, q_scale, k_scale, out, B, N, H, n_valid, causal, device,
-                stream);
+  return launch_f32(qkv, sin_t, cos_t, q_scale, k_scale, out, B, N, H, n_valid, causal, device,
+                    stream);
 }
 
 // The fp32 bf16x3 arm: the same arguments as the fp32 arm.
@@ -488,6 +739,6 @@ extern "C" int vtp_fused_qkv_rope_attention_f32_bf16x3(
     const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
     const void* k_scale, void* out, int B, int N, int H, int n_valid,
     int causal, int device, cudaStream_t stream) {
-  return launch<true>(qkv, sin_t, cos_t, q_scale, k_scale, out, B, N, H, n_valid, causal,
-                      device, stream);
+  return launch_bf16x3(qkv, sin_t, cos_t, q_scale, k_scale, out, B, N, H, n_valid, causal,
+                       device, stream);
 }

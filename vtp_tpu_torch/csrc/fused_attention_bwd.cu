@@ -316,7 +316,7 @@ attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ g
       float s[kChunk / 8][4], dp[kChunk / 8][4];
       mma_a_tileT<kChunk / 8>(s, qa, kb, kChunk * ch, lane);
       mma_a_tileT<kChunk / 8>(dp, ga, vb, kChunk * ch, lane);
-      mask_and_scale_acc(s, k0 + kChunk * ch, row, t, n_valid, causal);
+      mask_and_scale_acc(s, k0 + kChunk * ch, row, t, n_valid, causal, 0.125f);  // 64^-1/2
       if (i < n_kt) {
         // Sweep 1: m, l = sum exp(s - m) and w = sum exp(s - m) dp, online.
 #pragma unroll

@@ -1,16 +1,21 @@
-// Tensor-core pieces shared by the bf16 fused attention forward
-// (fused_attention.cu) and its backward (fused_attention_bwd.cu) on Hopper
-// (sm_90a): bf16 tiles in shared memory filled by cp.async, the in-place
-// qk-RMSNorm + RoPE prologue on such a tile, ldmatrix fragment loads and
-// mma.sync.m16n8k16 bf16 products with fp32 accumulators.
+// Tensor-core pieces shared by the attention kernels on Hopper (sm_90a): the
+// fused forward's bf16 and bf16x3 arms (fused_attention.cu), its backward
+// (fused_attention_bwd.cu) and the strided attention (flash_attention.cu):
+// bf16 tiles in shared memory filled by cp.async, the in-place qk-RMSNorm +
+// RoPE prologue on such a tile, ldmatrix fragment loads, mma.sync.m16n8k16
+// bf16 products with fp32 accumulators and the online softmax.
 //
 // Layout: a block of four warps covers a tile of 64 token rows, warp w the
-// rows [16w, 16w+16). A tile is 64 rows of 64 bf16 in shared memory, each
-// row padded to 72 (144 bytes), so the eight 16-byte rows one ldmatrix
-// phase reads fall in eight distinct groups of four banks. An accumulator
-// of 16 rows x 8n columns is float[n][4]: in column block j, lane
-// (g = lane/4, t = lane%4) holds rows g and g+8 at columns 8j+2t and
-// 8j+2t+1, elements [0], [1] (row g) and [2], [3] (row g+8).
+// rows [16w, 16w+16). A tile is 64 rows of D bf16 in shared memory (the
+// head dim D is a template parameter, 64 by default; the strided kernel
+// takes 32, 64 and 128), each row padded to kRowOf<D> = D + 8 elements:
+// 80, 144 or 272 bytes, odd multiples of 16, so the eight 16-byte rows one
+// ldmatrix phase reads fall in eight distinct groups of four banks.
+// load_a_rows takes the row stride as a second parameter, for the bf16x3
+// arm's split tiles (a row of hi | lo halves, 136 elements). An accumulator of 16 rows x 8n columns is float[n][4]: in
+// column block j, lane (g = lane/4, t = lane%4) holds rows g and g+8 at
+// columns 8j+2t and 8j+2t+1, elements [0], [1] (row g) and [2], [3] (row
+// g+8).
 
 #pragma once
 
@@ -22,7 +27,9 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;               // warps a block, 16 rows of the tile each
 constexpr int kTcThreads = 32 * kWarps;
-constexpr int kRowB = kHeadDim + 8;     // padded bf16 row
+template <int D>
+constexpr int kRowOf = D + 8;           // padded bf16 row of a tile of head dim D
+constexpr int kRowB = kRowOf<kHeadDim>;
 constexpr int kTileB = kTile * kRowB;   // bf16 elements of one tile
 constexpr size_t kTileBytes = kTileB * sizeof(bf16);
 // Streamed tiles go through a ring of three stages: the copy of step i + 2
@@ -58,24 +65,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Starts the copy of token rows [n0, n0+64) of one head into a tile: `src`
-// points at the head's first column in token row 0, rows `row_stride`
-// elements apart; rows at or past N are zero-filled. Each thread copies
-// the 16-byte chunks that prologue_tile then rewrites in the same thread
-// (row threadIdx.x/2, half f: chunks 2f, 2f+1, 4+2f, 5+2f), so the
+// Starts the copy of token rows [n0, n0+64) of one head into a tile of
+// head dim D: `src` points at the head's first column in token row 0, rows
+// `row_stride` elements apart; rows at or past N are zero-filled. Each
+// thread copies the 16-byte chunks that a prologue then rewrites in the
+// same thread: row threadIdx.x/2, half f, the chunks of columns
+// [D/4 f, D/4 (f+1)) and D/2 + the same (at D = 64: chunks 2f, 2f+1, 4+2f,
+// 5+2f), so the rotate-half pairs (j, j + D/2) stay in one thread and the
 // prologue needs only the thread's own cp.async wait, no barrier.
+template <int D = kHeadDim>
 __device__ __forceinline__ void load_tile_async(bf16* __restrict__ dst,
                                                 const bf16* __restrict__ src,
                                                 size_t row_stride, int n0, int N) {
+  constexpr int kPer = D / 32;  // chunks a thread copies in each half of the row
   const int row = threadIdx.x >> 1, f = threadIdx.x & 1;
   const int n = n0 + row;
   const bool valid = n < N;
   const bf16* s = src + static_cast<size_t>(valid ? n : 0) * row_stride;
-  bf16* d = dst + row * kRowB;
+  bf16* d = dst + row * kRowOf<D>;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int chunk = (i < 2 ? 2 * f : 4 + 2 * f) + (i & 1);
+  for (int i = 0; i < 2 * kPer; ++i) {
+    const int chunk = (i < kPer ? kPer * f : D / 16 + kPer * f) + i % kPer;
     cp_async16(d + 8 * chunk, s + 8 * chunk, valid);
+  }
+}
+
+// load_tile_async for a kernel with no prologue: consecutive threads copy
+// consecutive 16-byte chunks of a row, so a warp's copy covers whole rows.
+template <int D>
+__device__ __forceinline__ void load_tile_rows_async(bf16* __restrict__ dst,
+                                                     const bf16* __restrict__ src,
+                                                     size_t row_stride, int n0, int N) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < kTile * kChunks / kTcThreads; ++it) {
+    const int id = threadIdx.x + kTcThreads * it;
+    const int row = id / kChunks, chunk = id % kChunks;
+    const int n = n0 + row;
+    const bool valid = n < N;
+    cp_async16(dst + row * kRowOf<D> + 8 * chunk,
+               src + static_cast<size_t>(valid ? n : 0) * row_stride + 8 * chunk, valid);
   }
 }
 
@@ -114,13 +143,15 @@ __device__ __forceinline__ void rope_fetch(RopeRow& t, const bf16* __restrict__ 
   }
 }
 
-// The prologue of the forward's load_row (attention_common.cuh), in place on
-// a bf16 tile of token rows [n0, n0+64), two threads a row: half f of row
+// The bf16 prologue (qk-RMSNorm, RoPE) of the fused forward, in place on a
+// bf16 tile of token rows [n0, n0+64), two threads a row: half f of row
 // threadIdx.x/2 owns columns [16f, 16f+16) and [32+16f, 32+16f+16) (the
 // chunks load_tile_async gave it), so the rotate-half pairs (j, j+32) stay
 // inside one thread and a row's mean of squares is one shuffle. `w` (the
 // (64,) fp32 RMSNorm scales, or null) and the bf16 (N, 64) sin/cos tables
-// (or null) as in load_row; every rounding point is load_row's. The table
+// (or null); the rounding points are the plain version's (fused_attention.cu's
+// note): bf16 after the normalisation and again after the scale, and
+// RoPE's as load_row (attention_common.cuh) rounds it. The table
 // rows come from `pre` (rope_fetch, ahead of the tile) or, when it is null,
 // from global memory as each part is roped. Rows at or past N are zeros and
 // stay zeros. Columns go in bf16 pairs, eight pairs at a time (few
@@ -227,26 +258,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // The A fragments of rows [row0, row0+16) of a tile, head-dim steps of 16.
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4], const bf16* tile, int row0,
+template <int D = kHeadDim, int kRow = kRowOf<D>>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const bf16* tile, int row0,
                                             int lane) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldmatrix_x4(a[ks], tile + (row0 + (lane & 15)) * kRowB + 16 * ks + (lane >> 4) * 8);
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldmatrix_x4(a[ks], tile + (row0 + (lane & 15)) * kRow + 16 * ks + (lane >> 4) * 8);
 }
 
 // acc[j] = a . tile[n0 + 8j .. +8]^T over the head dim: a holds 16 rows of
-// 64 (load_a_rows), the tile is row-major [n][head dim]. kNb column blocks.
-template <int kNb>
-__device__ __forceinline__ void mma_a_tileT(float (&acc)[kNb][4], const uint32_t (&a)[4][4],
+// D (load_a_rows), the tile is row-major [n][head dim]. kNb column blocks.
+template <int kNb, int D = kHeadDim>
+__device__ __forceinline__ void mma_a_tileT(float (&acc)[kNb][4], const uint32_t (&a)[D / 16][4],
                                             const bf16* tile, int n0, int lane) {
 #pragma unroll
   for (int j = 0; j < kNb; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
   for (int p = 0; p < kNb / 2; ++p) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
       uint32_t b[4];
-      ldmatrix_x4(b, tile + (n0 + 16 * p + (lane & 7) + ((lane >> 4) << 3)) * kRowB + 16 * ks +
+      ldmatrix_x4(b, tile + (n0 + 16 * p + (lane & 7) + ((lane >> 4) << 3)) * kRowOf<D> + 16 * ks +
                          ((lane >> 3) & 1) * 8);
       mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
       mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
@@ -254,17 +286,18 @@ __device__ __forceinline__ void mma_a_tileT(float (&acc)[kNb][4], const uint32_t
   }
 }
 
-// acc (16 x 64 head-dim columns) += a . tile[k0 .. k0 + 16 kKs]: a holds kKs
+// acc (16 x D head-dim columns) += a . tile[k0 .. k0 + 16 kKs]: a holds kKs
 // steps of 16 of the shared dimension, the tile is row-major [k][head dim].
-template <int kKs>
-__device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&a)[kKs][4],
+template <int kKs, int D = kHeadDim>
+__device__ __forceinline__ void mma_a_tile(float (&acc)[D / 8][4], const uint32_t (&a)[kKs][4],
                                            const bf16* tile, int k0, int lane) {
 #pragma unroll
   for (int ks = 0; ks < kKs; ++ks) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < D / 16; ++p) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, tile + (k0 + 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3)) * kRowB +
+      ldmatrix_x4_trans(b, tile + (k0 + 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                               kRowOf<D> +
                                16 * p + (lane >> 4) * 8);
       mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
       mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
@@ -273,18 +306,76 @@ __device__ __forceinline__ void mma_a_tile(float (&acc)[8][4], const uint32_t (&
 }
 
 // Scales the scores of this lane's rows (`row`, row + 8) and key columns
-// k0 + 8j + 2t + e by 64^-1/2 and masks keys >= n_valid and, if causal,
-// keys past the row, as -inf.
+// k0 + 8j + 2t + e by `scale` (the caller's d^-1/2) and masks keys >= n_valid
+// and, if causal, keys past the row, as -inf.
 template <int kNb>
 __device__ __forceinline__ void mask_and_scale_acc(float (&s)[kNb][4], int k0, int row, int t,
-                                                   int n_valid, int causal) {
+                                                   int n_valid, int causal, float scale) {
 #pragma unroll
   for (int j = 0; j < kNb; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = k0 + 8 * j + 2 * t + (e & 1);
       const int r = row + 8 * (e >> 1);
-      s[j][e] = (col >= n_valid || (causal && col > r)) ? -INFINITY : s[j][e] * 0.125f;
+      s[j][e] = (col >= n_valid || (causal && col > r)) ? -INFINITY : s[j][e] * scale;
+    }
+  }
+}
+
+// One key tile of the online softmax (FlashAttention-2's form), on a warp's
+// 16 x 64 scores `s` (scaled and masked): m is each row's running max (the
+// same in the row's four lanes), l this lane's part of the running sum of
+// exp(s - m), o the running P V of kNbO column blocks. When the max moves,
+// o and l are rescaled by exp(m_old - m_new); s is replaced by
+// p = exp(s - m_new) in fp32 (0 where masked). A row with no unmasked key
+// yet keeps m = -inf, l = 0, o = 0.
+template <int kNbO>
+__device__ __forceinline__ void online_softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                                    float (&o)[kNbO][4]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mt = fmaxf(mt, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m[hr], mt);
+    const float base = m_new == -INFINITY ? 0.f : m_new;
+    const float rescale = expf(m[hr] - base);  // 0 while m is -inf
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+        const float p = expf(s[j][e] - base);  // 0 where masked
+        part += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+      for (int jo = j * kNbO / 8; jo < (j + 1) * kNbO / 8; ++jo) {  // o's blocks, spread over j
+        o[jo][2 * hr] *= rescale;
+        o[jo][2 * hr + 1] *= rescale;
+      }
+    }
+    l[hr] = l[hr] * rescale + part;
+    m[hr] = m_new;
+  }
+}
+
+// The end of the online softmax: sums l over the row's four lanes and
+// divides o by it. Every row a caller finishes has an unmasked key, so
+// l > 0.
+template <int kNbO>
+__device__ __forceinline__ void online_softmax_finish(float (&l)[2], float (&o)[kNbO][4]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    const float inv = 1.0f / l[hr];
+#pragma unroll
+    for (int j = 0; j < kNbO; ++j) {
+      o[j][2 * hr] *= inv;
+      o[j][2 * hr + 1] *= inv;
     }
   }
 }
@@ -303,17 +394,34 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[kNb][4], uint32_t (&a)
   }
 }
 
-// Writes a 16 x 64 fp32 accumulator into rows [row0, row0+16) of an fp32
-// tile of row stride kStride.
-__device__ __forceinline__ void stage_acc(const float (&acc)[8][4], float* tile, int row0,
+// Writes a 16 x D fp32 accumulator into rows [row0, row0+16) of an fp32
+// tile of row stride D + 4.
+template <int D = kHeadDim>
+__device__ __forceinline__ void stage_acc(const float (&acc)[D / 8][4], float* tile, int row0,
                                           int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<float2*>(tile + (row0 + g) * kStride + 8 * j + 2 * t) =
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<float2*>(tile + (row0 + g) * (D + 4) + 8 * j + 2 * t) =
         make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(tile + (row0 + g + 8) * kStride + 8 * j + 2 * t) =
+    *reinterpret_cast<float2*>(tile + (row0 + g + 8) * (D + 4) + 8 * j + 2 * t) =
         make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// Writes a 16 x D accumulator, rounded to bf16, into rows [row0, row0+16)
+// of a bf16 tile (row stride kRowOf<D>), for a 16-byte copy-out.
+template <int D>
+__device__ __forceinline__ void stage_acc_bf16(const float (&acc)[D / 8][4], bf16* tile, int row0,
+                                               int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(tile + (row0 + g) * kRowOf<D> + col) =
+        pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(tile + (row0 + g + 8) * kRowOf<D> + col) =
+        pack_bf16(acc[j][2], acc[j][3]);
   }
 }
 
