@@ -5,7 +5,8 @@
 
 1. builds the port's CUDA kernels from ``vtp_tpu_torch/csrc`` with nvcc,
    prints ptxas's registers and spills of each kernel and fails if any
-   kernel spills;
+   kernel spills; disassembles the library (``cuobjdump -sass``) and fails
+   if the exact fp32 arm's kernel holds a tensor-core instruction;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' VTP-L shapes and on small cases for every flag: the fused
    attention forward, its backward, the fused DINO/iBOT cross-entropy
@@ -18,7 +19,8 @@
    EDGE_SEEDS; at the same N and on the same seeds the strided attention
    (both entries, head dims 32, 64 and 128, the text view at N = 77;
    ``check_edges_flash``) and the bf16x3 arm on fp32 inputs, with and
-   without qk-norm (``check_edges_high``);
+   without qk-norm, and the exact fp32 arm the same way at those N and at
+   EXACT_EDGE_N (either side of a 64-row tile) (``check_edges_fp32``);
 3. runs the roundtrip once through the public API at full VTP-L width:
    ``VTPModel.init`` with seeded random weights, a batch of 8 random 256x256
    images -> bf16 latents -> exact-fp32 images; checks the outputs and that
@@ -43,6 +45,10 @@
    the non-causal CLIP text path: the VTP-L model with
    ``text_no_causal_mask``, ``get_clip_text_feature`` at B = 32, L = 77,
    counted (12 ``flash_attention`` launches) and against the plain versions;
+   the off-gate route: a VTP model at head dim 72 (576 wide, 8 heads,
+   depth 2), whose attention takes the split path as the JAX package's
+   does, one encode and exact decode at B = 2 with no kernel launched,
+   against the plain versions;
 4. runs the VTP-L CLIP+SSL+rec train step (``init_state``,
    ``build_train_step``; B = 8 images, each with a CLIP pair, a
    reconstruction target and 2 global + 4 local SSL crops) once on the
@@ -114,10 +120,15 @@ DIT_ATTENTION = (DIT_BATCH, 256, 18, 16)
 EDGE_N = (1, 17, 37, 77, 577, 1025)
 # Seeds of the forward's edge cases
 EDGE_SEEDS = (0, 1, 2, 3, 4, 5, 6, 7)
+# The exact fp32 arm's further edges: a 64-row tile less one, one tile, a
+# tile plus one
+EXACT_EDGE_N = (63, 64, 65)
 FLASH_SOURCE = "vtp_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"bnhd": "vtp_tpu/ops/flash_attention.py:953",
                   "bhnd": "vtp_tpu/ops/flash_attention.py:1081"}
 HEAD_MAJOR = 4     # the head-major layout of a 4-way tensor-parallel run
+# The off-gate model: head dim 72 (576 / 8), which the fused kernel does not take
+OFF_GATE_WIDTH, OFF_GATE_HEADS, OFF_GATE_DEPTH, OFF_GATE_BATCH = 576, 8, 2, 2
 TEXT_BATCH = 32    # CLIP text rows, at the context length of 77
 # The strided kernel's main shapes: the head-major trunk (B, N, H, d) and the
 # non-causal text tower (B, N, H, d) = (32, 77, 12, 64)
@@ -295,6 +306,35 @@ def check_ptxas(report: str) -> None:
             raise AssertionError(f"the kernel {fn} has a stack frame: {p}")
 
 
+def check_sass(lib_path: str) -> None:
+    """Disassembles the library (``cuobjdump -sass``, beside nvcc) and fails
+    unless the exact fp32 arm's kernel is there with FFMAs and without a
+    tensor-core instruction (any opcode with MMA in it: HMMA, HGMMA, IMMA,
+    DMMA, ...)."""
+    import re
+
+    from vtp_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    bodies = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        bodies[name.strip()] = body
+    names = [n for n in bodies if "fused_qkv_rope_attention_f32_kernel" in n]
+    if len(names) != 1:
+        raise AssertionError(f"the exact fp32 kernel's SASS not found once: {names}")
+    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", bodies[names[0]],
+                     re.M)
+    mma = sorted({op for op in ops if "MMA" in op})
+    print(f"sass fused_qkv_rope_attention_f32_kernel: {len(ops)} instructions, "
+          f"{ops.count('FFMA')} FFMA, tensor-core instructions {mma or 'none'} "
+          f"{'FAIL' if mma or not ops.count('FFMA') else 'ok'}", flush=True)
+    if mma or not ops.count("FFMA"):
+        raise AssertionError(f"the exact fp32 kernel uses tensor cores or no FFMA: {mma}")
+
+
 def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2, dtype=None):
     """qkv (B, N, 3*H*64), bf16 unless ``dtype`` says otherwise; with
     ``rope``, (N, 64) sin/cos tables of random angles (column j and j+32
@@ -314,10 +354,10 @@ def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2, dtype=None):
     return qkv, (sin, cos), scales
 
 
-def _edge_cases():
-    """(name, N, rope, causal, n_valid) at every EDGE_N."""
+def _edge_cases(ns=EDGE_N):
+    """(name, N, rope, causal, n_valid) at every N of ``ns``."""
     cases = []
-    for N in EDGE_N:
+    for N in ns:
         nv = max(1, 2 * N // 3)
         cases += [("plain", N, False, False, 0), ("rope", N, True, False, 0),
                   ("causal_rope", N, True, True, 0), ("n_valid_rope", N, True, False, nv),
@@ -366,34 +406,38 @@ def check_edges_fwd():
           flush=True)
 
 
-def check_edges_high():
-    """The bf16x3 ("high") arm on fp32 inputs, with and without qk-norm, at
-    every edge case, on the inputs of each of EDGE_SEEDS, at the arm's gates:
-    1e-4 abs, and 1e-2 of max|ref| where qk-norm and RoPE meet (an ulp of
-    the fp32 norm can flip a bf16 rounding of RoPE, as in check_kernel).
-    The kernel splits p = exp(s - m_running) and divides by the row's sum
-    at the end, where the plain version splits the normalised p."""
+def check_edges_fp32(precision: str, ns) -> None:
+    """An fp32 arm of the forward (``precision``: "float32", the exact arm,
+    or "high", the bf16x3 arm) on fp32 inputs, with and without qk-norm, at
+    every edge case at N in ``ns``, on the inputs of each of EDGE_SEEDS, at
+    the fp32 arms' gates: 1e-4 abs, and 1e-2 of max|ref| where qk-norm and
+    RoPE meet (an ulp of the fp32 norm can flip a bf16 rounding of RoPE, as
+    in check_kernel). Both arms divide by the row's sum at the end, where
+    the plain version normalises p first; the bf16x3 arm also splits the
+    unnormalised p."""
     import torch
 
     from vtp_tpu_torch.ops.flash_attention import (
+        arm_name,
         fused_qkv_rope_attention,
         fused_qkv_rope_attention_reference,
     )
 
+    arm = arm_name(torch.float32, precision)
     worst = {}
     for seed in EDGE_SEEDS:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         worst[seed] = {"abs": (0.0, ""), "rel": (0.0, "")}
         for qk_norm in (False, True):
-            for name, N, rope, causal, n_valid in _edge_cases():
+            for name, N, rope, causal, n_valid in _edge_cases(ns):
                 qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm,
                                                          dtype=torch.float32)
                 got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
-                                               is_causal=causal, fp32_precision="high")
+                                               is_causal=causal, fp32_precision=precision)
                 torch.cuda.synchronize()
                 want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
                                                           n_valid=n_valid, is_causal=causal,
-                                                          fp32_precision="high")
+                                                          fp32_precision=precision)
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
                 kind = "rel" if qk_norm and rope else "abs"
@@ -402,13 +446,13 @@ def check_edges_high():
                 if value > worst[seed][kind][0]:
                     worst[seed][kind] = (value, f"{name} qk_norm={qk_norm} N={N}")
                 if not (value <= limit and torch.isfinite(got).all().item()):
-                    print(f"kernel edge fwd bf16x3 seed {seed} {name} qk_norm={qk_norm} N={N} "
+                    print(f"kernel edge {arm} seed {seed} {name} qk_norm={qk_norm} N={N} "
                           f"n_valid={n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; limit "
                           f"{limit} {kind}) FAIL", flush=True)
-                    raise AssertionError(f"bf16x3 attention edge case {name} N={N} disagrees")
-    print(f"kernel edge fwd fp32_bf16x3, with and without qk-norm, {2 * len(_edge_cases())} cases "
-          f"at N in {EDGE_N}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err "
-          f"(limit 1e-4) and, with qk-norm and RoPE, worst of max|ref| (limit 1e-2) by seed: "
+                    raise AssertionError(f"{arm} attention edge case {name} N={N} disagrees")
+    print(f"kernel edge {arm}, with and without qk-norm, {2 * len(_edge_cases(ns))} cases at N in "
+          f"{ns}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err (limit 1e-4) and, "
+          f"with qk-norm and RoPE, worst of max|ref| (limit 1e-2) by seed: "
           + ", ".join(f"{sd}: {w['abs'][0]:.3e} ({w['abs'][1]}) / {w['rel'][0]:.3e} "
                       f"({w['rel'][1]})" for sd, w in worst.items()) + " ok", flush=True)
 
@@ -508,7 +552,8 @@ def check_kernel(gen):
         if name.startswith("vtpl_"):
             errs[arm] = err
     check_edges_fwd()
-    check_edges_high()
+    check_edges_fp32("float32", tuple(sorted(EDGE_N + EXACT_EDGE_N)))
+    check_edges_fp32("high", EDGE_N)
     return errs
 
 
@@ -1127,6 +1172,64 @@ def run_text(gen, model):
     return counts
 
 
+def run_off_gate(gen):
+    """Phase 3f: a VTP model whose head dim (72) the fused kernel does not
+    take (OFF_GATE: VTP-L with the trunk and decoder OFF_GATE_WIDTH wide in
+    OFF_GATE_HEADS heads, OFF_GATE_DEPTH deep; no CLIP towers), as the JAX
+    package routes it: every block on the split path. One encode and exact
+    decode of OFF_GATE_BATCH random 256x256 images, counted (no fused
+    launch, no kernel launch at all: the split path's attention at head dim
+    72 is the plain ``sdpa_reference``), its outputs checked and held to the
+    same model on the plain versions at the roundtrip's gates (latents 5e-2
+    of max|ref|, images 1e-3 abs)."""
+    import dataclasses
+
+    import torch
+
+    from vtp_tpu_torch import VTPModel, vtp_large
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+
+    cfg = dataclasses.replace(
+        vtp_large(), train_clip=False, vision_embed_dim=OFF_GATE_WIDTH,
+        vision_num_heads=OFF_GATE_HEADS, vision_depth=OFF_GATE_DEPTH,
+        decoder_embed_dim=OFF_GATE_WIDTH, decoder_num_heads=OFF_GATE_HEADS,
+        decoder_depth=OFF_GATE_DEPTH)
+    model = VTPModel.init(cfg, gen, device="cuda")
+    size = cfg.image_size
+    images = torch.randn((OFF_GATE_BATCH, 3, size, size), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    latents = model.get_reconstruction_latents(images)
+    recon = model.get_latents_decoded_images(latents)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"off-gate roundtrip (head dim {cfg.vision_head_dim} / {cfg.decoder_head_dim}, "
+          f"B={OFF_GATE_BATCH}): {run_s * 1e3:.1f} ms, first call; kernel launches {counts} "
+          f"(expected none)", flush=True)
+    if counts:
+        raise AssertionError(f"the off-gate roundtrip launched {counts}")
+    g = size // cfg.vision_patch_size
+    if (tuple(latents.shape) != (OFF_GATE_BATCH, cfg.vision_feature_bottleneck, g, g)
+            or tuple(recon.shape) != tuple(images.shape) or recon.dtype != torch.float32):
+        raise AssertionError(f"off-gate latents {tuple(latents.shape)}, images {tuple(recon.shape)}")
+    with _plain_kernels():
+        ref_latents = model.get_reconstruction_latents(images)
+        ref_recon = model.get_latents_decoded_images(latents)
+    torch.cuda.synchronize()
+    lat_err = ((latents.float() - ref_latents.float()).abs().max()
+               / ref_latents.float().abs().max()).item()
+    img_err = (recon - ref_recon).abs().max().item()
+    ok = (lat_err <= 5e-2 and img_err <= 1e-3 and torch.isfinite(latents).all().item()
+          and torch.isfinite(recon).all().item())
+    print(f"off-gate roundtrip vs plain versions: latents max err {lat_err:.3e} of max|ref| (limit "
+          f"5e-2), images max abs err {img_err:.3e} (limit 1e-3) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the off-gate roundtrip disagrees with the plain-version run")
+
+
 def _train_batch(gen, cfg):
     """B images, each a CLIP pair (the image and 77 random token ids), a
     reconstruction target (the same image, as bench.py) and its SSL crops."""
@@ -1700,6 +1803,7 @@ def main() -> int:
     print(f"built {os.path.basename(lib._name)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.nvcc_path()})", flush=True)
     check_ptxas(_build.ptxas_report())
+    check_sass(lib._name)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     _set_phase("kernel vs plain")
@@ -1739,6 +1843,8 @@ def main() -> int:
     del hm_model
     _set_phase("non-causal text")
     text_counts = run_text(gen, model)
+    _set_phase("off-gate head dim 72")
+    run_off_gate(gen)
     del images
     torch.cuda.empty_cache()
     _set_phase("dit latents")

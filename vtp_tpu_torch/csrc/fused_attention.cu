@@ -67,9 +67,9 @@
 // fp32 tile (Q, then K and V per step) is copied raw by cp.async into a
 // split tile of 64 rows of 272 bytes; split_tile then rewrites it in place,
 // two threads a row (the rotate-half pairs in one thread, a row's mean of
-// squares one shuffle): the prologue at load_row's rounding points
-// (the qk-norm's mean of squares summed over the split halves of each
-// square, as _rms_norm_high, x = (x r) w in fp32; RoPE in bf16 as the
+// squares one shuffle): the prologue at the rounding points above
+// (prologue_f32_row; the qk-norm's mean of squares summed over the split
+// halves of each square, as _rms_norm_high, x = (x r) w in fp32; RoPE in bf16 as the
 // reference rounds it), then hi = bf16(x) in the row's first 128 bytes and
 // lo = bf16(x - hi) in the next 128. cp.async into shared memory, not a
 // register prefetch, brings the fp32 rows: the copy is issued two steps
@@ -91,11 +91,43 @@
 // sweep within 1e-5 of max|ref| to the plain arm; chip_smoke.py holds the
 // kernel to 1e-4 abs at every edge case).
 //
-// The exact fp32 arm keeps the first version's scalar body (it must stay
-// off TF32 and the tensor cores): 256 threads, four a row, each owning 16 of
-// the row's 64 head-dim columns (the pairs j and j+32); Q in shared memory,
-// key tiles normalised and roped on load, scalar fp32 FMAs from shared
-// memory, two sweeps (p formed at the reference's rounding point).
+// Design of the exact fp32 arm (plain FFMA: no TF32, no tensor-core
+// instruction; chip_smoke.py fails if its SASS holds one). It is built as a
+// SIMT SGEMM is, over the same block of four warps and 64 query rows. The
+// Q tile and every K and V tile are fp32 rows in shared memory (68 floats,
+// 272 bytes, as the split tiles), copied raw by cp.async (K and V through a
+// ring of two stages: the copy of step i + 1 is issued at the start of step
+// i and lands while the warps multiply) and normalised and roped in place
+// by the thread that copied each chunk (prologue_f32_tile, at the rounding
+// points above; the Q tile once, each K tile at the end of the step before
+// its own, its RoPE rows fetched at the start of that step; RoPE on packed
+// bf16 pairs, as the bf16 arm's prologue, ~7% faster than one value at a
+// time at the decode's shape). Lane
+// (rg = lane / 8, cg = lane % 8) of warp w owns the scores of query rows
+// 16w + rg + 4r (r < 4) against keys cg + 8e (e < 8) and the outputs of the
+// same rows at head-dim columns 4cg + [0, 4) and 32 + 4cg + [0, 4): a 4 x 8
+// micro-tile of S and of O in registers. Each product step reads its
+// operands as 16-byte shared loads into registers and reuses each across
+// the micro-tile: S takes 12 loads (4 of q rows, 8 of k rows, each 4
+// head-dim columns) for 128 FFMA, P.V 12 loads (4 of p rows, 8 of v rows)
+// for 128. Every load is one wavefront: the eight rows a warp reads at
+// once are 272 bytes apart (eight distinct groups of four banks), and the
+// four q or p rows are broadcast to the eight lanes that share them. The
+// P tile goes through the warp's own 16 rows of shared memory (72 floats a
+// row, so the scalar stores of a warp fall in 32 distinct banks) behind a
+// __syncwarp, not a block barrier. The scores are masked only in a tile
+// that holds a key past n_valid, or under the causal mask. Softmax is one
+// sweep, online: per key
+// tile the row max m moves (a shuffle over the row's eight lanes), o and
+// this lane's part of the fp32 sum l are rescaled by exp(m_old - m_new),
+// p = exp(s - m) stays fp32, and o is multiplied by 1 / l at the end. No
+// rounding point moves: the kernel differs from the plain version only in
+// the order of its fp32 sums (each score and each output summed over its
+// head dim or keys in order, the rescales) and in applying 1 / l to o
+// rather than to p, each a few fp32 ulps of the output
+// (tests/test_torch_exact_sweep.py holds a torch emulation of this sweep
+// within 1e-5 of max|ref| to the plain arm; chip_smoke.py holds the kernel
+// to 1e-4 abs at every edge case).
 //
 // Bound on an H100: at the VTP-L shapes (B=8, N=257, H=16) the bf16 arm
 // moves 16.8 MB and does 2.2 GFLOP (bytes-bound, 5 us); with qk-norm at
@@ -105,7 +137,12 @@
 // and the softmax's exponentials more than to the products; the K and V
 // tiles are re-read from L2 by every query tile. The fp32 arm moves 33.6 MB
 // and does 2.15 GFLOP of fp32 FMAs (operations-bound at the 67 TFLOP/s
-// non-tensor rate, 32 us). The bf16x3 arm at the decode's shape (B=8,
+// non-tensor rate, 32 us). At the decode's shape its two products take
+// ~48 us together, and a serial chain a step takes the rest, which the
+// eight warps an SM do not hide: the wait for the step's K and V copy,
+// each K tile's prologue (redone in every query tile), the softmax and the
+// barrier (experiments/torch_exact_arm_variants.py drops each in turn).
+// The bf16x3 arm at the decode's shape (B=8,
 // N=256) moves the same 33.6 MB and does 3 x 2.15 GFLOP of bf16 products
 // (6.5 us at the tensor-core rate): bytes-bound, 10 us; like the bf16 arm
 // it redoes the prologue and split of each K and V tile in every query
@@ -114,159 +151,93 @@
 // ptxas (sm_90a; chip_smoke.py prints every kernel's registers and fails on
 // a spill): bf16 arm 164 registers, 55,808 bytes of dynamic shared memory
 // (three blocks an SM); bf16x3 arm 238 registers, 104,960 bytes (two);
-// exact fp32 arm 128 registers, 69,632 bytes (two).
+// exact fp32 arm 206 registers, 105,984 bytes (two), no stack.
 
 #include "tensor_core.cuh"
 
 namespace {
 
-// Shared memory of the exact fp32 arm: Q, K, V and P tiles.
-constexpr size_t kSmemF32 = 4 * kTile * kStride * sizeof(float);
+// fp32 tiles: 64 token rows of kStride = 68 floats (272 bytes, an odd
+// multiple of 16), the bf16x3 arm's split tiles and the exact arm's Q, K
+// and V tiles.
+constexpr int kF32Tile = kTile * kStride;  // floats of an fp32 tile
+static_assert(kRowOf<2 * kHeadDim> * sizeof(bf16) == kStride * sizeof(float),
+              "an fp32 row fills a row of 128 bf16");
 
-// The exact fp32 arm's scalar body (plain fp32 FMAs: no TF32, no tensor
-// cores).
-__global__ void __launch_bounds__(kThreads, 2)
-fused_qkv_rope_attention_f32_kernel(const float* __restrict__ qkv,
-                                    const __nv_bfloat16* __restrict__ sin_t,
-                                    const __nv_bfloat16* __restrict__ cos_t,
-                                    const float* __restrict__ q_scale,
-                                    const float* __restrict__ k_scale,
-                                    float* __restrict__ out, int N, int H, int n_valid,
-                                    int causal) {
-  constexpr int kT = kTile * kStride;
-  extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float* s_k = s_q + kT;
-  float* s_p = s_k + kT;
-  float* s_v = s_p + kT;
+// Starts the raw copy of fp32 token rows [n0, n0+64) of one head into an
+// fp32 tile: a row's 256 bytes go as 128 bf16-sized elements through
+// load_tile_async<128>, so half f of row threadIdx.x/2 copies the fp32
+// columns [16f, 16f+16) and [32+16f, 32+16f+16), the ones its prologue then
+// rewrites in the same thread. `row_stride` is in floats.
+__device__ __forceinline__ void load_f32_tile_async(void* __restrict__ dst,
+                                                    const float* __restrict__ src,
+                                                    size_t row_stride, int n0, int N) {
+  load_tile_async<2 * kHeadDim>(static_cast<bf16*>(dst), reinterpret_cast<const bf16*>(src),
+                                2 * row_stride, n0, N);
+}
 
-  const int r = threadIdx.x >> 2;  // row within the tile
-  const int c = threadIdx.x & 3;   // quarter of the row
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int D = H * kHeadDim;
-  const size_t row_stride = 3 * static_cast<size_t>(D);
-  const float* base = qkv + static_cast<size_t>(b) * N * row_stride;
-  const int qrow = q0 + r;
-
-  auto tables = [&](int n, const __nv_bfloat16*& sr, const __nv_bfloat16*& cr) {
-    sr = sin_t == nullptr ? nullptr : sin_t + static_cast<size_t>(n) * kHeadDim;
-    cr = cos_t == nullptr ? nullptr : cos_t + static_cast<size_t>(n) * kHeadDim;
-  };
-
-  // Q tile: prologue into shared memory, where it stays.
-  {
-    const __nv_bfloat16 *sr, *cr;
-    tables(qrow, sr, cr);
-    load_row(base + static_cast<size_t>(qrow) * row_stride + h * kHeadDim, qrow < N,
-                    q_scale, sr, cr, s_q + r * kStride, c);
-  }
-  const float* q = s_q + r * kStride;
-
-  // Key tiles that hold any unmasked column for this block's rows.
-  int n_kt = (n_valid + kTile - 1) / kTile;
-  if (causal) {
-    const int last_row = min(q0 + kTile, N) - 1;
-    n_kt = min(n_kt, last_row / kTile + 1);
-  }
-
-  auto load_k = [&](int k0) {
-    const int n = k0 + r;
-    const __nv_bfloat16 *sr, *cr;
-    tables(n, sr, cr);
-    load_row(base + static_cast<size_t>(n) * row_stride + D + h * kHeadDim, n < N,
-                    k_scale, sr, cr, s_k + r * kStride, c);
-  };
-  auto load_v = [&](int k0) {
-    const int n = k0 + r;
-    load_row(base + static_cast<size_t>(n) * row_stride + 2 * D + h * kHeadDim, n < N,
-                    nullptr, nullptr, nullptr, s_v + r * kStride, c);
-  };
-
-  // Pass 1: row max and the fp32 sum of exp(s - max).
-  float m = -INFINITY, l = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_k(kt * kTile);
-    __syncthreads();
-    float s[16];
-    tile_scores(q, s_k, c, kt * kTile, qrow, n_valid, causal, s);
-    float mt = s[0];
+// The fp32 arms' prologue on one thread's half of a row: x[i] is column
+// 16f + i and x[16 + i] column 32 + 16f + i (the chunks load_f32_tile_async
+// gave it), so the rotate-half pairs (j, j+32) are the thread's own and the
+// row's other half is in the neighbouring lane: every lane of the warp
+// calls this. With `w` (the (64,) fp32 RMSNorm scales): x = (x r) w in
+// fp32, r = 1 / sqrt(mean of squares + 1e-5), the mean over the row summed
+// from the squares or, with kHigh, from the bf16x3 halves of each square
+// (the plain version's _rms_norm_high). With `rope` (`tab`: the row's RoPE
+// tables, rope_fetch): rotate-half RoPE in bf16, the inputs, every product
+// and each sum rounded to bf16 as the plain version's eager bf16
+// arithmetic rounds them, so the row comes out bf16-valued.
+template <bool kHigh>
+__device__ __forceinline__ void prologue_f32_row(float (&x)[32], int f,
+                                                 const float* __restrict__ w,
+                                                 const RopeRow& tab, bool rope) {
+  if (w != nullptr) {
+    float ss = 0.f;
 #pragma unroll
-    for (int j = 1; j < 16; ++j) mt = fmaxf(mt, s[j]);
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    if (m_new != -INFINITY) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) part += expf(s[j] - m_new);
-      l = (m == -INFINITY ? 0.f : l * expf(m - m_new)) + part;
-      m = m_new;
+    for (int i = 0; i < 32; ++i) {
+      if constexpr (kHigh) {
+        float hi, lo;
+        split_bf16(x[i] * x[i], hi, lo);
+        ss += hi + lo;
+      } else {
+        ss += x[i] * x[i];
+      }
     }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    const float inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = (x[i] * inv) * w[(i < 16 ? 16 * f : 32 + 16 * f) + (i & 15)];
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-
-  // Pass 2: p = exp(s - max) / sum, kept in fp32; out += p.v.
-  float acc[16];
+  if (rope) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_k(k0);
-    load_v(k0);
-    __syncthreads();
-    float s[16];
-    tile_scores(q, s_k, c, k0, qrow, n_valid, causal, s);
+    for (int part = 0; part < 2; ++part) {
+      // bf16 pairs of the table rows: columns 16f + 8 part + [0, 8) (a) and 32 + the same (b)
+      const __nv_bfloat162* sa = reinterpret_cast<const __nv_bfloat162*>(&tab.s[part]);
+      const __nv_bfloat162* ca = reinterpret_cast<const __nv_bfloat162*>(&tab.c[part]);
+      const __nv_bfloat162* sb = reinterpret_cast<const __nv_bfloat162*>(&tab.s[2 + part]);
+      const __nv_bfloat162* cb = reinterpret_cast<const __nv_bfloat162*>(&tab.c[2 + part]);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m) / l;
-      s_p[r * kStride + c + 4 * j] = p;
-    }
-    __syncthreads();
-    const float* prow = s_p + r * kStride;
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float* vrow = s_v + kk * kStride;
-      const float p = prow[kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(vrow + 4 * c + 16 * i);
-        acc[4 * i] = fmaf(p, v.x, acc[4 * i]);
-        acc[4 * i + 1] = fmaf(p, v.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(p, v.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(p, v.w, acc[4 * i + 3]);
+      for (int e = 0; e < 4; ++e) {
+        // rotate-half: rot[j] = -x[j+32] for j < 32, x[j-32] for j >= 32. The inputs
+        // rounded to bf16 pairs; a product of two bf16 values is exact in fp32, so the
+        // packed bf16 multiply rounds it once, as bf16(x * cos) does; each sum is an
+        // fp32 add rounded once.
+        const int i = 8 * part + 2 * e;
+        const __nv_bfloat162 a = __floats2bfloat162_rn(x[i], x[i + 1]);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(x[16 + i], x[17 + i]);
+        const float2 ac = __bfloat1622float2(__hmul2(a, ca[e]));
+        const float2 bs = __bfloat1622float2(__hmul2(__hneg2(b), sa[e]));
+        const float2 bc = __bfloat1622float2(__hmul2(b, cb[e]));
+        const float2 as = __bfloat1622float2(__hmul2(a, sb[e]));
+        const float2 ra = __bfloat1622float2(__floats2bfloat162_rn(ac.x + bs.x, ac.y + bs.y));
+        const float2 rb = __bfloat1622float2(__floats2bfloat162_rn(bc.x + as.x, bc.y + as.y));
+        x[i] = ra.x;
+        x[i + 1] = ra.y;
+        x[16 + i] = rb.x;
+        x[17 + i] = rb.y;
       }
     }
   }
-
-  if (qrow < N) {
-    float* orow = out + (static_cast<size_t>(b) * N + qrow) * D + h * kHeadDim;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) orow[4 * c + 16 * i + e] = acc[4 * i + e];
-    }
-  }
-}
-
-int launch_f32(const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
-               const void* k_scale, void* out, int B, int N, int H, int n_valid, int causal,
-               int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fused_qkv_rope_attention_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemF32));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kTile - 1) / kTile, H, B);
-  fused_qkv_rope_attention_f32_kernel<<<grid, kThreads, kSmemF32, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const __nv_bfloat16*>(sin_t),
-      static_cast<const __nv_bfloat16*>(cos_t), static_cast<const float*>(q_scale),
-      static_cast<const float*>(k_scale), static_cast<float*>(out), N, H, n_valid, causal);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 arm on tensor cores (see the note above). Shared memory: a ring
@@ -425,18 +396,6 @@ constexpr int kSplitRow = kRowOf<2 * kHeadDim>;
 constexpr int kSplitTile = kTile * kSplitRow;
 constexpr size_t kSmemBf16x3 =
     2 * kStages * kSplitTile * sizeof(bf16) + 2 * kHeadDim * sizeof(float);
-static_assert(kSplitRow * sizeof(bf16) == kStride * sizeof(float), "an fp32 row fills a split row");
-
-// Starts the raw copy of fp32 token rows [n0, n0+64) of one head into a
-// split tile: a row's 256 bytes go as 128 bf16-sized elements through
-// load_tile_async<128>, so half f of row threadIdx.x/2 copies the fp32
-// columns [16f, 16f+16) and [32+16f, 32+16f+16), the ones split_tile then
-// reads in the same thread. `row_stride` is in floats.
-__device__ __forceinline__ void load_split_tile_async(bf16* __restrict__ dst,
-                                                      const float* __restrict__ src,
-                                                      size_t row_stride, int n0, int N) {
-  load_tile_async<2 * kHeadDim>(dst, reinterpret_cast<const bf16*>(src), 2 * row_stride, n0, N);
-}
 
 // hi = bf16(x) and lo = bf16(x - hi) of two fp32 values, as packed pairs.
 __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -445,20 +404,16 @@ __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi, uin
   lo = pack_bf16(x0 - h.x, x1 - h.y);
 }
 
-// load_row's prologue with the bf16x3 arm's rounding points, then the
-// split, in place on a split tile of token rows [n0, n0+64) that holds the
-// raw fp32 rows. Two threads a row: half f of row threadIdx.x/2 owns the
-// fp32 columns [16f, 16f+16) and [32+16f, 32+16f+16), so the rotate-half
-// pairs (j, j+32) stay in one thread and a row's mean of squares is one
-// shuffle. With `w` (the (64,) fp32 RMSNorm scales): the mean of squares
-// sums the split halves of each square (the plain version's _rms_norm_high)
-// and x = (x r) w in fp32. With `rope` (`tab`: the row's RoPE tables,
-// rope_fetch): RoPE in bf16 at load_row's rounding points, so the row comes out
-// bf16-valued and its lo half 0. Then hi goes to bf16 column j and lo to
-// 64 + j. The two threads of a row are neighbouring lanes, and each one's
-// bf16 columns overlap the other's fp32 bytes: both read before a
-// __syncwarp and write after it, so every lane of the warp must call this.
-// Rows at or past N are zeros and stay zeros.
+// The prologue at the bf16x3 arm's rounding points (prologue_f32_row<true>),
+// then the split, in place on a split tile of token rows [n0, n0+64) that
+// holds the raw fp32 rows (load_f32_tile_async). Two threads a row: half f
+// of row threadIdx.x/2 owns the fp32 columns [16f, 16f+16) and
+// [32+16f, 32+16f+16). With RoPE the row comes out bf16-valued and its lo
+// half 0. Then hi goes to bf16 column j and lo to 64 + j. The two threads
+// of a row are neighbouring lanes, and each one's bf16 columns overlap the
+// other's fp32 bytes: both read before a __syncwarp and write after it, so
+// every lane of the warp must call this. Rows at or past N are zeros and
+// stay zeros.
 __device__ __forceinline__ void split_tile(bf16* __restrict__ tile, int n0, int N,
                                            const float* __restrict__ w, const RopeRow& tab,
                                            bool rope) {
@@ -473,37 +428,7 @@ __device__ __forceinline__ void split_tile(bf16* __restrict__ tile, int n0, int 
     x[16 + 4 * i] = b.x; x[17 + 4 * i] = b.y; x[18 + 4 * i] = b.z; x[19 + 4 * i] = b.w;
   }
   __syncwarp();
-  if (w != nullptr) {
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float hi, lo;
-      split_bf16(x[i] * x[i], hi, lo);
-      ss += hi + lo;
-    }
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    const float inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) x[i] = (x[i] * inv) * w[(i < 16 ? 16 * f : 32 + 16 * f) + (i & 15)];
-  }
-  if (rope && n0 + row < N) {
-#pragma unroll
-    for (int part = 0; part < 2; ++part) {
-      float sa[8], ca[8], sb[8], cb[8];  // columns 16f + 8 part + e (a) and 32 + the same (b)
-      unpack8(tab.s[part], sa);
-      unpack8(tab.c[part], ca);
-      unpack8(tab.s[2 + part], sb);
-      unpack8(tab.c[2 + part], cb);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        // rotate-half: rot[j] = -x[j+32] for j < 32, x[j-32] for j >= 32
-        const int i = 8 * part + e;
-        const float lo = bf16_round(x[i]), hi = bf16_round(x[16 + i]);
-        x[i] = bf16_round(bf16_round(lo * ca[e]) + bf16_round(-hi * sa[e]));
-        x[16 + i] = bf16_round(bf16_round(hi * cb[e]) + bf16_round(lo * sb[e]));
-      }
-    }
-  }
+  prologue_f32_row<true>(x, f, w, tab, rope && n0 + row < N);
   uint4* hi_out = reinterpret_cast<uint4*>(p);
   uint4* lo_out = reinterpret_cast<uint4*>(p + kHeadDim);
 #pragma unroll
@@ -619,8 +544,8 @@ fused_qkv_rope_attention_bf16x3_kernel(const float* __restrict__ qkv,
   auto issue = [&](int i) {
     if (i < steps) {
       const int st = i % kStages;
-      load_split_tile_async(s_k + st * kSplitTile, k_src, row_stride, i * kTile, N);
-      load_split_tile_async(s_v + st * kSplitTile, v_src, row_stride, i * kTile, N);
+      load_f32_tile_async(s_k + st * kSplitTile, k_src, row_stride, i * kTile, N);
+      load_f32_tile_async(s_v + st * kSplitTile, v_src, row_stride, i * kTile, N);
     }
     cp_async_commit();
   };
@@ -631,7 +556,7 @@ fused_qkv_rope_attention_bf16x3_kernel(const float* __restrict__ qkv,
     split_tile(s_v + st * kSplitTile, i * kTile, N, nullptr, tab, false);
   };
 
-  load_split_tile_async(s_q, q_src, row_stride, q0, N);
+  load_f32_tile_async(s_q, q_src, row_stride, q0, N);
   cp_async_commit();
   issue(0);
   issue(1);
@@ -707,6 +632,291 @@ int launch_bf16x3(const void* qkv, const void* sin_t, const void* cos_t, const v
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kTile - 1) / kTile, H, B);
   fused_qkv_rope_attention_bf16x3_kernel<<<grid, kTcThreads, kSmemBf16x3, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const bf16*>(sin_t),
+      static_cast<const bf16*>(cos_t), static_cast<const float*>(q_scale),
+      static_cast<const float*>(k_scale), static_cast<float*>(out), N, H, n_valid, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exact fp32 arm (see the note above). A lane owns kF32Rows query rows,
+// a warp 4 kF32Rows, a block kF32Q. Shared memory: the Q tile, a ring of
+// two stages each a K and a V tile, the warps' P rows (kF32Q rows of 64
+// keys, kPRow floats a row) and the two (64,) RMSNorm scale vectors:
+// 105,984 bytes, two blocks an SM. (Eight rows a lane spill at 255
+// registers.)
+constexpr int kF32Rows = 4;
+constexpr int kF32Q = 16 * kF32Rows;  // query rows a block
+constexpr int kF32Stages = 2;
+constexpr int kPRow = kTile + 8;  // 72 floats: a warp's scalar P stores fall in 32 banks
+constexpr size_t kSmemF32 =
+    ((kF32Q / kTile + 2 * kF32Stages) * kF32Tile + kF32Q * kPRow + 2 * kHeadDim) * sizeof(float);
+static_assert(kF32Q % kTile == 0, "the Q tile is whole 64-row tiles");
+
+// The exact arm's prologue (prologue_f32_row) in place on an fp32 tile of
+// token rows [n0, n0+64) that holds the raw rows: each thread rewrites the
+// chunks it copied (load_f32_tile_async), so it needs only its own
+// cp.async wait; every lane of the warp calls this. Rows at or past N are
+// zeros and stay zeros.
+__device__ __forceinline__ void prologue_f32_tile(float* __restrict__ tile, int n0, int N,
+                                                  const float* __restrict__ w,
+                                                  const RopeRow& tab, bool rope) {
+  const int row = threadIdx.x >> 1, f = threadIdx.x & 1;
+  float4* a = reinterpret_cast<float4*>(tile + row * kStride + 16 * f);
+  float4* b = reinterpret_cast<float4*>(tile + row * kStride + 32 + 16 * f);
+  float x[32];  // x[i]: column 16f + i; x[16 + i]: column 32 + 16f + i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = a[i], v = b[i];
+    x[4 * i] = u.x; x[4 * i + 1] = u.y; x[4 * i + 2] = u.z; x[4 * i + 3] = u.w;
+    x[16 + 4 * i] = v.x; x[17 + 4 * i] = v.y; x[18 + 4 * i] = v.z; x[19 + 4 * i] = v.w;
+  }
+  prologue_f32_row<false>(x, f, w, tab, rope && n0 + row < N);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    b[i] = make_float4(x[16 + 4 * i], x[17 + 4 * i], x[18 + 4 * i], x[19 + 4 * i]);
+  }
+}
+
+__device__ __forceinline__ float float4_at(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// s[r][e] = q_r . k_e over the head dim, in order, by plain FFMA: q_r is the
+// fp32 row at q + 4r kStride and k_e the row at k + 8e kStride (this lane's
+// query rows and keys). Each step of four head-dim columns loads the
+// kF32Rows q rows and the eight k rows once (16-byte loads) for
+// 32 kF32Rows FFMA.
+__device__ __forceinline__ void scores_f32(float (&s)[kF32Rows][8], const float* __restrict__ q,
+                                           const float* __restrict__ k) {
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[r][e] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < kHeadDim; d += 4) {
+    float4 qv[kF32Rows];
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) qv[r] = *reinterpret_cast<const float4*>(q + 4 * r * kStride + d);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float4 kv = *reinterpret_cast<const float4*>(k + 8 * e * kStride + d);
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        s[r][e] = fmaf(qv[r].x, kv.x, s[r][e]);
+        s[r][e] = fmaf(qv[r].y, kv.y, s[r][e]);
+        s[r][e] = fmaf(qv[r].z, kv.z, s[r][e]);
+        s[r][e] = fmaf(qv[r].w, kv.w, s[r][e]);
+      }
+    }
+  }
+}
+
+// o[r][c] += sum_j p_r[j] v_j[c] over the tile's 64 keys, in order, by plain
+// FFMA: p_r is the warp's P row at p + 4r kPRow, v_j the row at v + j kStride
+// read at its columns [0, 4) (o[r][0..4)) and [32, 36) (o[r][4..8)). Each
+// step of four keys loads the kF32Rows p rows and the eight v row pieces
+// once (16-byte loads) for 32 kF32Rows FFMA.
+__device__ __forceinline__ void pv_f32(float (&o)[kF32Rows][8], const float* __restrict__ p,
+                                       const float* __restrict__ v) {
+#pragma unroll
+  for (int j = 0; j < kTile; j += 4) {
+    float4 pv[kF32Rows];
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) pv[r] = *reinterpret_cast<const float4*>(p + 4 * r * kPRow + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float4 va = *reinterpret_cast<const float4*>(v + (j + jj) * kStride);
+      const float4 vb = *reinterpret_cast<const float4*>(v + (j + jj) * kStride + 32);
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const float pr = float4_at(pv[r], jj);
+        o[r][0] = fmaf(pr, va.x, o[r][0]);
+        o[r][1] = fmaf(pr, va.y, o[r][1]);
+        o[r][2] = fmaf(pr, va.z, o[r][2]);
+        o[r][3] = fmaf(pr, va.w, o[r][3]);
+        o[r][4] = fmaf(pr, vb.x, o[r][4]);
+        o[r][5] = fmaf(pr, vb.y, o[r][5]);
+        o[r][6] = fmaf(pr, vb.z, o[r][6]);
+        o[r][7] = fmaf(pr, vb.w, o[r][7]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+fused_qkv_rope_attention_f32_kernel(const float* __restrict__ qkv,
+                                    const bf16* __restrict__ sin_t,
+                                    const bf16* __restrict__ cos_t,
+                                    const float* __restrict__ q_scale,
+                                    const float* __restrict__ k_scale,
+                                    float* __restrict__ out, int N, int H, int n_valid,
+                                    int causal) {
+  extern __shared__ float4 smem4[];
+  float* s_q = reinterpret_cast<float*>(smem4);   // kF32Q / 64 tiles
+  float* s_k = s_q + kF32Q / kTile * kF32Tile;     // kF32Stages K tiles
+  float* s_v = s_k + kF32Stages * kF32Tile;        // kF32Stages V tiles
+  float* s_p = s_v + kF32Stages * kF32Tile;        // the warps' P rows
+  float* s_w = s_p + kF32Q * kPRow;                // q_scale, then k_scale
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int q0 = blockIdx.x * kF32Q;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int D = H * kHeadDim;
+  const size_t row_stride = 3 * static_cast<size_t>(D);
+  const float* q_src = qkv + static_cast<size_t>(b) * N * row_stride + h * kHeadDim;
+  const float* k_src = q_src + D;
+  const float* v_src = q_src + 2 * D;
+  const bool norm = q_scale != nullptr;
+  const bool rope = sin_t != nullptr;
+  const bool prologue = norm || rope;
+  const int row0 = q0 + 4 * kF32Rows * warp + rg;  // this lane's query rows: row0 + 4r
+
+  // Key tiles that hold any unmasked column for this block's rows.
+  int n_kt = (n_valid + kTile - 1) / kTile;
+  if (causal) {
+    const int last_row = min(q0 + kF32Q, N) - 1;
+    n_kt = min(n_kt, last_row / kTile + 1);
+  }
+  // One sweep over the key tiles: step i uses stage i % kF32Stages; its copy
+  // is issued at the start of step i - 1 and its K tile roped at that step's end.
+  auto issue = [&](int i) {
+    if (i < n_kt) {
+      const int st = i % kF32Stages;
+      load_f32_tile_async(s_k + st * kF32Tile, k_src, row_stride, i * kTile, N);
+      load_f32_tile_async(s_v + st * kF32Tile, v_src, row_stride, i * kTile, N);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int t = 0; t < kF32Q / kTile; ++t)
+    load_f32_tile_async(s_q + t * kF32Tile, q_src, row_stride, q0 + t * kTile, N);
+  cp_async_commit();
+  issue(0);
+  if (norm) {
+    if (threadIdx.x < 2 * kHeadDim)
+      s_w[threadIdx.x] = threadIdx.x < kHeadDim ? q_scale[threadIdx.x] : k_scale[threadIdx.x - kHeadDim];
+    __syncthreads();
+  }
+  RopeRow tab;
+  if (prologue) {
+    cp_async_wait<1>();  // this thread's Q chunks
+#pragma unroll
+    for (int t = 0; t < kF32Q / kTile; ++t) {
+      rope_fetch(tab, sin_t, cos_t, q0 + t * kTile, N);
+      prologue_f32_tile(s_q + t * kF32Tile, q0 + t * kTile, N, norm ? s_w : nullptr, tab, rope);
+    }
+    rope_fetch(tab, sin_t, cos_t, 0, N);
+    cp_async_wait<0>();  // and its chunks of step 0
+    prologue_f32_tile(s_k, 0, N, norm ? s_w + kHeadDim : nullptr, tab, rope);
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  const float* q = s_q + (4 * kF32Rows * warp + rg) * kStride;
+  float* p_rows = s_p + 4 * kF32Rows * warp * kPRow;  // this warp's P rows
+  // Online softmax state: each row's running max (the same in the row's
+  // eight lanes), this lane's part of its running sum of exp(s - m), and the
+  // running P V.
+  float m[kF32Rows], l[kF32Rows], o[kF32Rows][8];
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[r][c] = 0.f;
+  }
+
+  for (int i = 0; i < n_kt; ++i) {
+    issue(i + 1);  // into the stage that step i - 1 used, freed by its closing barrier
+    const bool next = prologue && i + 1 < n_kt;
+    if (next) rope_fetch(tab, sin_t, cos_t, (i + 1) * kTile, N);
+    const int st = i % kF32Stages;
+    float s[kF32Rows][8];
+    scores_f32(s, q, s_k + st * kF32Tile + cg * kStride);
+    if (causal || (i + 1) * kTile > n_valid) {
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int col = i * kTile + cg + 8 * e;
+          s[r][e] = (col >= n_valid || (causal && col > row0 + 4 * r)) ? -INFINITY
+                                                                       : s[r][e] * 0.125f;  // 64^-1/2
+        }
+      }
+    } else {  // every key of the tile is valid for every row
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[r][e] *= 0.125f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) {
+      float mt = s[r][0];
+#pragma unroll
+      for (int e = 1; e < 8; ++e) mt = fmaxf(mt, s[r][e]);
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float m_new = fmaxf(m[r], mt);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float rescale = expf(m[r] - base);  // 0 while m is -inf
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float p = expf(s[r][e] - base);  // 0 where masked; stays fp32
+        part += p;
+        p_rows[(rg + 4 * r) * kPRow + cg + 8 * e] = p;
+      }
+      l[r] = l[r] * rescale + part;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[r][c] *= rescale;
+    }
+    __syncwarp();
+    pv_f32(o, p_rows + rg * kPRow, s_v + st * kF32Tile + 4 * cg);
+    cp_async_wait<0>();  // this thread's chunks of step i + 1
+    if (next) {
+      prologue_f32_tile(s_k + ((i + 1) % kF32Stages) * kF32Tile, (i + 1) * kTile, N,
+                        norm ? s_w + kHeadDim : nullptr, tab, rope);
+    }
+    __syncthreads();  // publishes step i + 1's tiles; frees stage i and the P rows
+  }
+
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 4);
+    const float inv = 1.0f / l[r];  // every row has an unmasked key (key 0), so l > 0
+    const int n = row0 + 4 * r;
+    if (n < N) {
+      float* orow = out + (static_cast<size_t>(b) * N + n) * D + h * kHeadDim + 4 * cg;
+      *reinterpret_cast<float4*>(orow) =
+          make_float4(o[r][0] * inv, o[r][1] * inv, o[r][2] * inv, o[r][3] * inv);
+      *reinterpret_cast<float4*>(orow + 32) =
+          make_float4(o[r][4] * inv, o[r][5] * inv, o[r][6] * inv, o[r][7] * inv);
+    }
+  }
+}
+
+int launch_f32(const void* qkv, const void* sin_t, const void* cos_t, const void* q_scale,
+               const void* k_scale, void* out, int B, int N, int H, int n_valid, int causal,
+               int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fused_qkv_rope_attention_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemF32));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kF32Q - 1) / kF32Q, H, B);
+  fused_qkv_rope_attention_f32_kernel<<<grid, kTcThreads, kSmemF32, stream>>>(
       static_cast<const float*>(qkv), static_cast<const bf16*>(sin_t),
       static_cast<const bf16*>(cos_t), static_cast<const float*>(q_scale),
       static_cast<const float*>(k_scale), static_cast<float*>(out), N, H, n_valid, causal);

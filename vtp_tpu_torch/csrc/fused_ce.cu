@@ -22,17 +22,40 @@
 // when C % 8 == 0; scalar loads otherwise), keep online (max, sum) states
 // for both softmaxes, and merge them with warp shuffles and then shared
 // memory. The TPU kernel's gates (R % 8, C % 2048) become bounds checks, so
-// any R and C are taken. Backward: a grid of (column blocks of 2048, rows),
-// 256 threads each handling 8 consecutive columns.
+// any R and C are taken.
+//
+// Backward: a grid of as many blocks of 256 threads as the SMs hold at
+// once (fewer when there is less work). The rows are cut into spans of
+// 2 x 256 chunks of 8 columns (4096 columns), and each block walks one
+// contiguous run of spans, so its consecutive spans share a row: the row's
+// constants (m_t, m_s and (g / T_s) / z_t, (g / T_s) / l_s) are loaded and
+// divided once a row, 1 / T_t and 1 / T_s once a thread, and no element
+// takes an IEEE division. A thread issues both of a span's 16-byte loads of
+// t and of s (and of the L2-resident center) before it computes, four
+// 16-byte loads of t and s in flight a thread, ~48 KB an SM at three blocks
+// an SM; each exponential is one exp2f of (x - m) log2(e), with
+// x - m = (t - c) / T_t - m_t or s / T_s - m_s one fused multiply-add from
+// the hoisted reciprocal; 8 outputs go as one 16-byte store (bf16; two
+// for fp32). Rows whose length is no multiple of 8 (not 16-byte aligned)
+// take one column at a time, a block a row, with the same arithmetic.
+// Error: the plain version divides by T, by the sum and by T_s where the
+// kernel multiplies by rounded reciprocals, and rounds x / T before it
+// subtracts m; each is within a few fp32 ulps of p or of the exponent's
+// argument, where p is large (the argument near 0), so ds stays within
+// ~1e-6 of max|ref| in fp32 (chip_smoke.py's gate: 1e-5; bf16: 1e-2).
 //
 // Bound on an H100: both passes read t and s once (the backward also writes
 // ds), so they are bound by bytes: at the iBOT shape (R=2048, C=65536, bf16)
-// the forward moves 537 MB (0.16 ms) and the backward 805 MB (0.24 ms).
+// the forward moves 537 MB (0.16 ms) and the backward 805 MB (0.24 ms). The
+// backward's two exponentials an element go to the SFU (16 a cycle an SM),
+// ~0.08 ms at that shape, below the bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -161,8 +184,57 @@ fused_ce_fwd_kernel(const T* __restrict__ t, const T* __restrict__ s,
   }
 }
 
+// The backward's row constants: the maxima, and g / T_s over each sum.
+struct RowGrad {
+  float m_t, m_s, a_t, a_s;  // a_t = (g / T_s) / z_t, a_s = (g / T_s) / l_s
+};
+
+__device__ __forceinline__ RowGrad row_grad(const float* __restrict__ g,
+                                            const float* __restrict__ m_t,
+                                            const float* __restrict__ z_t,
+                                            const float* __restrict__ m_s,
+                                            const float* __restrict__ l_s, int row,
+                                            float inv_ts) {
+  const float gs = g[row] * inv_ts;
+  return {m_t[row], m_s[row], gs / z_t[row], gs / l_s[row]};
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ds = (g / T_s) (exp(s' - m_s) / l_s - exp(t' - m_t) / z_t) of one element,
+// t' - m_t = (t - c) / T_t - m_t and s' - m_s = s / T_s - m_s each one fused
+// multiply-add (the reciprocals hoisted), each exponential an exp2f of its
+// argument times log2(e).
+__device__ __forceinline__ float ce_grad(float t, float s, float c, const RowGrad& k,
+                                         float inv_tt, float inv_ts) {
+  const float e_t = exp2f(fmaf(t - c, inv_tt, -k.m_t) * kLog2e);
+  const float e_s = exp2f(fmaf(s, inv_ts, -k.m_s) * kLog2e);
+  return fmaf(e_s, k.a_s, -(e_t * k.a_t));
+}
+
+__device__ __forceinline__ void store8(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* x) {
+  uint4 raw;
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
 __device__ __forceinline__ void store_value(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_value(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// The backward walks spans of kBwdGroups * kThreads chunks of 8 columns of
+// one row; the grid (a few blocks an SM) splits the R * spans-per-row spans
+// into contiguous runs, one a block, so a block's consecutive spans share a
+// row and its constants. A thread loads its kBwdGroups chunks of t, s and
+// the center before it computes any, so 2 x kBwdGroups 16-byte loads of t
+// and s are in flight a thread.
+constexpr int kBwdGroups = 2;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -170,31 +242,56 @@ fused_ce_bwd_kernel(const T* __restrict__ t, const T* __restrict__ s,
                     const float* __restrict__ center, const float* __restrict__ g,
                     const float* __restrict__ m_t, const float* __restrict__ z_t,
                     const float* __restrict__ m_s, const float* __restrict__ l_s,
-                    T* __restrict__ ds, int C, float t_temp, float s_temp, int vec) {
-  const int row = blockIdx.y;
-  const int c0 = (blockIdx.x * kThreads + threadIdx.x) * kVec;
-  if (c0 >= C) return;
-  const size_t off = static_cast<size_t>(row) * C + c0;
-  const float gr = g[row], mt = m_t[row], zt = z_t[row], ms = m_s[row], ls = l_s[row];
-  float tv[kVec], sv[kVec], cv[kVec];
-  const int n = min(kVec, C - c0);
-  if (vec) {
-    load8(t + off, tv);
-    load8(s + off, sv);
-    load8(center + c0, cv);
-  } else {
-    for (int i = 0; i < n; ++i) {
-      tv[i] = to_f(t[off + i]);
-      sv[i] = to_f(s[off + i]);
-      cv[i] = center[c0 + i];
+                    T* __restrict__ ds, int R, int C, float t_temp, float s_temp) {
+  const float inv_tt = 1.0f / t_temp, inv_ts = 1.0f / s_temp;
+  if (C % kVec != 0) {
+    // Rows not 16-byte aligned: one column at a time, a block a row.
+    for (int row = blockIdx.x; row < R; row += gridDim.x) {
+      const RowGrad k = row_grad(g, m_t, z_t, m_s, l_s, row, inv_ts);
+      const size_t off = static_cast<size_t>(row) * C;
+      for (int col = threadIdx.x; col < C; col += kThreads)
+        store_value(ds + off + col, ce_grad(to_f(t[off + col]), to_f(s[off + col]), center[col],
+                                            k, inv_tt, inv_ts));
     }
+    return;
   }
-  for (int i = 0; i < n; ++i) {
-    const float tp = (tv[i] - cv[i]) / t_temp;
-    const float sp = sv[i] / s_temp;
-    const float p_t = expf(tp - mt) / zt;
-    const float p_s = expf(sp - ms) / ls;
-    store_value(ds + off + i, gr * (p_s - p_t) / s_temp);
+  constexpr int kSpan = kBwdGroups * kThreads;  // chunks of 8 columns a span
+  const int chunks = C / kVec;
+  const int per_row = (chunks + kSpan - 1) / kSpan;
+  const long long spans = static_cast<long long>(R) * per_row;
+  const long long first = spans * blockIdx.x / gridDim.x;
+  const long long last = spans * (blockIdx.x + 1) / gridDim.x;
+  int row = static_cast<int>(first / per_row);
+  int c0 = static_cast<int>(first - static_cast<long long>(row) * per_row) * kSpan;
+  RowGrad k = row_grad(g, m_t, z_t, m_s, l_s, row, inv_ts);
+  for (long long sp = first; sp < last; ++sp) {
+    const size_t base = static_cast<size_t>(row) * C;
+    float tv[kBwdGroups][kVec], sv[kBwdGroups][kVec], cv[kBwdGroups][kVec];
+#pragma unroll
+    for (int u = 0; u < kBwdGroups; ++u) {
+      const int col = (c0 + u * kThreads + threadIdx.x) * kVec;
+      if (col < C) {
+        load8(t + base + col, tv[u]);
+        load8(s + base + col, sv[u]);
+        load8(center + col, cv[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdGroups; ++u) {
+      const int col = (c0 + u * kThreads + threadIdx.x) * kVec;
+      if (col < C) {
+        float d[kVec];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) d[i] = ce_grad(tv[u][i], sv[u][i], cv[u][i], k, inv_tt, inv_ts);
+        store8(ds + base + col, d);
+      }
+    }
+    c0 += kSpan;
+    if (c0 >= chunks && sp + 1 < last) {
+      ++row;
+      c0 = 0;
+      k = row_grad(g, m_t, z_t, m_s, l_s, row, inv_ts);
+    }
   }
 }
 
@@ -217,12 +314,22 @@ int launch_bwd(const void* t, const void* s, const void* center, const void* g,
                int R, int C, float t_temp, float s_temp, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + kThreads * kVec - 1) / (kThreads * kVec), R);
-  fused_ce_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_ce_bwd_kernel<T>, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as the SMs hold at once, and no more than there are spans
+  // (rows, with unaligned rows)
+  const int span_cols = kBwdGroups * kThreads * kVec;
+  const long long work =
+      C % kVec ? R : static_cast<long long>(R) * ((C + span_cols - 1) / span_cols);
+  const int blocks = static_cast<int>(std::min<long long>(work, static_cast<long long>(sms) * per_sm));
+  fused_ce_bwd_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(t), static_cast<const T*>(s), static_cast<const float*>(center),
       static_cast<const float*>(g), static_cast<const float*>(m_t),
       static_cast<const float*>(z_t), static_cast<const float*>(m_s),
-      static_cast<const float*>(l_s), static_cast<T*>(ds), C, t_temp, s_temp, C % kVec == 0);
+      static_cast<const float*>(l_s), static_cast<T*>(ds), R, C, t_temp, s_temp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -151,7 +151,7 @@ __device__ __forceinline__ void rope_fetch(RopeRow& t, const bf16* __restrict__ 
 // (64,) fp32 RMSNorm scales, or null) and the bf16 (N, 64) sin/cos tables
 // (or null); the rounding points are the plain version's (fused_attention.cu's
 // note): bf16 after the normalisation and again after the scale, and
-// RoPE's as load_row (attention_common.cuh) rounds it. The table
+// RoPE's as the fused forward's note gives them. The table
 // rows come from `pre` (rope_fetch, ahead of the tile) or, when it is null,
 // from global memory as each part is roped. Rows at or past N are zeros and
 // stay zeros. Columns go in bf16 pairs, eight pairs at a time (few

@@ -7,8 +7,9 @@ adaLN-zero conditioning on the timestep and class embeddings, RMSNorm and
 SwiGLU blocks, 2-D RoPE and qk-RMSNorm in the attention. With a head dim
 of 64 each block's attention is the fused qkv + qk-norm + RoPE kernel
 (``ops/flash_attention.py``), whose backward has the qk-norm arm; the
-JAX package takes the same kernels on a TPU. Head dims outside
-{32, 64, 128} (LightningDiT's 16 heads of 72) take the split path on
+JAX package takes the same kernels on a TPU. Where
+``fused_attention_supported`` fails (head dims outside {32, 64, 128},
+LightningDiT's 16 heads of 72) the attention takes the split path on
 ``ops/attention.sdpa``, as the JAX package does, which for those head
 dims is ``sdpa_reference``; head dims 32 and 128 go to the fused function,
 whose kernel takes 64 and raises on a CUDA tensor.
@@ -35,12 +36,11 @@ from vtp_tpu_torch.models.blocks import SwiGLUFFN, checkpoint_policy
 from vtp_tpu_torch.models.initializers import linear_, normal_
 from vtp_tpu_torch.ops.attention import sdpa
 from vtp_tpu_torch.ops.ffn import linear, swiglu_hidden_dim
-from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention
+from vtp_tpu_torch.ops.flash_attention import fused_attention_supported, fused_qkv_rope_attention
 from vtp_tpu_torch.ops.norms import rms_norm
 from vtp_tpu_torch.ops.rope import rope_apply, rope_periods_init, rope_sincos
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
-FUSED_HEAD_DIMS = (32, 64, 128)  # head dims of the fused attention; the kernel takes 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +139,7 @@ class DiTAttention(nn.Module):
         cfg = self.cfg
         B, N, _ = qkv.shape
         sin, cos = rope if rope is not None else (None, None)
-        if cfg.head_dim in FUSED_HEAD_DIMS:
+        if fused_attention_supported(qkv.shape, qkv.dtype, cfg.num_heads):
             return fused_qkv_rope_attention(qkv, sin, cos, cfg.num_heads,
                                             q_scale=self.q_scale, k_scale=self.k_scale)
         q, k, v = qkv.reshape(B, N, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)

@@ -14,10 +14,12 @@ policies raise. Drop-path is not ported (``train/step.py`` refuses it).
 an explicit argument where the JAX package reads the ambient matmul
 precision (``vtp_tpu/models/blocks.py:216-227``).
 
-A trunk whose qkv columns are in the head-major layout
-(``qkv_head_major > 1``, ``parallel/sharding.py``) takes the split path of
-``attention_apply`` (:233-266), as the JAX package does on one device: the
-columns regrouped per head, then qk-norm, RoPE (``apply_rope_bnhd`` :280),
+A crop that ``fused_attention_supported`` refuses (the JAX gate's
+device-independent conditions, :206-214) takes the split path of
+``attention_apply`` (:233-266), as the JAX package does: a head dim outside
+{32, 64, 128}, a one-token crop, or a trunk whose qkv columns are in the
+head-major layout (``qkv_head_major > 1``, ``parallel/sharding.py``). The
+columns are regrouped per head, then qk-norm, RoPE (``apply_rope_bnhd`` :280),
 the compute-dtype cast and ``sdpa_bnhd`` (:292), whose bf16 case runs
 ``flash_attention_bnhd``. The context-parallel arms of ``sdpa_bnhd`` are
 not ported.
@@ -39,6 +41,7 @@ from vtp_tpu_torch.ops.attention import sdpa_reference
 from vtp_tpu_torch.ops.flash_attention import (
     flash_attention_bnhd,
     flash_supported_bnhd,
+    fused_attention_supported,
     fused_qkv_rope_attention,
 )
 from vtp_tpu_torch.ops.norms import apply_norm, norm_eps, rms_norm
@@ -110,8 +113,13 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    """qkv GEMM, fused qkv-split + qk-norm + RoPE + attention (or, for
-    head-major columns, the split path), out-proj (attention_apply)."""
+    """qkv GEMM, fused qkv-split + qk-norm + RoPE + attention, out-proj
+    (attention_apply). Each crop takes the fused function where
+    ``fused_attention_supported`` holds, as the JAX package does (head dim
+    32, 64 or 128, N >= 2, canonical columns), and the split path
+    otherwise: head-major columns, a head dim such as 72, a one-token crop.
+    Head dims 32 and 128 pass the gate, and on a CUDA tensor the fused
+    kernel, which takes 64 alone, raises for them."""
 
     def __init__(self, cfg: BlockConfig):
         super().__init__()
@@ -136,8 +144,8 @@ class Attention(nn.Module):
 
     def split_attention(self, qkv: torch.Tensor, rope: Rope, n_valid: int,
                         compute_dtype: Optional[torch.dtype], precision: str) -> torch.Tensor:
-        """(b, n, 3D) head-major qkv -> (b, n, D): the split path of
-        ``attention_apply`` (:233-266)."""
+        """(b, n, 3D) qkv, canonical or head-major -> (b, n, D): the split
+        path of ``attention_apply`` (:233-266)."""
         cfg = self.cfg
         b, n, _ = qkv.shape
         dg = cfg.dim // cfg.qkv_head_major
@@ -164,7 +172,8 @@ class Attention(nn.Module):
         for (b, n), rope, n_valid in zip(shapes, ropes, n_valids):
             qkv = qkv_flat[off:off + b * n].reshape(b, n, 3 * cfg.dim)
             off += b * n
-            if cfg.qkv_head_major > 1:
+            if not fused_attention_supported(qkv.shape, qkv.dtype, cfg.num_heads,
+                                             cfg.qkv_head_major):
                 o = self.split_attention(qkv, rope, n_valid, compute_dtype, precision)
                 outs.append(o.reshape(b * n, cfg.dim))
                 continue

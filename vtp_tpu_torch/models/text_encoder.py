@@ -6,7 +6,9 @@ A pre-LN residual transformer with torch ``nn.MultiheadAttention``
 parameter names (fused ``in_proj``). Attention routes as ``_text_block``
 (:139-148) does: the plain causal case runs on the fused attention
 (``ops/flash_attention.py``: the kernel's causal arm on the card, no
-RoPE); every other case goes through ``ops/attention.sdpa``, which takes
+RoPE) where ``fused_attention_supported`` holds, and on the causal
+``sdpa_reference`` where it does not (a head dim outside {32, 64, 128},
+a one-token text); every other case goes through ``ops/attention.sdpa``, which takes
 ``flash_attention`` for non-causal unmasked bf16 attention
 (``text_no_causal_mask``) on the permuted q, k, v views of the qkv GEMM
 output, and ``sdpa_reference`` for the pad-aware additive mask of an
@@ -30,7 +32,7 @@ from vtp_tpu_torch.models.initializers import normal_
 from vtp_tpu_torch.ops.activations import ACT
 from vtp_tpu_torch.ops.attention import sdpa
 from vtp_tpu_torch.ops.ffn import linear
-from vtp_tpu_torch.ops.flash_attention import fused_qkv_rope_attention
+from vtp_tpu_torch.ops.flash_attention import fused_attention_supported, fused_qkv_rope_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +105,12 @@ class ResidualAttentionBlock(nn.Module):
         act = ACT["quick_gelu" if cfg.quick_gelu else "gelu"]
         h = self.ln_1(x)
         qkv = linear(h, self.attn.in_proj_weight, self.attn.in_proj_bias, compute_dtype)
-        if is_causal and attn_mask is None:
+        if (is_causal and attn_mask is None
+                and fused_attention_supported(qkv.shape, qkv.dtype, cfg.heads)):
             o = fused_qkv_rope_attention(qkv, None, None, cfg.heads, is_causal=True)
         else:
             q, k, v = qkv.reshape(B, L, 3, cfg.heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
-            o = sdpa(q, k, v, bias=attn_mask)
+            o = sdpa(q, k, v, bias=attn_mask, is_causal=is_causal and attn_mask is None)
             o = o.transpose(1, 2).reshape(B, L, W)
         o = linear(o, self.attn.out_proj.weight, self.attn.out_proj.bias, compute_dtype)
         if self.ls_1 is not None:

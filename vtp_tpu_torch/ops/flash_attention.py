@@ -35,9 +35,10 @@ non-causal, unmasked attention on separate q, k, v, in (B, N, H, d) and
 (B, H, N, d); their Hopper counterpart is ``csrc/flash_attention.cu``
 (one entry each, strided inputs), their plain versions
 ``flash_attention_bnhd_reference`` and ``flash_attention_reference``.
-``flash_supported`` and ``flash_supported_bnhd`` are the JAX gates' dtype,
-shape and head-dim conditions, without the TPU's VMEM budget, sequence cap
-and mesh checks.
+``fused_attention_supported``, ``flash_supported`` and
+``flash_supported_bnhd`` are the JAX gates' dtype, shape, head-dim and
+layout conditions, without the TPU's VMEM budget, sequence cap and mesh
+checks; the models route with them on either device.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from vtp_tpu_torch.ops.precision import check_precision, split_bf16
 from vtp_tpu_torch.ops.rope import rope_apply
 
 KERNEL_HEAD_DIM = 64
+FUSED_HEAD_DIMS = (32, 64, 128)  # head dims the JAX gate passes to the fused kernel
 KERNEL_TILE = 64  # rows of a block of the backward kernel (csrc/attention_common.cuh kTile)
 _ENTRY = {torch.bfloat16: "vtp_fused_qkv_rope_attention_bf16",
           torch.float32: "vtp_fused_qkv_rope_attention_f32"}
@@ -487,6 +489,23 @@ FLASH_NAME = "flash_attention"
 def _flash_shapes_ok(q, k, v) -> bool:
     return (q.dim() == 4 and tuple(q.shape) == tuple(k.shape) == tuple(v.shape)
             and q.dtype == torch.bfloat16 and q.shape[-1] in FLASH_HEAD_DIMS)
+
+
+def fused_attention_supported(qkv_shape, dtype: torch.dtype, num_heads: int,
+                              head_major: int = 1) -> bool:
+    """Whether ``fused_qkv_rope_attention`` takes a (B, N, 3*H*d) packed
+    qkv: the device-independent conditions of the JAX gate
+    (``fused_attention_supported``, :212-263): bf16 or fp32, d in FUSED_HEAD_DIMS,
+    3*H*d the packed width, 2 <= N, canonical [Q|K|V] columns (not
+    head-major). The TPU's VMEM budget, sequence cap and mesh checks have no
+    counterpart. Callers take their split path where it fails. d = 32 and
+    128 pass, as in JAX, but the CUDA kernel takes 64 alone: on a CUDA
+    tensor those widths raise until it is widened."""
+    if dtype not in _ENTRY or head_major != 1:
+        return False
+    _, n, three_d = qkv_shape
+    d = three_d // (3 * num_heads)
+    return d in FUSED_HEAD_DIMS and 3 * num_heads * d == three_d and n >= 2
 
 
 def flash_supported(q, k, v, *, is_causal: bool = False) -> bool:
