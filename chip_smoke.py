@@ -49,6 +49,15 @@
    depth 2), whose attention takes the split path as the JAX package's
    does, one encode and exact decode at B = 2 with no kernel launched,
    against the plain versions;
+   the reconstruction eval: ``evaluate_reconstruction`` on the VTP-L model
+   over 32 seeded 256x256 images in batches of 8 (an in-memory loader),
+   LPIPS and Inception-v3 from seeded torch-layout state dicts through the
+   port's converters, counted, its PSNR, SSIM, LPIPS and rFID against the
+   same eval on the plain versions; the zero-shot eval: a synthetic BPE
+   merges file, ``build_zero_shot_classifier`` over all 1000 classnames x
+   2 templates on the VTP-L text tower (the causal fused launches counted)
+   and 64 seeded images scored, the classifier and the logits against the
+   plain versions;
 4. runs the VTP-L CLIP+SSL+rec train step (``init_state``,
    ``build_train_step``; B = 8 images, each with a CLIP pair, a
    reconstruction target and 2 global + 4 local SSL crops) once on the
@@ -66,13 +75,21 @@
 6. samples 8 images with ``sample_images`` (250 euler steps, shift 0.075,
    cfg 1.0, then the VTP-L decode to uint8), counted and timed, and holds
    a 4-step sample's latents against the same on the plain versions;
+6b. head dims 32 and 128: every forward arm and both backward arms at the
+   edge cases at d = 32 and 128, then at each d the VTP-L widths re-cut
+   into heads of d (trunk and decoder 1024, text 768; depth 2): the
+   roundtrip (exact and "high" decode) and one CLIP+SSL+rec train step,
+   and the DiT-XL/1 width (1152) in 36 or 9 heads (depth 2): one train
+   step at B = 32 and a 4-step sample; each counted under the arm's name
+   at d and against the plain versions;
 7. times each kernel arm against its plain version, a PyTorch yardstick
    call where there is one, and its bound, each by CUDA events twice: as
    the host issues the calls (``ms``, ``plain_ms``, ``library_ms``: a short
    kernel behind a Python wrapper reads the host's cost of a call) and
    queued behind a device sleep (``device_ms``, ``plain_device_ms``,
-   ``library_device_ms``: the device's time alone); and the roundtrip's
-   images/s;
+   ``library_device_ms``: the device's time alone), every forward arm and
+   both backward arms also at head dims 32 and 128 (1024 wide); and the
+   roundtrip's images/s;
 8. with --profile, traces one roundtrip, one train step and one DiT train
    step with torch.profiler and prints the device time by kernel and the
    device's idle share.
@@ -147,6 +164,19 @@ TRAIN_ATTENTION = [("trunk_globals", 2 * BATCH, 257, 16, 16, 1, False),
 # The fused CE's rows (name, R, C): iBOT (upperbound 0.5 * 16 * 256), DINO globals, locals
 TRAIN_CE = [("ibot", 2048, 65536), ("dino_globals", 2 * BATCH, 65536),
             ("dino_locals", 4 * BATCH, 65536)]
+# Head dims 32 and 128: VTP-L's and DiT-XL/1's widths (trunk and decoder
+# 1024, text tower 768, DiT 1152) re-cut into heads of 32 and of 128, depth
+# cut to HEAD_DIM_DEPTH (never the width); the DiT sample takes
+# HEAD_DIM_SAMPLE_STEPS euler steps
+HEAD_DIM_HEADS = {32: {"vision": 32, "decoder": 32, "text": 24, "dit": 36},
+                  128: {"vision": 8, "decoder": 8, "text": 6, "dit": 9}}
+HEAD_DIM_DEPTH = 2
+HEAD_DIM_SAMPLE_STEPS = 4
+# The reconstruction eval: EVAL_IMAGES seeded 256^2 images in batches of EVAL_BATCH
+EVAL_IMAGES, EVAL_BATCH = 32, 8
+# The zero-shot eval: every classname with the first ZS_TEMPLATES templates,
+# ZS_IMAGES seeded images in batches of ZS_BATCH
+ZS_TEMPLATES, ZS_IMAGES, ZS_BATCH = 2, 64, 32
 # Published dense peaks (NVIDIA data sheets, SXM parts at 700 W): memory
 # bytes/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
 PEAKS = {"H100": (3.35e12, 989e12, 67e12), "H200": (4.8e12, 989e12, 67e12)}
@@ -257,18 +287,20 @@ def _plain_kernels():
          fused_ce.fused_ce_bwd) = saved
 
 
-def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False):
+def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False, d=64):
+    """Packed (B, N, 3*H*d) qkv, the RoPE tables of a grid x grid image after
+    `prefix` identity rows (or None), and (d,) qk-norm scales (or None)."""
     import torch
 
     from vtp_tpu_torch.ops.rope import pad_rope_prefix, rope_periods_init, rope_sincos
 
-    qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device="cuda").to(dtype)
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device="cuda").to(dtype)
     rope = (None, None)
     if grid:
-        rope = pad_rope_prefix(*rope_sincos(rope_periods_init(64, device="cuda"), grid, grid), prefix)
+        rope = pad_rope_prefix(*rope_sincos(rope_periods_init(d, device="cuda"), grid, grid), prefix)
     scales = (None, None)
     if qk_norm:
-        scales = tuple(1.0 + 0.1 * torch.randn(64, generator=gen, device="cuda") for _ in range(2))
+        scales = tuple(1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda") for _ in range(2))
     return qkv, rope, scales
 
 
@@ -308,9 +340,9 @@ def check_ptxas(report: str) -> None:
 
 def check_sass(lib_path: str) -> None:
     """Disassembles the library (``cuobjdump -sass``, beside nvcc) and fails
-    unless the exact fp32 arm's kernel is there with FFMAs and without a
-    tensor-core instruction (any opcode with MMA in it: HMMA, HGMMA, IMMA,
-    DMMA, ...)."""
+    unless the exact fp32 arm's kernel is there once for each head dim of
+    FUSED_HEAD_DIMS, each with FFMAs and without a tensor-core instruction
+    (any opcode with MMA in it: HMMA, HGMMA, IMMA, DMMA, ...)."""
     import re
 
     from vtp_tpu_torch import _build
@@ -322,35 +354,40 @@ def check_sass(lib_path: str) -> None:
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
-    names = [n for n in bodies if "fused_qkv_rope_attention_f32_kernel" in n]
-    if len(names) != 1:
-        raise AssertionError(f"the exact fp32 kernel's SASS not found once: {names}")
-    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", bodies[names[0]],
-                     re.M)
-    mma = sorted({op for op in ops if "MMA" in op})
-    print(f"sass fused_qkv_rope_attention_f32_kernel: {len(ops)} instructions, "
-          f"{ops.count('FFMA')} FFMA, tensor-core instructions {mma or 'none'} "
-          f"{'FAIL' if mma or not ops.count('FFMA') else 'ok'}", flush=True)
-    if mma or not ops.count("FFMA"):
-        raise AssertionError(f"the exact fp32 kernel uses tensor cores or no FFMA: {mma}")
+    from vtp_tpu_torch.ops.flash_attention import FUSED_HEAD_DIMS
+
+    for d in FUSED_HEAD_DIMS:
+        names = [n for n in bodies
+                 if "fused_qkv_rope_attention_f32_kernel" in n and f"ILi{d}E" in n]
+        if len(names) != 1:
+            raise AssertionError(f"the exact fp32 kernel's SASS at d={d} not found once: {names}")
+        ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                         bodies[names[0]], re.M)
+        mma = sorted({op for op in ops if "MMA" in op})
+        print(f"sass fused_qkv_rope_attention_f32_kernel<{d}>: {len(ops)} instructions, "
+              f"{ops.count('FFMA')} FFMA, tensor-core instructions {mma or 'none'} "
+              f"{'FAIL' if mma or not ops.count('FFMA') else 'ok'}", flush=True)
+        if mma or not ops.count("FFMA"):
+            raise AssertionError(f"the exact fp32 kernel at d={d} uses tensor cores or no FFMA: "
+                                 f"{mma}")
 
 
-def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2, dtype=None):
-    """qkv (B, N, 3*H*64), bf16 unless ``dtype`` says otherwise; with
-    ``rope``, (N, 64) sin/cos tables of random angles (column j and j+32
+def _edge_inputs(gen, N, rope, qk_norm, B=1, H=2, dtype=None, d=64):
+    """qkv (B, N, 3*H*d), bf16 unless ``dtype`` says otherwise; with
+    ``rope``, (N, d) sin/cos tables of random angles (column j and j+d/2
     share an angle, as rotate-half RoPE has it), for any N; with
-    ``qk_norm``, (64,) scales."""
+    ``qk_norm``, (d,) scales."""
     import torch
 
-    qkv = torch.randn((B, N, 3 * H * 64), generator=gen, device="cuda").to(dtype or torch.bfloat16)
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device="cuda").to(dtype or torch.bfloat16)
     sin = cos = None
     if rope:
-        ang = 2 * math.pi * torch.rand((N, 32), generator=gen, device="cuda")
+        ang = 2 * math.pi * torch.rand((N, d // 2), generator=gen, device="cuda")
         ang = torch.cat([ang, ang], dim=-1)
         sin, cos = ang.sin(), ang.cos()
     scales = (None, None)
     if qk_norm:
-        scales = tuple(1.0 + 0.1 * torch.randn(64, generator=gen, device="cuda") for _ in range(2))
+        scales = tuple(1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda") for _ in range(2))
     return qkv, (sin, cos), scales
 
 
@@ -365,11 +402,12 @@ def _edge_cases(ns=EDGE_N):
     return cases
 
 
-def check_edges_fwd():
-    """The bf16 forward, with and without qk-norm, at every edge case, held
-    to 1e-2 of max|ref| as the bf16 arm's main shapes, on the inputs of each
-    of EDGE_SEEDS: its single sweep rounds p where the plain version does
-    not, so the margin to the gate is read over several draws."""
+def check_edges_fwd(dims=(64,)):
+    """The bf16 forward, with and without qk-norm, at every edge case and
+    head dim of ``dims``, held to 1e-2 of max|ref| as the bf16 arm's main
+    shapes, on the inputs of each of EDGE_SEEDS: its single sweep rounds p
+    where the plain version does not, so the margin to the gate is read over
+    several draws."""
     import torch
 
     from vtp_tpu_torch.ops.flash_attention import (
@@ -377,44 +415,46 @@ def check_edges_fwd():
         fused_qkv_rope_attention_reference,
     )
 
-    worst = {}
-    for seed in EDGE_SEEDS:
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        worst[seed] = (0.0, "")
-        for qk_norm in (False, True):
-            for name, N, rope, causal, n_valid in _edge_cases():
-                qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm)
-                got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
-                                               is_causal=causal)
-                torch.cuda.synchronize()
-                want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
-                                                          n_valid=n_valid, is_causal=causal)
-                err = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
-                if err / scale > worst[seed][0]:
-                    worst[seed] = (err / scale, f"{name} qk_norm={qk_norm} N={N}")
-                if not ok:
-                    print(f"kernel edge fwd seed {seed} {name} qk_norm={qk_norm} N={N} n_valid="
-                          f"{n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; limit 1e-2 "
-                          f"rel) FAIL", flush=True)
-                    raise AssertionError(f"fused attention edge case {name} N={N} disagrees")
-    print(f"kernel edge fwd bf16, with and without qk-norm, {2 * len(_edge_cases())} cases at N in "
-          f"{EDGE_N}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err of max|ref| "
-          f"(limit 1e-2) by seed: "
-          + ", ".join(f"{sd}: {w:.3e} ({case})" for sd, (w, case) in worst.items()) + " ok",
-          flush=True)
+    for d in dims:
+        worst = {}
+        for seed in EDGE_SEEDS:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            worst[seed] = (0.0, "")
+            for qk_norm in (False, True):
+                for name, N, rope, causal, n_valid in _edge_cases():
+                    qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm, d=d)
+                    got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
+                                                   is_causal=causal)
+                    torch.cuda.synchronize()
+                    want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
+                                                              n_valid=n_valid, is_causal=causal)
+                    err = (got.float() - want.float()).abs().max().item()
+                    scale = want.float().abs().max().item()
+                    ok = err <= 1e-2 * scale and torch.isfinite(got).all().item()
+                    if err / scale > worst[seed][0]:
+                        worst[seed] = (err / scale, f"{name} qk_norm={qk_norm} N={N}")
+                    if not ok:
+                        print(f"kernel edge fwd d={d} seed {seed} {name} qk_norm={qk_norm} N={N} "
+                              f"n_valid={n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; "
+                              f"limit 1e-2 rel) FAIL", flush=True)
+                        raise AssertionError(f"fused attention edge case {name} N={N} d={d} "
+                                             f"disagrees")
+        print(f"kernel edge fwd bf16 d={d}, with and without qk-norm, {2 * len(_edge_cases())} "
+              f"cases at N in {EDGE_N}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs "
+              f"err of max|ref| (limit 1e-2) by seed: "
+              + ", ".join(f"{sd}: {w:.3e} ({case})" for sd, (w, case) in worst.items()) + " ok",
+              flush=True)
 
 
-def check_edges_fp32(precision: str, ns) -> None:
+def check_edges_fp32(precision: str, ns, dims=(64,)) -> None:
     """An fp32 arm of the forward (``precision``: "float32", the exact arm,
     or "high", the bf16x3 arm) on fp32 inputs, with and without qk-norm, at
-    every edge case at N in ``ns``, on the inputs of each of EDGE_SEEDS, at
-    the fp32 arms' gates: 1e-4 abs, and 1e-2 of max|ref| where qk-norm and
-    RoPE meet (an ulp of the fp32 norm can flip a bf16 rounding of RoPE, as
-    in check_kernel). Both arms divide by the row's sum at the end, where
-    the plain version normalises p first; the bf16x3 arm also splits the
-    unnormalised p."""
+    every edge case at N in ``ns`` and head dim in ``dims``, on the inputs
+    of each of EDGE_SEEDS, at the fp32 arms' gates: 1e-4 abs, and 1e-2 of
+    max|ref| where qk-norm and RoPE meet (an ulp of the fp32 norm can flip a
+    bf16 rounding of RoPE, as in check_kernel). Both arms divide by the
+    row's sum at the end, where the plain version normalises p first; the
+    bf16x3 arm also splits the unnormalised p."""
     import torch
 
     from vtp_tpu_torch.ops.flash_attention import (
@@ -424,79 +464,83 @@ def check_edges_fp32(precision: str, ns) -> None:
     )
 
     arm = arm_name(torch.float32, precision)
-    worst = {}
-    for seed in EDGE_SEEDS:
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        worst[seed] = {"abs": (0.0, ""), "rel": (0.0, "")}
-        for qk_norm in (False, True):
-            for name, N, rope, causal, n_valid in _edge_cases(ns):
-                qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm,
-                                                         dtype=torch.float32)
-                got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
-                                               is_causal=causal, fp32_precision=precision)
-                torch.cuda.synchronize()
-                want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
-                                                          n_valid=n_valid, is_causal=causal,
-                                                          fp32_precision=precision)
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                kind = "rel" if qk_norm and rope else "abs"
-                value = err / scale if kind == "rel" else err
-                limit = 1e-2 if kind == "rel" else 1e-4
-                if value > worst[seed][kind][0]:
-                    worst[seed][kind] = (value, f"{name} qk_norm={qk_norm} N={N}")
-                if not (value <= limit and torch.isfinite(got).all().item()):
-                    print(f"kernel edge {arm} seed {seed} {name} qk_norm={qk_norm} N={N} "
-                          f"n_valid={n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; limit "
-                          f"{limit} {kind}) FAIL", flush=True)
-                    raise AssertionError(f"{arm} attention edge case {name} N={N} disagrees")
-    print(f"kernel edge {arm}, with and without qk-norm, {2 * len(_edge_cases(ns))} cases at N in "
-          f"{ns}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err (limit 1e-4) and, "
-          f"with qk-norm and RoPE, worst of max|ref| (limit 1e-2) by seed: "
-          + ", ".join(f"{sd}: {w['abs'][0]:.3e} ({w['abs'][1]}) / {w['rel'][0]:.3e} "
-                      f"({w['rel'][1]})" for sd, w in worst.items()) + " ok", flush=True)
+    for d in dims:
+        worst = {}
+        for seed in EDGE_SEEDS:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            worst[seed] = {"abs": (0.0, ""), "rel": (0.0, "")}
+            for qk_norm in (False, True):
+                for name, N, rope, causal, n_valid in _edge_cases(ns):
+                    qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm,
+                                                             dtype=torch.float32, d=d)
+                    got = fused_qkv_rope_attention(qkv, sin, cos, 2, qs, ks, n_valid=n_valid,
+                                                   is_causal=causal, fp32_precision=precision)
+                    torch.cuda.synchronize()
+                    want = fused_qkv_rope_attention_reference(qkv, sin, cos, 2, qs, ks,
+                                                              n_valid=n_valid, is_causal=causal,
+                                                              fp32_precision=precision)
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    kind = "rel" if qk_norm and rope else "abs"
+                    value = err / scale if kind == "rel" else err
+                    limit = 1e-2 if kind == "rel" else 1e-4
+                    if value > worst[seed][kind][0]:
+                        worst[seed][kind] = (value, f"{name} qk_norm={qk_norm} N={N}")
+                    if not (value <= limit and torch.isfinite(got).all().item()):
+                        print(f"kernel edge {arm} d={d} seed {seed} {name} qk_norm={qk_norm} N={N} "
+                              f"n_valid={n_valid}: max abs err {err:.3e} (max|ref| {scale:.3e}; "
+                              f"limit {limit} {kind}) FAIL", flush=True)
+                        raise AssertionError(f"{arm} attention edge case {name} N={N} d={d} "
+                                             f"disagrees")
+        print(f"kernel edge {arm} d={d}, with and without qk-norm, {2 * len(_edge_cases(ns))} "
+              f"cases at N in {ns}, each on the inputs of seeds {EDGE_SEEDS}: worst max abs err "
+              f"(limit 1e-4) and, with qk-norm and RoPE, worst of max|ref| (limit 1e-2) by seed: "
+              + ", ".join(f"{sd}: {w['abs'][0]:.3e} ({w['abs'][1]}) / {w['rel'][0]:.3e} "
+                          f"({w['rel'][1]})" for sd, w in worst.items()) + " ok", flush=True)
 
 
-def check_edges_bwd(gen, qk_norm):
-    """The backward's arm (without or with qk-norm) at every edge case:
-    d(qkv) within 1e-2 of max|ref|, dw_q and dw_k within 1e-2 relative."""
+def check_edges_bwd(gen, qk_norm, dims=(64,)):
+    """The backward's arm (without or with qk-norm) at every edge case and
+    head dim of ``dims``: d(qkv) within 1e-2 of max|ref|, dw_q and dw_k
+    within 1e-2 relative."""
     import torch
 
     from vtp_tpu_torch.ops import flash_attention as fa
 
-    worst = worst_dw = 0.0
-    for name, N, rope, causal, n_valid in _edge_cases():
-        qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm)
-        g = torch.randn((1, N, 2 * 64), generator=gen, device="cuda").bfloat16()
-        if qk_norm:
-            got = fa.fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, 2, n_valid,
-                                                          causal)
-            torch.cuda.synchronize()
-            want = fa.fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks, 2,
-                                                                     n_valid, causal)
-        else:
-            got = (fa.fused_qkv_rope_attention_bwd(qkv, g, sin, cos, 2, n_valid, causal),)
-            torch.cuda.synchronize()
-            want = (fa.fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, 2, n_valid,
-                                                               causal),)
-        err = (got[0].float() - want[0].float()).abs().max().item()
-        scale = want[0].float().abs().max().item()
-        # at N = 1 the one key takes p = 1, so ds, dq, dk and dw are exactly 0
-        dw_err = max([0.0] + [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-                              for a, b in zip(got[1:], want[1:])])
-        worst, worst_dw = max(worst, err / scale), max(worst_dw, dw_err)
-        ok = (err <= 1e-2 * scale and dw_err <= 1e-2
-              and all(torch.isfinite(t).all().item() for t in got))
-        if not ok:
-            print(f"kernel edge bwd {name} qk_norm={qk_norm} N={N} n_valid={n_valid}: d(qkv) max "
-                  f"abs err {err:.3e} (max|ref| {scale:.3e}; limit 1e-2 rel), dw max rel err "
-                  f"{dw_err:.3e} (limit 1e-2) FAIL", flush=True)
-            raise AssertionError(f"attention backward edge case {name} N={N} disagrees")
-    arm = "qk-norm arm" if qk_norm else "no-norm arm"
-    print(f"kernel edge bwd {arm}, {len(_edge_cases())} cases at N in {EDGE_N}: worst d(qkv) max "
-          f"abs err {worst:.3e} of max|ref| (limit 1e-2)"
-          + (f", worst dw rel err {worst_dw:.3e} (limit 1e-2)" if qk_norm else "") + " ok",
-          flush=True)
+    for d in dims:
+        worst = worst_dw = 0.0
+        for name, N, rope, causal, n_valid in _edge_cases():
+            qkv, (sin, cos), (qs, ks) = _edge_inputs(gen, N, rope, qk_norm, d=d)
+            g = torch.randn((1, N, 2 * d), generator=gen, device="cuda").bfloat16()
+            if qk_norm:
+                got = fa.fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, 2, n_valid,
+                                                              causal)
+                torch.cuda.synchronize()
+                want = fa.fused_qkv_rope_attention_qk_norm_bwd_reference(qkv, g, sin, cos, qs, ks,
+                                                                         2, n_valid, causal)
+            else:
+                got = (fa.fused_qkv_rope_attention_bwd(qkv, g, sin, cos, 2, n_valid, causal),)
+                torch.cuda.synchronize()
+                want = (fa.fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, 2, n_valid,
+                                                                   causal),)
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            scale = want[0].float().abs().max().item()
+            # at N = 1 the one key takes p = 1, so ds, dq, dk and dw are exactly 0
+            dw_err = max([0.0] + [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                                  for a, b in zip(got[1:], want[1:])])
+            worst, worst_dw = max(worst, err / scale), max(worst_dw, dw_err)
+            ok = (err <= 1e-2 * scale and dw_err <= 1e-2
+                  and all(torch.isfinite(t).all().item() for t in got))
+            if not ok:
+                print(f"kernel edge bwd d={d} {name} qk_norm={qk_norm} N={N} n_valid={n_valid}: "
+                      f"d(qkv) max abs err {err:.3e} (max|ref| {scale:.3e}; limit 1e-2 rel), dw max "
+                      f"rel err {dw_err:.3e} (limit 1e-2) FAIL", flush=True)
+                raise AssertionError(f"attention backward edge case {name} N={N} d={d} disagrees")
+        arm = "qk-norm arm" if qk_norm else "no-norm arm"
+        print(f"kernel edge bwd {arm} d={d}, {len(_edge_cases())} cases at N in {EDGE_N}: worst "
+              f"d(qkv) max abs err {worst:.3e} of max|ref| (limit 1e-2)"
+              + (f", worst dw rel err {worst_dw:.3e} (limit 1e-2)" if qk_norm else "") + " ok",
+              flush=True)
 
 
 def check_kernel(gen):
@@ -1245,20 +1289,21 @@ def _train_batch(gen, cfg):
     return {"image": images, "text": text, "rec_image": images, "ssl": ssl}
 
 
-def expected_train_launches(cfg):
-    """Launches per train step at remat off. Forward (bf16 arm): the trunk on
-    the CLIP images, on the rec images and in the teacher (one launch a layer
-    each), the student's two crops (two a layer), the decoder and the text
-    tower. Backward: the same without the no-grad teacher. CE: DINO
-    globals, DINO locals, iBOT."""
+def expected_train_launches(cfg, head_dim=64):
+    """Launches per train step at remat off, every attention at
+    ``head_dim``. Forward (bf16 arm): the trunk on the CLIP images, on the
+    rec images and in the teacher (one launch a layer each), the student's
+    two crops (two a layer), the decoder and the text tower. Backward: the
+    same without the no-grad teacher. CE: DINO globals, DINO locals, iBOT."""
     import torch
 
-    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME, at_head_dim
     from vtp_tpu_torch.ops.fused_ce import BWD_NAME as CE_BWD
     from vtp_tpu_torch.ops.fused_ce import FWD_NAME as CE_FWD
 
     v, d, t = cfg.vision_depth, cfg.decoder_depth, cfg.text_depth
-    return {ARM_NAME[torch.bfloat16]: 5 * v + d + t, BWD_NAME: 4 * v + d + t, CE_FWD: 3, CE_BWD: 3}
+    return {at_head_dim(ARM_NAME[torch.bfloat16], head_dim): 5 * v + d + t,
+            at_head_dim(BWD_NAME, head_dim): 4 * v + d + t, CE_FWD: 3, CE_BWD: 3}
 
 
 def run_train(gen):
@@ -1742,6 +1787,458 @@ def time_flash_kernels(gen, card, errs, counts):
     return rows
 
 
+def _hold_metrics(label, metrics, plain, limits):
+    """Each metric of ``metrics`` against ``plain``'s within its limit
+    (relative unless the name ends in "_abs"); raises on a miss."""
+    for name, limit in limits.items():
+        key = name.removesuffix("_abs")
+        got, ref = float(metrics[key]), float(plain[key])
+        diff = abs(got - ref) if name.endswith("_abs") else abs(got - ref) / abs(ref)
+        ok = diff <= limit and math.isfinite(got)
+        print(f"{label} {key:11s} kernels {got:.6f} plain {ref:.6f} "
+              f"{'abs' if name.endswith('_abs') else 'rel'} diff {diff:.3e} (limit {limit:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label} {key} disagrees with the plain-version run")
+
+
+def head_dim_vtp_config(d):
+    """VTP-L at its widths with heads of d, HEAD_DIM_DEPTH deep."""
+    import dataclasses
+
+    from vtp_tpu_torch import vtp_large
+
+    heads = HEAD_DIM_HEADS[d]
+    return dataclasses.replace(
+        vtp_large(), vision_num_heads=heads["vision"], decoder_num_heads=heads["decoder"],
+        text_num_heads=heads["text"], vision_depth=HEAD_DIM_DEPTH,
+        decoder_depth=HEAD_DIM_DEPTH, text_depth=HEAD_DIM_DEPTH)
+
+
+def run_head_dim_vtp(gen, d):
+    """Head dim d on the VTP-L path: the roundtrip at B = BATCH with the
+    exact and the "high" decode and one CLIP+SSL+rec train step (remat
+    off), each counted (every launch at d, none at 64) and held against the
+    same run on the plain versions by the gates of the full-depth runs.
+    Returns the launches of those runs."""
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, HIGH_NAME, at_head_dim
+    from vtp_tpu_torch.train.step import TrainConfig, build_train_step, init_state
+
+    cfg = head_dim_vtp_config(d)
+    model = VTPModel.init(cfg, gen, device="cuda")
+    images = torch.randn((BATCH, 3, cfg.image_size, cfg.image_size), generator=gen, device="cuda")
+    total = {}
+
+    def tally(run, want):
+        counts = launch_counts()
+        print(f"head dim {d}: {run}: kernel launches {counts} (expected {want})", flush=True)
+        if counts != want:
+            raise AssertionError(f"head dim {d} {run} launches {counts}, expected {want}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    latents = model.get_reconstruction_latents(images)
+    recon = model.get_latents_decoded_images(latents)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    tally("roundtrip", {at_head_dim(ARM_NAME[torch.bfloat16], d): cfg.vision_depth,
+                        at_head_dim(ARM_NAME[torch.float32], d): cfg.decoder_depth})
+    reset_launch_counts()
+    high = model.get_latents_decoded_images(latents, precision="high")
+    torch.cuda.synchronize()
+    tally("high decode", {at_head_dim(HIGH_NAME, d): cfg.decoder_depth})
+    with _plain_kernels():
+        ref_latents = model.get_reconstruction_latents(images)
+        ref_recon = model.get_latents_decoded_images(latents)
+        ref_high = model.get_latents_decoded_images(latents, precision="high")
+    torch.cuda.synchronize()
+    lat_err = ((latents.float() - ref_latents.float()).abs().max()
+               / ref_latents.float().abs().max()).item()
+    img_err = (recon - ref_recon).abs().max().item()
+    high_err = (high - ref_high).abs().max().item()
+    high_exact = ((high - recon).abs().max() / recon.abs().max()).item()
+    ok = (lat_err <= 5e-2 and img_err <= 1e-3 and high_err <= 1e-3 and high_exact <= 1e-3
+          and all(torch.isfinite(t).all().item() for t in (latents, recon, high)))
+    print(f"head dim {d}: roundtrip VTP-L widths, {cfg.vision_num_heads} heads of {d}, depth "
+          f"{HEAD_DIM_DEPTH}, B={BATCH} ({run_s * 1e3:.1f} ms, first call) vs plain versions: "
+          f"latents max err {lat_err:.3e} of max|ref| (limit 5e-2), images max abs err "
+          f"{img_err:.3e} (limit 1e-3); high decode vs plain {high_err:.3e} abs (limit 1e-3), vs "
+          f"the exact decode {high_exact:.3e} of max|ref| (limit 1e-3) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"head dim {d} roundtrip disagrees with the plain-version run")
+    del model, latents, recon, high, ref_latents, ref_recon, ref_high
+
+    tcfg = TrainConfig(warmup_steps=0, total_steps=1000, remat=False)
+    state = init_state(cfg, tcfg, gen, device="cuda")
+    batch = _train_batch(gen, cfg)
+    step = build_train_step(cfg, tcfg)
+    plain_state = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    tally("train step", expected_train_launches(cfg, d))
+    with _plain_kernels():
+        _, plain = step(plain_state, batch)
+    torch.cuda.synchronize()
+    _hold_metrics(f"head dim {d}: train", metrics,
+                  plain, {name: 2e-2 if name == "grad_norm" else 5e-3 for name in metrics})
+    del state, plain_state, batch, step
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_head_dim_dit(gen, d, latents):
+    """Head dim d on the DiT path: DiT-XL/1 at 1152 wide in
+    HEAD_DIM_HEADS[d]["dit"] heads (a free choice of ``make_dit_config``),
+    HEAD_DIM_DEPTH deep, adaLN-zero leaves re-drawn; one train step at
+    B = DIT_BATCH (qk-norm forward and backward, remat on) and a
+    HEAD_DIM_SAMPLE_STEPS-step sample of SAMPLE_BATCH latents, each counted
+    and held against the same run on the plain versions (losses 5e-3 rel,
+    grad norm 2e-2 rel, latents 5e-2 of max|ref|). Returns the launches."""
+    import torch
+
+    from vtp_tpu_torch.dit.model import make_dit_config
+    from vtp_tpu_torch.dit.sample import make_sampler
+    from vtp_tpu_torch.dit.train import DiTTrainConfig, build_dit_train_step, init_dit_state
+    from vtp_tpu_torch.models.initializers import normal_
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import NORM_BWD_NAME, NORM_NAME, at_head_dim
+
+    cfg = make_dit_config("DiT-XL/1", num_heads=HEAD_DIM_HEADS[d]["dit"], depth=HEAD_DIM_DEPTH)
+    tcfg = DiTTrainConfig(total_steps=1000)
+    state = init_dit_state(cfg, tcfg, gen, device="cuda")
+    model = state.model
+    with torch.no_grad():
+        for lin in [b.ada for b in model.blocks] + [model.final.ada, model.final.proj]:
+            normal_(lin.weight, 0.02, gen)
+            normal_(lin.bias, 0.02, gen)
+        state.ema.load_state_dict(model.state_dict())
+    labels = torch.randint(0, cfg.num_classes, (DIT_BATCH,), generator=gen, device="cuda")
+    draws = {"drop": torch.rand(DIT_BATCH, generator=gen, device="cuda") < tcfg.class_dropout_prob,
+             "t": torch.sigmoid(tcfg.lognorm_mu + tcfg.lognorm_sigma
+                                * torch.randn(DIT_BATCH, generator=gen, device="cuda")),
+             "x0": torch.randn(latents.shape, generator=gen, device="cuda")}
+    step = build_dit_train_step(cfg, tcfg)
+    plain_state = copy.deepcopy(state)
+    total = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    state, metrics = step(state, latents, labels, gen, draws)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {at_head_dim(NORM_NAME, d): 2 * cfg.depth, at_head_dim(NORM_BWD_NAME, d): cfg.depth}
+    print(f"head dim {d}: dit train step ({cfg.num_heads} heads of {d}, depth {cfg.depth}, "
+          f"B={DIT_BATCH}): kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"head dim {d} DiT train step launches {counts}, expected {want}")
+    total.update(counts)
+    with _plain_kernels():
+        _, plain = step(plain_state, latents, labels, gen, draws)
+    torch.cuda.synchronize()
+    _hold_metrics(f"head dim {d}: dit train", metrics,
+                  plain, {name: 2e-2 if name == "grad_norm" else 5e-3 for name in metrics})
+    del plain_state
+
+    sample_labels = torch.arange(SAMPLE_BATCH, device="cuda") * (cfg.num_classes // SAMPLE_BATCH)
+    noise = torch.randn((SAMPLE_BATCH, cfg.in_channels, cfg.input_size, cfg.input_size),
+                        generator=gen, device="cuda")
+    short = make_sampler(cfg, num_steps=HEAD_DIM_SAMPLE_STEPS)
+    reset_launch_counts()
+    z = short(state.ema, sample_labels, noise=noise)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {at_head_dim(NORM_NAME, d): HEAD_DIM_SAMPLE_STEPS * cfg.depth}
+    if counts != want:
+        raise AssertionError(f"head dim {d} sample launches {counts}, expected {want}")
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    with _plain_kernels():
+        z_ref = short(state.ema, sample_labels, noise=noise)
+    torch.cuda.synchronize()
+    err = ((z - z_ref).abs().max() / z_ref.abs().max()).item()
+    ok = err <= 5e-2 and torch.isfinite(z).all().item()
+    print(f"head dim {d}: {HEAD_DIM_SAMPLE_STEPS}-step sample, kernel launches {counts}; latents "
+          f"vs plain versions max err {err:.3e} of max|ref| (limit 5e-2) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"head dim {d} sampler latents disagree with the plain-version run")
+    del state, step
+    torch.cuda.empty_cache()
+    return total
+
+
+def check_head_dim_edges():
+    """Every forward arm and both backward arms at head dims 32 and 128 on
+    the edge cases (check_edges_fwd, check_edges_fp32, check_edges_bwd),
+    each on its own seeded generator."""
+    import torch
+
+    dims = (32, 128)
+    check_edges_fwd(dims)
+    check_edges_fp32("float32", tuple(sorted(EDGE_N + EXACT_EDGE_N)), dims)
+    check_edges_fp32("high", EDGE_N, dims)
+    check_edges_bwd(torch.Generator(device="cuda").manual_seed(SEED + 32), False, dims)
+    check_edges_bwd(torch.Generator(device="cuda").manual_seed(SEED + 128), True, dims)
+
+
+def time_head_dim_kernels(gen, card, counts):
+    """Every forward arm at (BATCH, 257 bf16 / 256 fp32, 1024 wide) and both
+    backward arms at (2 BATCH, 257, 1024 wide), at head dims 32 and 128,
+    with RoPE on a 16 x 16 grid: held against their plain versions at the
+    arms' gates (bf16 1e-2 of max|ref|, fp32 1e-4 abs, dw 1e-2 rel), then
+    timed beside the plain version, SDPA on the same pre-normed, pre-roped
+    operands (fwd+bwd for the backward) and the bound. One JSON row each."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtp_tpu_torch.ops import flash_attention as fa
+    from vtp_tpu_torch.ops.norms import rms_norm
+    from vtp_tpu_torch.ops.rope import rope_apply
+
+    bw, bf16_peak, fp32_peak = next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+    bf16, fp32 = torch.bfloat16, torch.float32
+    rows = []
+    for d in (32, 128):
+        H = 1024 // d
+        # arm, dtype, N, prefix, fp32 precision, qk-norm, passes, peak of the passes
+        fwd = (("bf16", bf16, 257, 1, "float32", False, 1, bf16_peak),
+               ("bf16_qk_norm", bf16, 257, 1, "float32", True, 1, bf16_peak),
+               ("fp32", fp32, 256, 0, "float32", False, 1, fp32_peak),
+               ("fp32_bf16x3", fp32, 256, 0, "high", False, 3, bf16_peak))
+        for key, dt, N, prefix, prec, qk_norm, passes, peak in fwd:
+            qkv, (sin, cos), (qs, ks) = _attention_inputs(gen, BATCH, N, H, dt, 16, prefix,
+                                                          qk_norm, d=d)
+            kern = lambda: fa.fused_qkv_rope_attention(qkv, sin, cos, H, qs, ks,
+                                                       fp32_precision=prec)
+            plain = lambda: fa.fused_qkv_rope_attention_reference(qkv, sin, cos, H, qs, ks,
+                                                                  fp32_precision=prec)
+            with torch.no_grad():
+                got, want = kern(), plain()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            ok = (err <= 1e-2 * scale if dt is bf16 else err <= 1e-4) and torch.isfinite(got).all().item()
+            name = fa.arm_name(dt, prec, qk_norm, d)
+            print(f"kernel {name} B={BATCH} N={N} H={H} d={d}: max abs err {err:.3e} (max|ref| "
+                  f"{scale:.3e}; limit {'1e-2 rel' if dt is bf16 else '1e-4 abs'}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            q, k, v = qkv.reshape(BATCH, N, 3, H, d).unbind(2)
+            if qk_norm:
+                q, k = rms_norm(q, qs).to(dt), rms_norm(k, ks).to(dt)
+            s, c = sin[None, :, None, :], cos[None, :, None, :]
+            q = rope_apply(q.to(bf16), s, c).to(dt).transpose(1, 2).contiguous()
+            k = rope_apply(k.to(bf16), s, c).to(dt).transpose(1, 2).contiguous()
+            v = v.transpose(1, 2).contiguous()
+            with torch.no_grad():
+                tm = _timings(kern, plain, lambda: F.scaled_dot_product_attention(q, k, v))
+            item = torch.finfo(dt).bits // 8
+            nbytes = BATCH * N * 4 * H * d * item
+            flops = passes * 4 * BATCH * H * N * N * d
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+            rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                         "launches": counts.get(name, 0), "max_abs_err": err, **tm,
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            print(f"timing {name} B={BATCH} N={N} H={H} d={d} on {card}: {_fmt_times(tm)}"
+                  f"{' (no norm)' if qk_norm else ''}, bound {max(t_bytes, t_ops):.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        B, N = 2 * BATCH, 257
+        for qk_norm in (False, True):
+            qkv, (sin, cos), (qs, ks) = _attention_inputs(gen, B, N, H, bf16, 16, 1, qk_norm, d=d)
+            g = torch.randn((B, N, H * d), generator=gen, device="cuda").bfloat16()
+            if qk_norm:
+                kern = lambda: fa.fused_qkv_rope_attention_qk_norm_bwd(qkv, g, sin, cos, qs, ks, H)
+                plain = lambda: fa.fused_qkv_rope_attention_qk_norm_bwd_reference(
+                    qkv, g, sin, cos, qs, ks, H)
+            else:
+                kern = lambda: (fa.fused_qkv_rope_attention_bwd(qkv, g, sin, cos, H),)
+                plain = lambda: (fa.fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, H),)
+            got, want = kern(), plain()
+            err = (got[0].float() - want[0].float()).abs().max().item()
+            scale = want[0].float().abs().max().item()
+            dw_err = max([0.0] + [(a - b).abs().max().item() / b.abs().max().item()
+                                  for a, b in zip(got[1:], want[1:])])
+            ok = (err <= 1e-2 * scale and dw_err <= 1e-2
+                  and all(torch.isfinite(t).all().item() for t in got))
+            name = fa.at_head_dim(fa.NORM_BWD_NAME if qk_norm else fa.BWD_NAME, d)
+            print(f"kernel {name} B={B} N={N} H={H} d={d}: d(qkv) max abs err {err:.3e} (max|ref| "
+                  f"{scale:.3e}; limit 1e-2 rel), dw max rel err {dw_err:.3e} (limit 1e-2) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            q, k, v = qkv.reshape(B, N, 3, H, d).unbind(2)
+            if qk_norm:
+                q, k = rms_norm(q, qs).bfloat16(), rms_norm(k, ks).bfloat16()
+            s, c = sin[None, :, None, :], cos[None, :, None, :]
+            q, k = rope_apply(q, s, c), rope_apply(k, s, c)
+            q, k, v = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            gt = g.reshape(B, N, H, d).transpose(1, 2).contiguous()
+
+            def lib():
+                out = F.scaled_dot_product_attention(q, k, v)
+                torch.autograd.grad(out, (q, k, v), gt)
+
+            tm = _timings(kern, plain, lib)
+            nbytes = 7 * B * N * H * d * 2
+            flops = 10 * B * H * N * N * d
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+            rows.append({"name": name, "route": "cuda", "source": BWD_SOURCE,
+                         "replaces": BWD_REPLACES, "launches": counts.get(name, 0),
+                         "max_abs_err": err, **tm, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            print(f"timing {name} B={B} N={N} H={H} d={d} on {card}: "
+                  f"{_fmt_times(tm, 'sdpa fwd+bwd')}{' (no norm)' if qk_norm else ''}, bound "
+                  f"{max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+                  flush=True)
+    return rows
+
+
+def _eval_batches(gen, n, batch, size):
+    """n seeded images (uniform pixels, ImageNet-normalised) in batches, as
+    (images, labels) pairs on the card: an in-memory loader."""
+    import torch
+
+    from vtp_tpu_torch.utils.image import normalize_nchw
+
+    out = []
+    for _ in range(n // batch):
+        x = torch.rand((batch, 3, size, size), generator=gen, device="cuda")
+        labels = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+        out.append((normalize_nchw(x), labels))
+    return out
+
+
+def run_recon_eval(gen, model):
+    """The reconstruction eval: ``evaluate_reconstruction`` on the VTP-L
+    model over EVAL_IMAGES seeded 256^2 images in batches of EVAL_BATCH (an
+    in-memory loader; no PIL, no save_dir), LPIPS and Inception from seeded
+    torch-layout state dicts through the port's converters; counted (every
+    batch's encode and exact decode) and held against the same eval on the
+    plain versions. Tolerances from the roundtrip's latents gate (5e-2 of
+    max|ref|), which the plain run's re-encode differs by: each metric a
+    smooth function of the images, held within 5e-2 relative, PSNR within
+    0.5 dB (20 log10 of the error changes by 8.7 dB x a relative change of
+    5e-2) and SSIM within 5e-2 abs. Returns the launches."""
+    import torch
+
+    from vtp_tpu_torch.eval.reconstruction import evaluate_reconstruction
+    from vtp_tpu_torch.metrics import inception, lpips
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+
+    cfg = model.config
+    loader = _eval_batches(gen, EVAL_IMAGES, EVAL_BATCH, cfg.image_size)
+    metric = lpips.LPIPS(state_dict=lpips.random_state_dict(SEED), device="cuda")
+    params = inception.convert_inception_state_dict(inception.random_state_dict(SEED), device="cuda")
+    feature_fn = lambda x: inception.inception_features(params, x)
+    run = lambda: evaluate_reconstruction(model, loader, lpips_metric=metric,
+                                          inception_feature_fn=feature_fn)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_batches = EVAL_IMAGES // EVAL_BATCH
+    want = {ARM_NAME[torch.bfloat16]: cfg.vision_depth * n_batches,
+            ARM_NAME[torch.float32]: cfg.decoder_depth * n_batches}
+    print(f"reconstruction eval VTP-L, {res['num_samples']} images 256^2 in batches of "
+          f"{EVAL_BATCH}: psnr {res['psnr']:.4f} dB, ssim {res['ssim']:.6f}, lpips "
+          f"{res['lpips']:.6f}, rfid {res['rfid']:.4f}, {eval_s:.2f} s (host clock, one run, "
+          f"seeded random weights and images); kernel launches {counts} (expected {want})",
+          flush=True)
+    if counts != want or res["num_samples"] != EVAL_IMAGES:
+        raise AssertionError(f"reconstruction eval launches {counts}, expected {want}")
+    with _plain_kernels():
+        plain = run()
+    _hold_metrics("reconstruction eval", res, plain,
+                  {"psnr_abs": 0.5, "ssim_abs": 5e-2, "lpips": 5e-2, "rfid": 5e-2})
+    return counts
+
+
+def run_zero_shot(gen, model):
+    """The zero-shot eval: a synthetic merges file (``write_merges_file`` over
+    the prompts) in a temporary directory and a ``SimpleTokenizer`` on it;
+    ``build_zero_shot_classifier`` over every classname with ZS_TEMPLATES
+    templates on the VTP-L text tower (causal fused launches counted); then
+    ZS_IMAGES seeded images scored (logits 100 x feature @ classifier, top-1
+    and top-5 counts by ``evaluate_zero_shot``). The classifier and the
+    logits are held against the same on the plain versions within 5e-2 of
+    max|ref| (the bf16 features' gate). Returns the launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vtp_tpu_torch.eval.zero_shot import (
+        build_zero_shot_classifier,
+        evaluate_zero_shot,
+        load_imagenet_classnames,
+        load_openai_templates,
+    )
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+    from vtp_tpu_torch.tokenizers.bpe import SimpleTokenizer, write_merges_file
+
+    cfg = model.config
+    classnames, templates = load_imagenet_classnames(), load_openai_templates()[:ZS_TEMPLATES]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "merges.txt.gz")
+        n_merges = write_merges_file(path, [t.format(c) for c in classnames for t in templates])
+        tokenizer = SimpleTokenizer(path, context_length=cfg.text_context_length)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    classifier = build_zero_shot_classifier(model, tokenizer, classnames, templates)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = launch_counts()
+    chunks = -(-len(classnames) // 10)
+    want = {ARM_NAME[torch.bfloat16]: cfg.text_depth * chunks}
+    print(f"zero-shot: {n_merges} synthetic merges, vocab {tokenizer.vocab_size}; classifier "
+          f"{tuple(classifier.shape)} over {len(classnames)} classes x {len(templates)} templates "
+          f"in {build_s:.2f} s (host clock); kernel launches {counts} (expected {want})",
+          flush=True)
+    if counts != want or tuple(classifier.shape) != (cfg.text_embed_dim, len(classnames)):
+        raise AssertionError(f"zero-shot classifier launches {counts}, expected {want}")
+    batches = _eval_batches(gen, ZS_IMAGES, ZS_BATCH, cfg.image_size)
+    reset_launch_counts()
+    top1, top5 = evaluate_zero_shot(model, classifier, batches)
+    torch.cuda.synchronize()
+    eval_counts = launch_counts()
+    want = {ARM_NAME[torch.bfloat16]: cfg.vision_depth * len(batches)}
+    if eval_counts != want:
+        raise AssertionError(f"zero-shot eval launches {eval_counts}, expected {want}")
+    for name, n in eval_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    images = torch.cat([x for x, _ in batches])
+    logits = 100.0 * model.get_clip_image_feature(images).float() @ classifier
+    with _plain_kernels():
+        plain_classifier = build_zero_shot_classifier(model, tokenizer, classnames, templates)
+        plain_logits = 100.0 * model.get_clip_image_feature(images).float() @ plain_classifier
+    torch.cuda.synchronize()
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in ((classifier, plain_classifier), (logits, plain_logits))]
+    ok = max(errs) <= 5e-2 and torch.isfinite(logits).all().item()
+    print(f"zero-shot: {ZS_IMAGES} images, top-1 {top1:.2f}% top-5 {top5:.2f}% (random weights); "
+          f"classifier vs plain versions max err {errs[0]:.3e} of max|ref|, logits {errs[1]:.3e} "
+          f"(limit 5e-2) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the zero-shot classifier or logits disagree with the plain run")
+    return counts
+
+
 def profile_run(label: str, fn) -> None:
     """Phase 6 (--profile): device time of one call of ``fn`` by kernel, by
     kind of kernel, and the device's idle share of the wall time."""
@@ -1779,6 +2276,7 @@ def profile_run(label: str, fn) -> None:
 
 
 def main() -> int:
+    start = time.perf_counter()
     timer = threading.Timer(WATCHDOG_S, _watchdog)
     timer.daemon = True
     timer.start()
@@ -1845,6 +2343,10 @@ def main() -> int:
     text_counts = run_text(gen, model)
     _set_phase("off-gate head dim 72")
     run_off_gate(gen)
+    _set_phase("reconstruction eval")
+    eval_counts = run_recon_eval(gen, model)
+    _set_phase("zero-shot eval")
+    zs_counts = run_zero_shot(gen, model)
     del images
     torch.cuda.empty_cache()
     _set_phase("dit latents")
@@ -1889,12 +2391,25 @@ def main() -> int:
     del state, tokenizer
     torch.cuda.empty_cache()
 
+    _set_phase("head dims 32 and 128")
+    t0 = time.perf_counter()
+    check_head_dim_edges()
+    head_dim_counts = []
+    for d in (32, 128):
+        head_dim_counts.append(run_head_dim_vtp(gen, d))
+        head_dim_counts.append(run_head_dim_dit(gen, d, latents))
+    print(f"head dims 32 and 128: edges and runs in {time.perf_counter() - t0:.1f} s", flush=True)
+    del latents
+    torch.cuda.empty_cache()
+
     # launches: each arm's count summed over the main paths' runs (one
     # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
-    # one non-causal text call, one train step, one DiT train step, one
-    # 250-step sample)
-    for run in (high_counts, serve_counts, hm_counts, text_counts, train_counts, dit_counts,
-                sample_counts):
+    # one non-causal text call, the reconstruction and zero-shot evals, one
+    # train step, one DiT train step, one 250-step sample, and at head dims
+    # 32 and 128 one roundtrip, high decode, train step, DiT train step and
+    # 4-step sample each)
+    for run in (high_counts, serve_counts, hm_counts, text_counts, eval_counts, zs_counts,
+                train_counts, dit_counts, sample_counts, *head_dim_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     _set_phase("timing")
@@ -1902,8 +2417,10 @@ def main() -> int:
     rows += time_train_kernels(gen, card_line, errs, counts)
     rows += time_dit_kernels(gen, card_line, errs, counts)
     rows += time_flash_kernels(gen, card_line, errs, counts)
+    rows += time_head_dim_kernels(gen, card_line, counts)
 
     kind = torch.cuda.get_device_name(0)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

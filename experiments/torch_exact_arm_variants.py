@@ -30,19 +30,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SRC = os.path.join(ROOT, "vtp_tpu_torch", "csrc")
-SCORES = "    scores_f32(s, q, s_k + st * kF32Tile + cg * kStride);\n"
-PV = "    pv_f32(o, p_rows + rg * kPRow, s_v + st * kF32Tile + 4 * cg);\n"
+SCORES = "    scores_f32<D>(s, q, s_k + st * kKT + cg * kS);\n"
+PV = "    pv_f32<D>(o, p_rows + rg * kPR, s_v + st * kKT + 4 * cg);\n"
 EXP = "        const float p = expf(s[r][e] - base);  // 0 where masked; stays fp32\n"
 BARRIER = "    __syncthreads();  // publishes step i + 1's tiles; frees stage i and the P rows\n"
-PROLOGUE = """    if (next) {
-      prologue_f32_tile(s_k + ((i + 1) % kF32Stages) * kF32Tile, (i + 1) * kTile, N,
-                        norm ? s_w + kHeadDim : nullptr, tab, rope);
+PROLOGUE = """    if (next && k_owner) {
+      prologue_f32_tile<D>(s_k + ((i + 1) % kF32Stages) * kKT, (i + 1) * kKeys, N,
+                           norm ? s_w + D : nullptr, tab, rope);
     }
 """
-COPY = "    if (i < n_kt) {\n      const int st = i % kF32Stages;\n      load_f32_tile_async(s_k"
+COPY = "    if (i < n_kt) {\n      const int st = i % kF32Stages;\n      if constexpr (kKeys == kTile) {"
 ROPE_PAIRS = """        const int i = 8 * part + 2 * e;
         const __nv_bfloat162 a = __floats2bfloat162_rn(x[i], x[i + 1]);
-        const __nv_bfloat162 b = __floats2bfloat162_rn(x[16 + i], x[17 + i]);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(x[kQ + i], x[kQ + 1 + i]);
         const float2 ac = __bfloat1622float2(__hmul2(a, ca[e]));
         const float2 bs = __bfloat1622float2(__hmul2(__hneg2(b), sa[e]));
         const float2 bc = __bfloat1622float2(__hmul2(b, cb[e]));
@@ -51,8 +51,8 @@ ROPE_PAIRS = """        const int i = 8 * part + 2 * e;
         const float2 rb = __bfloat1622float2(__floats2bfloat162_rn(bc.x + as.x, bc.y + as.y));
         x[i] = ra.x;
         x[i + 1] = ra.y;
-        x[16 + i] = rb.x;
-        x[17 + i] = rb.y;
+        x[kQ + i] = rb.x;
+        x[kQ + 1 + i] = rb.y;
 """
 # RoPE one fp32 value at a time, each rounding a scalar bf16 round trip
 ROPE_SCALAR = """        for (int h = 0; h < 2; ++h) {
@@ -61,17 +61,17 @@ ROPE_SCALAR = """        for (int h = 0; h < 2; ++h) {
           const float s_a = h ? __high2float(sa[e]) : __low2float(sa[e]);
           const float c_b = h ? __high2float(cb[e]) : __low2float(cb[e]);
           const float s_b = h ? __high2float(sb[e]) : __low2float(sb[e]);
-          const float lo = bf16_round(x[i]), hi = bf16_round(x[16 + i]);
+          const float lo = bf16_round(x[i]), hi = bf16_round(x[kQ + i]);
           x[i] = bf16_round(bf16_round(lo * c_a) + bf16_round(-hi * s_a));
-          x[16 + i] = bf16_round(bf16_round(hi * c_b) + bf16_round(lo * s_b));
+          x[kQ + i] = bf16_round(bf16_round(hi * c_b) + bf16_round(lo * s_b));
         }
 """
-MASK_SKIP = """    if (causal || (i + 1) * kTile > n_valid) {"""
+MASK_SKIP = """    if (causal || (i + 1) * kKeys > n_valid) {"""
 MASK_ELSE = """    } else {  // every key of the tile is valid for every row
 #pragma unroll
       for (int r = 0; r < kF32Rows; ++r) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) s[r][e] *= 0.125f;
+        for (int e = 0; e < kKE; ++e) s[r][e] *= kScaleOf<D>;
       }
     }
 """
@@ -84,7 +84,7 @@ VARIANTS = {
     "mask_always": ([(MASK_SKIP, "    {"), (MASK_ELSE, "    }\n")], True),
     "rows_8": ([("constexpr int kF32Rows = 4;", "constexpr int kF32Rows = 8;")], True),
     "drop_scores": ([(SCORES, "    for (int r = 0; r < kF32Rows; ++r)\n"
-                               "      for (int e = 0; e < 8; ++e) s[r][e] = 0.01f * (e + r);\n")],
+                               "      for (int e = 0; e < kKE; ++e) s[r][e] = 0.01f * (e + r);\n")],
                     False),
     "drop_pv": ([(PV, "")], False),
     "drop_exp": ([(EXP, "        const float p = s[r][e] - base;\n")], False),
@@ -119,11 +119,11 @@ def build(work: str):
             raise RuntimeError(f"variant {name} failed to build:\n{err}")
         lines = err.splitlines()
         at = next(i for i, line in enumerate(lines)
-                  if "Compiling entry function" in line and "f32_kernel" in line)
+                  if "Compiling entry function" in line and "f32_kernelILi64E" in line)
         report = " ".join(line.split(":", 1)[-1].strip() for line in lines[at + 2:at + 4])
         fn = ctypes.CDLL(os.path.join(work, name, "lib.so")).vtp_fused_qkv_rope_attention_f32
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         libs[name] = (fn, report)
     return libs
 
@@ -136,7 +136,7 @@ def call(fn, qkv, sin, cos, q_scale, k_scale, heads, n_valid=0, causal=False):
     ptr = lambda t: None if t is None else t.data_ptr()
     if sin is not None:
         sin, cos = sin.to(torch.bfloat16).contiguous(), cos.to(torch.bfloat16).contiguous()
-    rc = fn(ptr(qkv), ptr(sin), ptr(cos), ptr(q_scale), ptr(k_scale), ptr(out), B, N, heads,
+    rc = fn(ptr(qkv), ptr(sin), ptr(cos), ptr(q_scale), ptr(k_scale), ptr(out), B, N, heads, 64,
             n_valid or N, int(causal), torch.cuda.current_device(),
             torch.cuda.current_stream().cuda_stream)
     if rc:

@@ -53,7 +53,15 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.convert.from_torch", "vtp_tpu_torch.convert.to_torch",
                 "vtp_tpu_torch.convert.safetensors_io", "vtp_tpu_torch.checkpoint",
                 "vtp_tpu_torch.parallel", "vtp_tpu_torch.parallel.sharding",
-                "vtp_tpu_torch.ops.attention"):
+                "vtp_tpu_torch.ops.attention", "vtp_tpu_torch.utils.image",
+                "vtp_tpu_torch.data", "vtp_tpu_torch.data.imagefolder", "vtp_tpu_torch.data.loader",
+                "vtp_tpu_torch.metrics", "vtp_tpu_torch.metrics.psnr", "vtp_tpu_torch.metrics.ssim",
+                "vtp_tpu_torch.metrics.fid", "vtp_tpu_torch.metrics.inception",
+                "vtp_tpu_torch.metrics.lpips", "vtp_tpu_torch.eval",
+                "vtp_tpu_torch.eval.reconstruction", "vtp_tpu_torch.eval.zero_shot",
+                "vtp_tpu_torch.tokenizers", "vtp_tpu_torch.tokenizers.bpe",
+                "vtp_tpu_torch.tools.compute_fid", "vtp_tpu_torch.tools.eval_reconstruction",
+                "vtp_tpu_torch.tools.eval_zero_shot"):
         assert mod in imported
 
 

@@ -2,9 +2,11 @@
 // and bf16 rounding, used by all of them (the tensor-core kernels add
 // tensor_core.cuh), and the bf16x3 split.
 //
-// The backward's epilogues (fused_attention_bwd.cu) stage fp32 tiles of 64
-// token rows in shared memory, kStride floats a row, four threads a row;
-// the fused forward's fp32 arms keep their tiles at the same row stride.
+// Every kernel is a template on the head dim D (32, 64 or 128). The
+// backward's epilogues (fused_attention_bwd.cu) stage fp32 tiles of 64
+// token rows in shared memory, kStrideOf<D> floats a row, four threads a
+// row; the fused forward's fp32 arms keep their tiles at the same row
+// stride.
 
 #pragma once
 
@@ -15,9 +17,16 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kTile = 64;             // query rows per block, key rows per tile
-constexpr int kStride = kHeadDim + 4; // padded fp32 row in shared memory, float4-aligned
+constexpr int kTile = 64;  // query rows per block, key rows per tile
+// Padded fp32 row of head dim D in shared memory: 36, 68 or 132 floats,
+// odd multiples of 16 bytes, so eight rows read at once fall in eight
+// distinct groups of four banks.
+template <int D>
+constexpr int kStrideOf = D + 4;
+// The softmax scale D^-1/2, as the plain version's fp32 constant.
+template <int D>
+constexpr float kScaleOf = D == 32 ? 0.17677669529663688f
+                                   : (D == 64 ? 0.125f : 0.08838834764831845f);
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

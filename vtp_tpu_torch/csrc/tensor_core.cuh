@@ -7,8 +7,8 @@
 //
 // Layout: a block of four warps covers a tile of 64 token rows, warp w the
 // rows [16w, 16w+16). A tile is 64 rows of D bf16 in shared memory (the
-// head dim D is a template parameter, 64 by default; the strided kernel
-// takes 32, 64 and 128), each row padded to kRowOf<D> = D + 8 elements:
+// head dim D, 32, 64 or 128, is a template parameter of every kernel),
+// each row padded to kRowOf<D> = D + 8 elements:
 // 80, 144 or 272 bytes, odd multiples of 16, so the eight 16-byte rows one
 // ldmatrix phase reads fall in eight distinct groups of four banks.
 // load_a_rows takes the row stride as a second parameter, for the bf16x3
@@ -29,9 +29,10 @@ constexpr int kWarps = 4;               // warps a block, 16 rows of the tile ea
 constexpr int kTcThreads = 32 * kWarps;
 template <int D>
 constexpr int kRowOf = D + 8;           // padded bf16 row of a tile of head dim D
-constexpr int kRowB = kRowOf<kHeadDim>;
-constexpr int kTileB = kTile * kRowB;   // bf16 elements of one tile
-constexpr size_t kTileBytes = kTileB * sizeof(bf16);
+template <int D>
+constexpr int kTileOf = kTile * kRowOf<D>;  // bf16 elements of one tile
+template <int D>
+constexpr size_t kTileBytesOf = kTileOf<D> * sizeof(bf16);
 // Streamed tiles go through a ring of three stages: the copy of step i + 2
 // is issued at step i, and step i + 1's tile is roped at the end of step i
 // while other warps still multiply, so a step takes one barrier.
@@ -73,7 +74,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // [D/4 f, D/4 (f+1)) and D/2 + the same (at D = 64: chunks 2f, 2f+1, 4+2f,
 // 5+2f), so the rotate-half pairs (j, j + D/2) stay in one thread and the
 // prologue needs only the thread's own cp.async wait, no barrier.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void load_tile_async(bf16* __restrict__ dst,
                                                 const bf16* __restrict__ src,
                                                 size_t row_stride, int n0, int N) {
@@ -123,95 +124,131 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The RoPE table rows that one thread's prologue_tile needs: its columns
-// of sin and cos for token row n, fetched ahead of the tile they rope.
+// The 16-byte chunk of a RoPE table row that part i of one thread's
+// columns reads (load_tile_async's map): i < D/32 in the row's first half,
+// the rest in its second.
+template <int D>
+__device__ __forceinline__ int rope_chunk(int i, int f) {
+  constexpr int kPer = D / 32;
+  return (i < kPer ? kPer * f : D / 16 + kPer * f) + i % kPer;
+}
+
+// The RoPE table rows that one thread's prologue needs: its columns of sin
+// and cos for token row n. At D <= 64 they are fetched into registers ahead
+// of the tile they rope; at D = 128 (64 more registers beside accumulators
+// twice as wide) the row's table pointers are kept and each part is read
+// from global memory (L2) as it is roped.
+template <int D, bool kHeld = (D <= 64)>
 struct RopeRow {
-  uint4 s[4], c[4];
+  uint4 s[D / 16], c[D / 16];
+  __device__ __forceinline__ uint4 sin(int i) const { return s[i]; }
+  __device__ __forceinline__ uint4 cos(int i) const { return c[i]; }
 };
 
-__device__ __forceinline__ void rope_fetch(RopeRow& t, const bf16* __restrict__ sin_t,
+template <int D>
+struct RopeRow<D, false> {
+  const uint4* sr;
+  const uint4* cr;
+  int f;
+  __device__ __forceinline__ uint4 sin(int i) const { return sr[rope_chunk<D>(i, f)]; }
+  __device__ __forceinline__ uint4 cos(int i) const { return cr[rope_chunk<D>(i, f)]; }
+};
+
+template <int D>
+__device__ __forceinline__ void rope_fetch(RopeRow<D>& t, const bf16* __restrict__ sin_t,
                                            const bf16* __restrict__ cos_t, int n0, int N) {
   const int n = n0 + (threadIdx.x >> 1), f = threadIdx.x & 1;
-  if (sin_t == nullptr || n >= N) return;
-  const uint4* sr = reinterpret_cast<const uint4*>(sin_t + static_cast<size_t>(n) * kHeadDim);
-  const uint4* cr = reinterpret_cast<const uint4*>(cos_t + static_cast<size_t>(n) * kHeadDim);
+  if constexpr (D <= 64) {
+    if (sin_t == nullptr || n >= N) return;
+    const uint4* sr = reinterpret_cast<const uint4*>(sin_t + static_cast<size_t>(n) * D);
+    const uint4* cr = reinterpret_cast<const uint4*>(cos_t + static_cast<size_t>(n) * D);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int chunk = (i < 2 ? 2 * f : 4 + 2 * f) + (i & 1);
-    t.s[i] = sr[chunk];
-    t.c[i] = cr[chunk];
+    for (int i = 0; i < D / 16; ++i) {
+      const int chunk = rope_chunk<D>(i, f);
+      t.s[i] = sr[chunk];
+      t.c[i] = cr[chunk];
+    }
+  } else {
+    const bool roped = sin_t != nullptr && n < N;
+    const size_t at = roped ? static_cast<size_t>(n) * D : 0;
+    t.sr = roped ? reinterpret_cast<const uint4*>(sin_t + at) : nullptr;
+    t.cr = roped ? reinterpret_cast<const uint4*>(cos_t + at) : nullptr;
+    t.f = f;
   }
 }
 
 // The bf16 prologue (qk-RMSNorm, RoPE) of the fused forward, in place on a
 // bf16 tile of token rows [n0, n0+64), two threads a row: half f of row
-// threadIdx.x/2 owns columns [16f, 16f+16) and [32+16f, 32+16f+16) (the
-// chunks load_tile_async gave it), so the rotate-half pairs (j, j+32) stay
-// inside one thread and a row's mean of squares is one shuffle. `w` (the
-// (64,) fp32 RMSNorm scales, or null) and the bf16 (N, 64) sin/cos tables
-// (or null); the rounding points are the plain version's (fused_attention.cu's
-// note): bf16 after the normalisation and again after the scale, and
-// RoPE's as the fused forward's note gives them. The table
-// rows come from `pre` (rope_fetch, ahead of the tile) or, when it is null,
-// from global memory as each part is roped. Rows at or past N are zeros and
-// stay zeros. Columns go in bf16 pairs, eight pairs at a time (few
-// registers live beside the caller's accumulators): a product of two bf16
-// values is exact in fp32, so the packed bf16 multiply rounds it once, as
-// bf16(x * cos) does; each sum is an fp32 add rounded once.
+// threadIdx.x/2 owns columns [D/4 f, D/4 (f+1)) and D/2 + the same (the
+// chunks load_tile_async gave it; at D = 64, [16f, 16f+16) and
+// [32+16f, 32+16f+16)), so the rotate-half pairs (j, j+D/2) stay inside one
+// thread and a row's mean of squares is one shuffle. `w` (the (D,) fp32
+// RMSNorm scales, or null) and the bf16 (N, D) sin/cos tables (or null);
+// the rounding points are the plain version's (fused_attention.cu's note):
+// bf16 after the normalisation and again after the scale, and RoPE's as
+// the fused forward's note gives them. The table rows come from `pre`
+// (rope_fetch) or, when it is null, from global memory as each part is
+// roped. Rows at or past N are zeros and stay zeros. Columns go in bf16
+// pairs, eight pairs at a time (few registers live beside the caller's
+// accumulators): a product of two bf16 values is exact in fp32, so the
+// packed bf16 multiply rounds it once, as bf16(x * cos) does; each sum is
+// an fp32 add rounded once.
+template <int D>
 __device__ void prologue_tile(bf16* __restrict__ tile, int n0, int N,
                               const float* __restrict__ w, const bf16* __restrict__ sin_t,
-                              const bf16* __restrict__ cos_t, const RopeRow* pre) {
+                              const bf16* __restrict__ cos_t, const RopeRow<D>* pre) {
+  constexpr int kPer = D / 32;  // parts of eight columns in each half of the thread's columns
   const int row = threadIdx.x >> 1, f = threadIdx.x & 1;
   const int n = n0 + row;
-  bf16* p = tile + row * kRowB;
-  uint4* lo_half = reinterpret_cast<uint4*>(p + 16 * f);       // columns 16f + [0, 16)
-  uint4* hi_half = reinterpret_cast<uint4*>(p + 32 + 16 * f);  // columns 32 + 16f + [0, 16)
+  bf16* p = tile + row * kRowOf<D>;
+  uint4* lo_half = reinterpret_cast<uint4*>(p + D / 4 * f);          // columns D/4 f + [0, D/4)
+  uint4* hi_half = reinterpret_cast<uint4*>(p + D / 2 + D / 4 * f);  // columns D/2 + the same
   float inv = 0.f;
   if (w != nullptr) {
     float ss = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2 * kPer; ++i) {
       float x[8];
-      unpack8(i < 2 ? lo_half[i] : hi_half[i - 2], x);
+      unpack8(i < kPer ? lo_half[i] : hi_half[i - kPer], x);
 #pragma unroll
       for (int e = 0; e < 8; ++e) ss += x[e] * x[e];
     }
     ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    inv = 1.0f / sqrtf(ss / kHeadDim + 1e-5f);
+    inv = 1.0f / sqrtf(ss / D + 1e-5f);
   }
   const bool roped = sin_t != nullptr && n < N;
-  const size_t at = roped ? static_cast<size_t>(n) * kHeadDim : 0;
+  const size_t at = roped ? static_cast<size_t>(n) * D : 0;
   const uint4* sr = roped ? reinterpret_cast<const uint4*>(sin_t + at) : nullptr;
   const uint4* cr = roped ? reinterpret_cast<const uint4*>(cos_t + at) : nullptr;
 #pragma unroll
-  for (int part = 0; part < 2; ++part) {
-    // pairs of columns 16f + 8 part + [0, 8) (a) and 32 + 16f + 8 part + [0, 8) (b)
+  for (int part = 0; part < kPer; ++part) {
+    // pairs of columns D/4 f + 8 part + [0, 8) (a) and D/2 + the same (b)
     uint4 ra = lo_half[part], rb = hi_half[part];
     __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(&ra);
     __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&rb);
     if (w != nullptr) {
-      const float* wa = w + 16 * f + 8 * part;
+      const float* wa = w + D / 4 * f + 8 * part;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float2 xa = __bfloat1622float2(a[e]), xb = __bfloat1622float2(b[e]);
         const float2 na = __bfloat1622float2(__floats2bfloat162_rn(xa.x * inv, xa.y * inv));
         const float2 nb = __bfloat1622float2(__floats2bfloat162_rn(xb.x * inv, xb.y * inv));
         a[e] = __floats2bfloat162_rn(na.x * wa[2 * e], na.y * wa[2 * e + 1]);
-        b[e] = __floats2bfloat162_rn(nb.x * wa[32 + 2 * e], nb.y * wa[32 + 2 * e + 1]);
+        b[e] = __floats2bfloat162_rn(nb.x * wa[D / 2 + 2 * e], nb.y * wa[D / 2 + 2 * e + 1]);
       }
     }
     if (roped) {
       uint4 rsa, rca, rsb, rcb;
       if (pre != nullptr) {
-        rsa = pre->s[part];
-        rca = pre->c[part];
-        rsb = pre->s[2 + part];
-        rcb = pre->c[2 + part];
+        rsa = pre->sin(part);
+        rca = pre->cos(part);
+        rsb = pre->sin(kPer + part);
+        rcb = pre->cos(kPer + part);
       } else {
-        rsa = sr[2 * f + part];
-        rca = cr[2 * f + part];
-        rsb = sr[4 + 2 * f + part];
-        rcb = cr[4 + 2 * f + part];
+        rsa = sr[kPer * f + part];
+        rca = cr[kPer * f + part];
+        rsb = sr[D / 16 + kPer * f + part];
+        rcb = cr[D / 16 + kPer * f + part];
       }
       const __nv_bfloat162* sa = reinterpret_cast<const __nv_bfloat162*>(&rsa);
       const __nv_bfloat162* ca = reinterpret_cast<const __nv_bfloat162*>(&rca);
@@ -219,7 +256,7 @@ __device__ void prologue_tile(bf16* __restrict__ tile, int n0, int N,
       const __nv_bfloat162* cb = reinterpret_cast<const __nv_bfloat162*>(&rcb);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // rotate-half: rot[j] = -x[j+32] for j < 32, x[j-32] for j >= 32
+        // rotate-half: rot[j] = -x[j+D/2] for j < D/2, x[j-D/2] for j >= D/2
         const float2 ac = __bfloat1622float2(__hmul2(a[e], ca[e]));
         const float2 bs = __bfloat1622float2(__hmul2(__hneg2(b[e]), sa[e]));
         const float2 bc = __bfloat1622float2(__hmul2(b[e], cb[e]));
@@ -230,6 +267,24 @@ __device__ void prologue_tile(bf16* __restrict__ tile, int n0, int N,
     }
     lo_half[part] = ra;
     hi_half[part] = rb;
+  }
+}
+
+// The two (D,) RMSNorm scale vectors into shared memory, q_scale then
+// k_scale, one value a thread (two at D = 128).
+template <int D>
+__device__ __forceinline__ void load_scales(float* __restrict__ s_w,
+                                            const float* __restrict__ q_scale,
+                                            const float* __restrict__ k_scale) {
+  if constexpr (2 * D <= kTcThreads) {
+    if (threadIdx.x < 2 * D)
+      s_w[threadIdx.x] = threadIdx.x < D ? q_scale[threadIdx.x] : k_scale[threadIdx.x - D];
+  } else {
+#pragma unroll
+    for (int it = 0; it < 2 * D / kTcThreads; ++it) {
+      const int i = threadIdx.x + kTcThreads * it;
+      s_w[i] = i < D ? q_scale[i] : k_scale[i - D];
+    }
   }
 }
 
@@ -258,7 +313,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // The A fragments of rows [row0, row0+16) of a tile, head-dim steps of 16.
-template <int D = kHeadDim, int kRow = kRowOf<D>>
+template <int D, int kRow = kRowOf<D>>
 __device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const bf16* tile, int row0,
                                             int lane) {
 #pragma unroll
@@ -268,7 +323,7 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const bf16
 
 // acc[j] = a . tile[n0 + 8j .. +8]^T over the head dim: a holds 16 rows of
 // D (load_a_rows), the tile is row-major [n][head dim]. kNb column blocks.
-template <int kNb, int D = kHeadDim>
+template <int kNb, int D>
 __device__ __forceinline__ void mma_a_tileT(float (&acc)[kNb][4], const uint32_t (&a)[D / 16][4],
                                             const bf16* tile, int n0, int lane) {
 #pragma unroll
@@ -286,9 +341,32 @@ __device__ __forceinline__ void mma_a_tileT(float (&acc)[kNb][4], const uint32_t
   }
 }
 
+// mma_a_tileT with the A operand read from rows [row0, row0+16) of a tile
+// in shared memory at each head-dim step, not held in registers (the
+// backward's dk/dv pass at D = 128, whose K and V fragments would not fit
+// beside its accumulators).
+template <int kNb, int D>
+__device__ __forceinline__ void mma_tile_tileT(float (&acc)[kNb][4], const bf16* a_tile, int row0,
+                                               const bf16* tile, int n0, int lane) {
+#pragma unroll
+  for (int j = 0; j < kNb; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int p = 0; p < kNb / 2; ++p) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, a_tile + (row0 + (lane & 15)) * kRowOf<D> + 16 * ks + (lane >> 4) * 8);
+      ldmatrix_x4(b, tile + (n0 + 16 * p + (lane & 7) + ((lane >> 4) << 3)) * kRowOf<D> + 16 * ks +
+                         ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * p], a, b[0], b[1]);
+      mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // acc (16 x D head-dim columns) += a . tile[k0 .. k0 + 16 kKs]: a holds kKs
 // steps of 16 of the shared dimension, the tile is row-major [k][head dim].
-template <int kKs, int D = kHeadDim>
+template <int kKs, int D>
 __device__ __forceinline__ void mma_a_tile(float (&acc)[D / 8][4], const uint32_t (&a)[kKs][4],
                                            const bf16* tile, int k0, int lane) {
 #pragma unroll
@@ -396,7 +474,7 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[kNb][4], uint32_t (&a)
 
 // Writes a 16 x D fp32 accumulator into rows [row0, row0+16) of an fp32
 // tile of row stride D + 4.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void stage_acc(const float (&acc)[D / 8][4], float* tile, int row0,
                                           int lane) {
   const int g = lane >> 2, t = lane & 3;

@@ -54,8 +54,7 @@ from vtp_tpu_torch.ops.norms import rms_norm
 from vtp_tpu_torch.ops.precision import check_precision, split_bf16
 from vtp_tpu_torch.ops.rope import rope_apply
 
-KERNEL_HEAD_DIM = 64
-FUSED_HEAD_DIMS = (32, 64, 128)  # head dims the JAX gate passes to the fused kernel
+FUSED_HEAD_DIMS = (32, 64, 128)  # head dims the JAX gate and the CUDA kernels take
 KERNEL_TILE = 64  # rows of a block of the backward kernel (csrc/attention_common.cuh kTile)
 _ENTRY = {torch.bfloat16: "vtp_fused_qkv_rope_attention_bf16",
           torch.float32: "vtp_fused_qkv_rope_attention_f32"}
@@ -140,31 +139,40 @@ def _check(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid,
 
 
 def _kernel_fn(entry: str, n_pointers: int = 6):
-    """The C entry point: ``n_pointers`` pointers, then six ints (B, N, H,
-    n_valid, causal, device) and the stream."""
+    """The C entry point: ``n_pointers`` pointers, then seven ints (B, N, H,
+    d, n_valid, causal, device) and the stream."""
     from vtp_tpu_torch import _build
 
     fn = getattr(_build.load_library(), entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return fn
 
 
-def arm_name(dtype: torch.dtype, fp32_precision: str = "float32", qk_norm: bool = False) -> str:
-    """The launch-count name of the forward arm a call takes; a bf16 call
-    with qk-norm scales counts under ``NORM_NAME``."""
+def at_head_dim(name: str, d: int) -> str:
+    """A launch-count name at head dim d: the arm's own name at 64 and
+    ``{name}_d{d}`` at 32 and 128, so that a run shows which instantiation
+    of each arm it launched."""
+    return name if d == 64 else f"{name}_d{d}"
+
+
+def arm_name(dtype: torch.dtype, fp32_precision: str = "float32", qk_norm: bool = False,
+             d: int = 64) -> str:
+    """The launch-count name of the forward arm a call takes at head dim d;
+    a bf16 call with qk-norm scales counts under ``NORM_NAME``."""
     if _is_high(dtype, fp32_precision):
-        return HIGH_NAME
-    return NORM_NAME if qk_norm and dtype == torch.bfloat16 else ARM_NAME[dtype]
+        return at_head_dim(HIGH_NAME, d)
+    return at_head_dim(NORM_NAME if qk_norm and dtype == torch.bfloat16 else ARM_NAME[dtype], d)
 
 
 def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
             fp32_precision) -> torch.Tensor:
     B, N, three_d = qkv.shape
     D = three_d // 3
-    if D // num_heads != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}; got {D // num_heads}")
+    d = D // num_heads
+    if d not in FUSED_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {FUSED_HEAD_DIMS}; got {d}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     dev = qkv.device
@@ -182,11 +190,11 @@ def _launch(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
     high = _is_high(qkv.dtype, fp32_precision)
     rc = _kernel_fn(HIGH_ENTRY if high else _ENTRY[qkv.dtype])(
         ptr(qkv), ptr(sin), ptr(cos), ptr(q_scale), ptr(k_scale), ptr(out),
-        B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
+        B, N, num_heads, d, n_valid or N, int(bool(is_causal)), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA error {rc}")
-    count_launch(arm_name(qkv.dtype, fp32_precision, q_scale is not None))
+    count_launch(arm_name(qkv.dtype, fp32_precision, q_scale is not None, d))
     return out
 
 
@@ -326,10 +334,11 @@ def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal, q_scale=None, k
     rows, in a fixed order)."""
     B, N, three_d = qkv.shape
     D = three_d // 3
+    d = D // num_heads
     if qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError(f"the backward kernel takes bf16; got qkv {qkv.dtype}, g {g.dtype}")
-    if D // num_heads != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}; got {D // num_heads}")
+    if d not in FUSED_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {FUSED_HEAD_DIMS}; got {d}")
     if tuple(g.shape) != (B, N, D):
         raise ValueError(f"g must be {(B, N, D)}; got {tuple(g.shape)}")
     g = g.contiguous()
@@ -346,7 +355,7 @@ def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal, q_scale=None, k
     stats = torch.empty((3, B, num_heads, N), dtype=torch.float32, device=dev)
     d_qkv = torch.empty_like(qkv)
     ptr = lambda t: None if t is None else t.data_ptr()
-    tail = (B, N, num_heads, n_valid or N, int(bool(is_causal)), dev.index,
+    tail = (B, N, num_heads, d, n_valid or N, int(bool(is_causal)), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     if q_scale is None:
         rc = _kernel_fn(BWD_ENTRY)(ptr(qkv), ptr(g), ptr(sin), ptr(cos), ptr(stats),
@@ -356,7 +365,7 @@ def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal, q_scale=None, k
         q_scale = q_scale.float().contiguous()
         k_scale = k_scale.float().contiguous()
         # one dw row per (q or k, batch row, head, tile of KERNEL_TILE rows)
-        dws = torch.empty((2, B, num_heads, -(-N // KERNEL_TILE), KERNEL_HEAD_DIM),
+        dws = torch.empty((2, B, num_heads, -(-N // KERNEL_TILE), d),
                           dtype=torch.float32, device=dev)
         rc = _kernel_fn(NORM_BWD_ENTRY, 9)(ptr(qkv), ptr(g), ptr(sin), ptr(cos), ptr(q_scale),
                                            ptr(k_scale), ptr(stats), ptr(dws), ptr(d_qkv), *tail)
@@ -365,7 +374,7 @@ def _launch_bwd(qkv, g, sin, cos, num_heads, n_valid, is_causal, q_scale=None, k
         out = (d_qkv, dw[0], dw[1])
     if rc != 0:
         raise RuntimeError(f"fused attention backward kernel launch failed: CUDA error {rc}")
-    count_launch(name)
+    count_launch(at_head_dim(name, d))
     return out
 
 
@@ -498,9 +507,9 @@ def fused_attention_supported(qkv_shape, dtype: torch.dtype, num_heads: int,
     (``fused_attention_supported``, :212-263): bf16 or fp32, d in FUSED_HEAD_DIMS,
     3*H*d the packed width, 2 <= N, canonical [Q|K|V] columns (not
     head-major). The TPU's VMEM budget, sequence cap and mesh checks have no
-    counterpart. Callers take their split path where it fails. d = 32 and
-    128 pass, as in JAX, but the CUDA kernel takes 64 alone: on a CUDA
-    tensor those widths raise until it is widened."""
+    counterpart. Callers take their split path where it fails. Every d
+    that passes has its own instantiation of each arm of the CUDA kernels
+    (forward and backward), so a CUDA tensor that passes launches one."""
     if dtype not in _ENTRY or head_major != 1:
         return False
     _, n, three_d = qkv_shape
