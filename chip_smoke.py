@@ -57,7 +57,20 @@
    merges file, ``build_zero_shot_classifier`` over all 1000 classnames x
    2 templates on the VTP-L text tower (the causal fused launches counted)
    and 64 seeded images scored, the classifier and the logits against the
-   plain versions;
+   plain versions; the linear probe: 26 heads (n 1 and 4 x 13 rates, 1000
+   classes) on the VTP-L trunk's frozen last-4-layer features, 4 train
+   steps at B = 64 on seeded 224^2 images and ``evaluate_linear_probe`` over
+   2 batches, counted, the losses, the heads, the logits and the hit counts
+   against the plain versions; text intermediates: the VTP-L text tower's
+   ``text_forward_intermediates`` (last 4 layers, normalised) and a
+   ``prune_intermediate_layers`` copy's forward at B = 32, counted, against
+   the plain versions; the extras: a bf16 ``MultimodalTransformer`` (768
+   wide, 12 heads, depth 2; no launch, as in JAX), a bf16
+   ``CustomTransformer`` (1024 wide, 16 heads, depth 2; strided
+   ``flash_attention``) and an ``AttentionalPooler`` (256 queries) over 256
+   seeded 1024-wide context tokens, each counted and against the plain
+   versions. (The native ingest library is not driven: the card's machine
+   has no libjpeg or libpng headers, so it does not build there);
 4. runs the VTP-L CLIP+SSL+rec train step (``init_state``,
    ``build_train_step``; B = 8 images, each with a CLIP pair, a
    reconstruction target and 2 global + 4 local SSL crops) once on the
@@ -177,6 +190,15 @@ EVAL_IMAGES, EVAL_BATCH = 32, 8
 # The zero-shot eval: every classname with the first ZS_TEMPLATES templates,
 # ZS_IMAGES seeded images in batches of ZS_BATCH
 ZS_TEMPLATES, ZS_IMAGES, ZS_BATCH = 2, 64, 32
+# The linear probe: PROBE_STEPS train steps at B = PROBE_BATCH on seeded
+# PROBE_SIZE^2 images, then PROBE_EVAL_BATCHES batches evaluated
+PROBE_BATCH, PROBE_STEPS, PROBE_EVAL_BATCHES, PROBE_SIZE = 64, 4, 2, 224
+# The extras: EXTRAS_BATCH rows of EXTRAS_CONTEXT seeded trunk-wide (1024)
+# tokens as the context, the towers EXTRAS_DEPTH deep
+EXTRAS_BATCH, EXTRAS_CONTEXT, EXTRAS_DEPTH = 8, 256, 2
+# The bf16 features' gate, carried to every comparison of the new phases
+# with the plain run (losses: 5e-3 rel)
+FEATURE_REL, LOSS_REL = 5e-2, 5e-3
 # Published dense peaks (NVIDIA data sheets, SXM parts at 700 W): memory
 # bytes/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
 PEAKS = {"H100": (3.35e12, 989e12, 67e12), "H200": (4.8e12, 989e12, 67e12)}
@@ -2239,6 +2261,238 @@ def run_zero_shot(gen, model):
     return counts
 
 
+def _rel_err(a, b) -> float:
+    """max|a - b| / max|b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _probe_logits(model, state, batches, pcfg):
+    """{group: (L, images, classes)} logits of the probe's heads."""
+    import torch
+
+    from vtp_tpu_torch.eval.linear_probe import create_linear_input, extract_features, head_logits
+    from vtp_tpu_torch.models.pixel_decoder import exact_fp32
+
+    out = {}
+    with torch.no_grad(), exact_fp32():
+        for images, _ in batches:
+            feats = extract_features(model, images, pcfg.feature_blocks)
+            for n in pcfg.n_last_blocks_list:
+                h = state["heads"][f"n{n}"]
+                out.setdefault(f"n{n}", []).append(
+                    head_logits(h["w"], h["b"], create_linear_input(feats, n)))
+    return {k: torch.cat(v, dim=1) for k, v in out.items()}
+
+
+def run_linear_probe(gen, model):
+    """The linear probe: the VTP-L model's frozen trunk at full depth and
+    width, ``ProbeConfig(n_last_blocks_list=(1, 4))`` with the 13 rates over
+    1000 classes, heads from ``init_probe_heads``; PROBE_STEPS train steps at
+    B = PROBE_BATCH on seeded PROBE_SIZE^2 images, then
+    ``evaluate_linear_probe`` over PROBE_EVAL_BATCHES batches; counted (24
+    bf16 fused launches a forward) and timed, then run again from the same
+    state on the plain versions. Held: each step's loss within 5e-3 rel; the
+    heads' change over the steps and the final heads' logits on the eval
+    images within 5e-2 of max|ref| (the bf16 features' gate); each head's
+    hit count off the plain run's by no more than the images whose plain
+    top-2 logits lie within that logits gate of each other. Returns the
+    launches."""
+    import torch
+
+    from vtp_tpu_torch.eval.linear_probe import (
+        ProbeConfig,
+        build_probe_train_step,
+        evaluate_linear_probe,
+        head_names,
+        init_probe_heads,
+        init_probe_state,
+    )
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+
+    cfg = model.config
+    pcfg = ProbeConfig(n_last_blocks_list=(1, 4), num_classes=1000, epochs=1,
+                       epoch_length=PROBE_STEPS, batch_size=PROBE_BATCH)
+    state0 = init_probe_state(init_probe_heads(cfg, pcfg, PROBE_BATCH, gen, device="cuda"))
+    train = _eval_batches(gen, PROBE_STEPS * PROBE_BATCH, PROBE_BATCH, PROBE_SIZE)
+    val = _eval_batches(gen, PROBE_EVAL_BATCHES * PROBE_BATCH, PROBE_BATCH, PROBE_SIZE)
+    step = build_probe_train_step(model, pcfg)
+
+    def run():
+        state, losses = state0, []
+        for images, labels in train:
+            state, loss = step(state, images, labels)
+            losses.append(loss)
+        return state, torch.stack(losses), evaluate_linear_probe(model, state, val, pcfg)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, accs = run()
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {ARM_NAME[torch.bfloat16]: cfg.vision_depth * (PROBE_STEPS + PROBE_EVAL_BATCHES)}
+    best = max(accs, key=accs.get)
+    print(f"linear probe VTP-L {PROBE_SIZE}^2, {PROBE_STEPS} steps at B={PROBE_BATCH} + "
+          f"{PROBE_EVAL_BATCHES} eval batches, 26 heads (n 1 and 4 x 13 rates, 1000 classes): "
+          f"losses {', '.join(f'{x:.4f}' for x in losses.tolist())}, best {accs[best]:.2f}% "
+          f"({best}; random weights and labels), {probe_s:.2f} s (host clock, one run); kernel "
+          f"launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"linear probe launches {counts}, expected {want}")
+    logits = _probe_logits(model, state, val, pcfg)
+    with _plain_kernels():
+        p_state, p_losses, p_accs = run()
+        p_logits = _probe_logits(model, p_state, val, pcfg)
+    torch.cuda.synchronize()
+    loss_err = ((losses - p_losses).abs() / p_losses.abs()).max().item()
+    head_err = max(_rel_err(state["heads"][k][leaf] - state0["heads"][k][leaf],
+                            p_state["heads"][k][leaf] - state0["heads"][k][leaf])
+                   for k in state0["heads"] for leaf in ("w", "b"))
+    logit_err = max(_rel_err(logits[k], p_logits[k]) for k in logits)
+    n_val = PROBE_EVAL_BATCHES * PROBE_BATCH
+    worst = 0
+    for key, (group, idx) in head_names(pcfg, pcfg.batch_size).items():
+        ref = p_logits[group][idx]
+        top2 = ref.topk(2, dim=-1).values
+        ties = int((top2[:, 0] - top2[:, 1] <= FEATURE_REL * ref.abs().max()).sum().item())
+        off = round(abs(accs[key] - p_accs[key]) * n_val / 100.0)
+        worst = max(worst, off)
+        if off > ties:
+            raise AssertionError(f"linear probe {key}: {off} hits off the plain run's, "
+                                 f"{ties} near-ties")
+    ok = (loss_err <= LOSS_REL and head_err <= FEATURE_REL and logit_err <= FEATURE_REL
+          and all(torch.isfinite(v).all().item() for v in logits.values()))
+    print(f"linear probe vs the plain versions: losses {loss_err:.3e} rel (limit {LOSS_REL:g}), "
+          f"heads' change {head_err:.3e} and logits {logit_err:.3e} of max|ref| (limit "
+          f"{FEATURE_REL:g}), hit counts off by at most {worst} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the linear probe disagrees with the plain run")
+    return counts
+
+
+def run_text_intermediates(gen, model):
+    """Text intermediates on the VTP-L text tower (12 x 768, causal, no
+    ``embed_cls``) at B = TEXT_BATCH, 77 tokens:
+    ``text_forward_intermediates(indices=4, normalize_intermediates=True)``
+    and the forward of a ``prune_intermediate_layers(indices=4)`` copy, both
+    in bf16, counted (the fused causal launches, text depth each) and held
+    within 5e-2 of max|ref| to the same on the plain versions. Returns the
+    launches."""
+    import torch
+
+    from vtp_tpu_torch.models.text_encoder import (
+        prune_intermediate_layers,
+        text_forward_intermediates,
+    )
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+
+    cfg = model.config
+    tower = model.text
+    tokens = torch.randint(1, cfg.text_vocab_size - 1, (TEXT_BATCH, cfg.text_context_length),
+                           generator=gen, device="cuda")
+    pruned, pcfg, take = prune_intermediate_layers(tower, 4)
+
+    @torch.no_grad()
+    def run():
+        out = text_forward_intermediates(tower, tokens, 4, normalize_intermediates=True,
+                                         compute_dtype=torch.bfloat16)
+        return [*out["text_intermediates"], out["text_features"],
+                pruned(tokens, compute_dtype=torch.bfloat16)]
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {ARM_NAME[torch.bfloat16]: cfg.text_depth + pcfg.layers}
+    print(f"text intermediates VTP-L text B={TEXT_BATCH} L={cfg.text_context_length}: layers "
+          f"{take} of {cfg.text_depth}, pruned copy {pcfg.layers} layers, {run_s * 1e3:.2f} ms "
+          f"(host clock, one run); kernel launches {counts} (expected {want})", flush=True)
+    if counts != want or tower.cfg.layers != cfg.text_depth:
+        raise AssertionError(f"text intermediates launches {counts}, expected {want}")
+    with _plain_kernels():
+        ref = run()
+    torch.cuda.synchronize()
+    err = max(_rel_err(a, b) for a, b in zip(got, ref))
+    ok = err <= FEATURE_REL and all(torch.isfinite(t).all().item() for t in got)
+    print(f"text intermediates vs the plain versions: max err {err:.3e} of max|ref| (limit "
+          f"{FEATURE_REL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the text intermediates disagree with the plain run")
+    return counts
+
+
+def run_extras(gen, model):
+    """``models/extras.py`` at VTP-L widths on a context of EXTRAS_CONTEXT
+    seeded 1024-wide tokens (the trunk's width), EXTRAS_BATCH rows: a bf16
+    ``MultimodalTransformer`` at the text tower's width (768, 12 heads of 64,
+    depth EXTRAS_DEPTH) over the context projected to 768 in the phase and
+    77 seeded text tokens, whose masked self-attention and cross-attention
+    take the plain path as in JAX (no launch); a bf16 ``CustomTransformer``
+    (1024 wide, 16 heads of 64, depth EXTRAS_DEPTH) over the context,
+    strided ``flash_attention`` at every layer; an ``AttentionalPooler``
+    (256 queries, fp32: no launch). Weights from ``reset_parameters`` on the
+    seeded generator. Each counted and held within 5e-2 of max|ref| to the
+    same on the plain versions. Returns the launches."""
+    import torch
+
+    from vtp_tpu_torch.models.extras import (
+        AttentionalPooler,
+        CustomTransformer,
+        MultimodalTransformer,
+    )
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import FLASH_NAME
+
+    cfg = model.config
+    trunk_w, text_w = cfg.vision_embed_dim, cfg.text_embed_dim
+    context = torch.randn((EXTRAS_BATCH, EXTRAS_CONTEXT, trunk_w), generator=gen, device="cuda")
+    proj = torch.randn((trunk_w, text_w), generator=gen, device="cuda") * trunk_w ** -0.5
+    text = torch.randn((EXTRAS_BATCH, cfg.text_context_length, text_w), generator=gen,
+                       device="cuda")
+    towers = {
+        "multimodal": (MultimodalTransformer(text_w, EXTRAS_DEPTH, cfg.text_num_heads,
+                                             output_dim=text_w,
+                                             context_length=cfg.text_context_length,
+                                             device="cuda"),
+                       lambda m: m(context @ proj, text, torch.bfloat16), {}),
+        "custom": (CustomTransformer(trunk_w, EXTRAS_DEPTH, cfg.vision_num_heads, device="cuda"),
+                   lambda m: m(context, None, torch.bfloat16), {FLASH_NAME: EXTRAS_DEPTH}),
+        "pooler": (AttentionalPooler(text_w, trunk_w, cfg.text_num_heads, n_queries=256,
+                                     device="cuda"),
+                   lambda m: m(context), {}),
+    }
+    counts = {}
+    for name, (tower, fn, want) in towers.items():
+        tower.reset_parameters(gen)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(tower)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            got = launch_counts()
+            with _plain_kernels():
+                ref = fn(tower)
+        err = _rel_err(out, ref)
+        ok = got == want and err <= FEATURE_REL and torch.isfinite(out).all().item()
+        print(f"extras {name}: out {tuple(out.shape)} {out.dtype}, {run_s * 1e3:.2f} ms (host "
+              f"clock, one run, the first call); kernel launches {got} (expected {want}); vs the "
+              f"plain versions {err:.3e} of max|ref| (limit {FEATURE_REL:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"extras {name}: launches {got} (expected {want}), err {err:.3e}")
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+    return counts
+
 def profile_run(label: str, fn) -> None:
     """Phase 6 (--profile): device time of one call of ``fn`` by kernel, by
     kind of kernel, and the device's idle share of the wall time."""
@@ -2347,6 +2601,13 @@ def main() -> int:
     eval_counts = run_recon_eval(gen, model)
     _set_phase("zero-shot eval")
     zs_counts = run_zero_shot(gen, model)
+    _set_phase("linear probe")
+    probe_counts = run_linear_probe(gen, model)
+    torch.cuda.empty_cache()
+    _set_phase("text intermediates")
+    ti_counts = run_text_intermediates(gen, model)
+    _set_phase("extras")
+    extras_counts = run_extras(gen, model)
     del images
     torch.cuda.empty_cache()
     _set_phase("dit latents")
@@ -2404,11 +2665,13 @@ def main() -> int:
 
     # launches: each arm's count summed over the main paths' runs (one
     # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
-    # one non-causal text call, the reconstruction and zero-shot evals, one
-    # train step, one DiT train step, one 250-step sample, and at head dims
-    # 32 and 128 one roundtrip, high decode, train step, DiT train step and
-    # 4-step sample each)
+    # one non-causal text call, the reconstruction and zero-shot evals, the
+    # linear probe, the text intermediates, the extras, one train step, one
+    # DiT train step, one 250-step sample, and at head dims 32 and 128 one
+    # roundtrip, high decode, train step, DiT train step and 4-step sample
+    # each)
     for run in (high_counts, serve_counts, hm_counts, text_counts, eval_counts, zs_counts,
+                probe_counts, ti_counts, extras_counts,
                 train_counts, dit_counts, sample_counts, *head_dim_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n

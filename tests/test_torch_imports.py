@@ -61,7 +61,10 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.eval.reconstruction", "vtp_tpu_torch.eval.zero_shot",
                 "vtp_tpu_torch.tokenizers", "vtp_tpu_torch.tokenizers.bpe",
                 "vtp_tpu_torch.tools.compute_fid", "vtp_tpu_torch.tools.eval_reconstruction",
-                "vtp_tpu_torch.tools.eval_zero_shot"):
+                "vtp_tpu_torch.tools.eval_zero_shot", "vtp_tpu_torch.eval.linear_probe",
+                "vtp_tpu_torch.tools.eval_linear_probing", "vtp_tpu_torch.tools.validate_release",
+                "vtp_tpu_torch.ops.pos_embed", "vtp_tpu_torch.models.extras",
+                "vtp_tpu_torch.native", "vtp_tpu_torch.data.native_loader"):
         assert mod in imported
 
 

@@ -7,7 +7,8 @@ decode), the CLIP towers and the feature API, HF-layout checkpoints
 or head-major (``vtp_tpu_torch.checkpoint``), the batched server
 (``vtp_tpu_torch.serve``), the CLIP+SSL+rec train step
 (``vtp_tpu_torch.train.step``) and the DiT generation path
-(``vtp_tpu_torch.dit``, ``vtp_tpu_torch.generation``) on hand-written CUDA
+(``vtp_tpu_torch.dit``, ``vtp_tpu_torch.generation``), the eval harnesses
+(``vtp_tpu_torch.eval``: reconstruction, zero-shot, linear probe) on hand-written CUDA
 kernels (``csrc/``): the fused qkv + qk-norm + RoPE attention (bf16, exact
 fp32 and bf16x3 arms), its backward with and without the qk-norm arm, the
 fused DINO/iBOT cross-entropy, and the strided attention without a

@@ -100,6 +100,12 @@ class DataLoader:
         if batch and not self.drop_last:
             yield batch
 
+    def _batches(self) -> Iterator:
+        """The collated batches in order, each decoded by the worker threads."""
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            for batch_idx in self._index_batches():
+                yield self.collate(list(pool.map(self.dataset.__getitem__, batch_idx)))
+
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -115,15 +121,16 @@ class DataLoader:
             return False
 
         def produce():
-            with cf.ThreadPoolExecutor(self.num_workers) as pool:
-                try:
-                    for batch_idx in self._index_batches():
-                        items = list(pool.map(self.dataset.__getitem__, batch_idx))
-                        if not put(self.collate(items)):
-                            return
-                except BaseException as e:  # handed to the consumer, raised there
-                    put(e)
-                    return
+            batches = self._batches()
+            try:
+                for batch in batches:
+                    if not put(batch):
+                        return
+            except BaseException as e:  # handed to the consumer, raised there
+                put(e)
+                return
+            finally:
+                batches.close()
             put(done)
 
         t = threading.Thread(target=produce, daemon=True)

@@ -1,6 +1,7 @@
 """CLIP-style text transformer (port of ``vtp_tpu/models/text_encoder.py``:
-``_text_embeds`` :182, ``_text_block`` :116, ``_pool_project`` :317,
-``text_encode`` :343).
+``_text_embeds`` :188, ``_text_block`` :112, ``_pool_project`` :309,
+``text_encode`` :338, ``feature_take_indices`` :223,
+``text_forward_intermediates`` :236, ``prune_intermediate_layers`` :278).
 
 A pre-LN residual transformer with torch ``nn.MultiheadAttention``
 parameter names (fused ``in_proj``). Attention routes as ``_text_block``
@@ -13,6 +14,10 @@ a one-token text); every other case goes through ``ops/attention.sdpa``, which t
 (``text_no_causal_mask``) on the permuted q, k, v views of the qkv GEMM
 output, and ``sdpa_reference`` for the pad-aware additive mask of an
 appended cls token.
+``text_forward_intermediates`` runs the blocks as ``forward`` does (the
+same routes) and keeps the outputs of the layers taken;
+``prune_intermediate_layers`` returns a pruned copy and a new config and
+leaves the model as it was, as the JAX function returns new params.
 Parameter names are the reference checkpoint's (``token_embedding``,
 ``positional_embedding``, ``text_transformer.resblocks.{i}``,
 ``ln_final``, ``text_projection``).
@@ -20,8 +25,9 @@ Parameter names are the reference checkpoint's (``token_embedding``,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -255,3 +261,74 @@ class TextTransformer(nn.Module):
             return pooled, tokens
         return pooled
 
+
+
+def feature_take_indices(num_layers: int,
+                         indices: Optional[Union[int, Sequence[int]]]) -> Tuple[List[int], int]:
+    """Resolve an intermediate-layer selection (reference
+    models/utils/text_utils.py:113-151): None -> every layer, an int n ->
+    the last n layers, a sequence -> those layers with negative indices
+    wrapped. Returns (take, max(take))."""
+    if indices is None:
+        indices = num_layers
+    if isinstance(indices, int):
+        take = list(range(num_layers - indices, num_layers))
+    else:
+        take = [i if i >= 0 else num_layers + i for i in indices]
+    return take, max(take)
+
+
+def text_forward_intermediates(model: TextTransformer, text: torch.Tensor,
+                               indices: Optional[Union[int, Sequence[int]]] = None, *,
+                               normalize_intermediates: bool = False,
+                               intermediates_only: bool = False,
+                               output_extra_tokens: bool = False,
+                               compute_dtype: Optional[torch.dtype] = None
+                               ) -> Dict[str, Union[torch.Tensor, List[torch.Tensor]]]:
+    """The text tower with the outputs of the layers ``indices`` selects
+    (text_transformer.py:363-413): {"text_intermediates": [(B, L, W)],
+    "text_features": pooled and projected (unless ``intermediates_only``),
+    "text_intermediates_suffix": [(B, 1, W)] (with ``embed_cls`` and
+    ``output_extra_tokens``: the appended cls slot split off each
+    intermediate)}. ``normalize_intermediates`` applies ``ln_final`` to each."""
+    cfg = model.cfg
+    take, _ = feature_take_indices(cfg.layers, indices)
+    x, mask, is_causal = model.embeds(text)
+    outs = []
+    for blk in model.text_transformer.resblocks:
+        x = blk(x, mask, is_causal, compute_dtype)
+        outs.append(x)
+    inter = [outs[i] for i in take]
+    if normalize_intermediates:
+        inter = [model.ln_final(t) for t in inter]
+    out: Dict[str, Union[torch.Tensor, List[torch.Tensor]]] = {}
+    if cfg.embed_cls:
+        if output_extra_tokens:
+            out["text_intermediates_suffix"] = [t[:, -1:] for t in inter]
+        inter = [t[:, :-1] for t in inter]
+    out["text_intermediates"] = inter
+    if not intermediates_only:
+        out["text_features"] = model.pool_project(x, text, compute_dtype)[0]
+    return out
+
+
+def prune_intermediate_layers(model: TextTransformer,
+                              indices: Optional[Union[int, Sequence[int]]] = 1, *,
+                              prune_norm: bool = False, prune_head: bool = True
+                              ) -> Tuple[TextTransformer, TextConfig, List[int]]:
+    """A copy of the tower without the layers past the last one ``indices``
+    takes (text_transformer.py:415-427); ``prune_norm`` resets ``ln_final``
+    to the identity (ones and zeros), ``prune_head`` drops the projection.
+    Returns ``(pruned_model, pruned_cfg, take)``; ``model`` is unchanged."""
+    cfg = model.cfg
+    take, max_index = feature_take_indices(cfg.layers, indices)
+    keep = max_index + 1
+    pruned = copy.deepcopy(model)
+    pruned.cfg = dataclasses.replace(cfg, layers=keep)
+    pruned.text_transformer.resblocks = pruned.text_transformer.resblocks[:keep]
+    if prune_norm:
+        with torch.no_grad():
+            pruned.ln_final.reset_parameters()
+    if prune_head:
+        pruned.text_projection = None
+    return pruned, pruned.cfg, take
