@@ -88,6 +88,23 @@
 6. samples 8 images with ``sample_images`` (250 euler steps, shift 0.075,
    cfg 1.0, then the VTP-L decode to uint8), counted and timed, and holds
    a 4-step sample's latents against the same on the plain versions;
+6a. the generation pipeline (image batches -> latent shards -> DiT training
+   -> train-state checkpoints -> samples): the VTP-L model written with
+   ``save_hf_checkpoint`` and loaded by ``VTPTokenizer.from_checkpoint``;
+   ``tools/extract_latents.extract_latent_shards`` on 64 seeded images and
+   their flips at B = 32 into 2 shards of 32, then the statistics, read back
+   bit for bit, the latents against the plain versions; DiT-XL/1 fed by
+   ``LatentShardDataset`` for 2 steps at B = 32 as 2 microbatches of 16
+   (bf16 accumulators and moments, remat "attn": no fused forward in the
+   backward), counted and against the same steps on the plain versions,
+   then one step each at remat "full" and "dots", counted;
+   ``tools/train_dit.py``'s ``main`` in process at DiT-XL/1 cut to depth 4
+   (2 steps and a checkpoint, ``--resume`` for a third, and 3 steps
+   uninterrupted): the restored state bit for bit, the resumed step against
+   the uninterrupted one, write and read timed; ``tools/sample_dit.py``'s
+   ``sample_batches`` (4 euler steps, cfg 1.5, the VTP-L decode) on the
+   trained EMA against the plain versions and on the EMA restored from the
+   depth-4 checkpoint, each counted;
 6b. head dims 32 and 128: every forward arm and both backward arms at the
    edge cases at d = 32 and 128, then at each d the VTP-L widths re-cut
    into heads of d (trunk and decoder 1024, text 768; depth 2): the
@@ -196,6 +213,14 @@ PROBE_BATCH, PROBE_STEPS, PROBE_EVAL_BATCHES, PROBE_SIZE = 64, 4, 2, 224
 # The extras: EXTRAS_BATCH rows of EXTRAS_CONTEXT seeded trunk-wide (1024)
 # tokens as the context, the towers EXTRAS_DEPTH deep
 EXTRAS_BATCH, EXTRAS_CONTEXT, EXTRAS_DEPTH = 8, 256, 2
+# The generation pipeline (phase 6c): GEN_IMAGES seeded images extracted at
+# B = GEN_BATCH (with a flipped copy) into shards of GEN_SHARD rows, DiT-XL/1
+# trained GEN_TRAIN_STEPS steps at a global B = GEN_BATCH as GEN_ACCUM
+# microbatches (bf16 accumulators and moments, remat "attn"), a train-state
+# round trip through tools/train_dit.py at depth GEN_CKPT_DEPTH, and
+# GEN_SAMPLE_STEPS euler steps at cfg GEN_CFG for GEN_SAMPLES labels
+GEN_IMAGES, GEN_BATCH, GEN_SHARD, GEN_ACCUM, GEN_TRAIN_STEPS = 64, 32, 32, 2, 2
+GEN_CKPT_DEPTH, GEN_SAMPLE_STEPS, GEN_CFG, GEN_SAMPLES = 4, 4, 1.5, 8
 # The bf16 features' gate, carried to every comparison of the new phases
 # with the plain run (losses: 5e-3 rel)
 FEATURE_REL, LOSS_REL = 5e-2, 5e-3
@@ -2493,6 +2518,375 @@ def run_extras(gen, model):
             counts[k] = counts.get(k, 0) + n
     return counts
 
+
+class _RecordingTokenizer:
+    """A tokenizer that keeps every latent batch it encodes (to hold the
+    shards read back against what was written)."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer, self.latents = tokenizer, []
+
+    def encode_images(self, images):
+        z = self.tokenizer.encode_images(images)
+        self.latents.append(z.cpu().numpy())
+        return z
+
+
+def gen_extract(gen, tokenizer, lat_dir):
+    """Phase 6c, step 1: extraction through ``extract_latent_shards`` on
+    in-memory batches (images, flipped images, labels), counted, the shards
+    and statistics read back bit for bit, the latents against the plain
+    versions. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from vtp_tpu_torch.generation.latents import (
+        compute_latent_stats,
+        list_latent_shards,
+        load_latent_shards,
+        load_latent_stats,
+    )
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+    from vtp_tpu_torch.tools.extract_latents import extract_latent_shards
+
+    size = tokenizer.img_size
+    images = torch.randn((GEN_IMAGES, 3, size, size), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (GEN_IMAGES,), generator=gen, device="cuda")
+    batches = [(images[i:i + GEN_BATCH], images[i:i + GEN_BATCH].flip(-1),
+                labels[i:i + GEN_BATCH]) for i in range(0, GEN_IMAGES, GEN_BATCH)]
+    recorder = _RecordingTokenizer(tokenizer)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    paths = extract_latent_shards(recorder, batches, lat_dir, shard_size=GEN_SHARD, log_every=0)
+    extract_s = time.perf_counter() - t0
+    counts = launch_counts()
+    depth = tokenizer.config.vision_depth
+    want = {ARM_NAME[torch.bfloat16]: 2 * (GEN_IMAGES // GEN_BATCH) * depth}
+    print(f"generation: extraction of {GEN_IMAGES} images (+ flips) at B={GEN_BATCH} into "
+          f"{len(paths)} shards in {extract_s:.3f} s (host clock, shard writes included); "
+          f"launches {counts} (expected {want})", flush=True)
+    if counts != want or len(paths) != GEN_IMAGES // GEN_SHARD:
+        raise AssertionError(f"extraction launches {counts} / shards {len(paths)}")
+
+    t0 = time.perf_counter()
+    mean, std = compute_latent_stats(lat_dir)
+    stats_s = time.perf_counter() - t0
+    back = list(load_latent_shards(lat_dir))
+    written = recorder.latents
+    same = (list_latent_shards(lat_dir) == paths and all(
+        np.array_equal(s["latents"], written[2 * i]) and np.array_equal(s["latents_flip"],
+                                                                         written[2 * i + 1])
+        and np.array_equal(s["labels"], labels[i * GEN_BATCH:(i + 1) * GEN_BATCH].cpu().numpy())
+        for i, s in enumerate(back)))
+    m2, s2 = load_latent_stats(lat_dir)
+    same = same and np.array_equal(m2, mean) and np.array_equal(s2, std)
+    print(f"generation: shards and stats read back bit for bit {'ok' if same else 'FAIL'} "
+          f"(stats in {stats_s:.3f} s; mean in [{mean.min():.4f}, {mean.max():.4f}], std in "
+          f"[{std.min():.4f}, {std.max():.4f}])", flush=True)
+    if not same:
+        raise AssertionError("the latent shards or statistics read back differ")
+
+    with _plain_kernels():
+        refs = [tokenizer.encode_images(x).cpu().numpy() for b in batches for x in b[:2]]
+    err = max(float(np.abs(z - r).max() / np.abs(r).max()) for z, r in zip(written, refs))
+    ok = err <= FEATURE_REL and all(np.isfinite(z).all() for z in written)
+    print(f"generation: extracted latents vs plain versions: max err {err:.3e} of max|ref| "
+          f"(limit {FEATURE_REL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the extracted latents disagree with the plain-version run")
+    return counts
+
+
+def expected_dit_step_launches(depth, remat):
+    """Launches of one DiT step over GEN_ACCUM microbatches: the forward's
+    qk-norm arm once a block a microbatch, again in the backward unless the
+    policy saves its output; the backward's arm once a block a microbatch."""
+    from vtp_tpu_torch.ops.flash_attention import NORM_BWD_NAME, NORM_NAME
+
+    fwd = 1 if remat in (False, "attn", "dots_attn") else 2
+    return {NORM_NAME: fwd * GEN_ACCUM * depth, NORM_BWD_NAME: GEN_ACCUM * depth}
+
+
+def gen_train(gen, lat_dir):
+    """Phase 6c, step 2: DiT-XL/1 fed by ``LatentShardDataset`` for
+    GEN_TRAIN_STEPS steps (bf16 accumulators and moments, remat "attn"),
+    counted and timed, against the same steps on the plain versions; then
+    one step each at "full" and "dots", counted. Returns the counts and the
+    state."""
+    import dataclasses
+
+    import torch
+
+    from vtp_tpu_torch.dit.model import make_dit_config
+    from vtp_tpu_torch.dit.train import (
+        DiTTrainConfig,
+        LatentShardDataset,
+        build_dit_train_step,
+        init_dit_state,
+    )
+    from vtp_tpu_torch.models.initializers import normal_
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+
+    cfg = make_dit_config("DiT-XL/1")
+    tcfg = DiTTrainConfig(total_steps=1000, accum_steps=GEN_ACCUM, accum_dtype="bf16",
+                          moment_dtype="bf16", remat="attn")
+    state = init_dit_state(cfg, tcfg, gen, device="cuda")
+    with torch.no_grad():  # a fresh DiT predicts 0 and passes its attention no gradient
+        for lin in [b.ada for b in state.model.blocks] + [state.model.final.ada,
+                                                          state.model.final.proj]:
+            normal_(lin.weight, 0.02, gen)
+            normal_(lin.bias, 0.02, gen)
+        state.ema.load_state_dict(state.model.state_dict())
+    stream = LatentShardDataset(lat_dir, seed=SEED, device="cuda").batches(GEN_BATCH)
+    batches = [next(stream) for _ in range(GEN_TRAIN_STEPS + 2)]
+
+    def split(z, y):
+        return z.reshape(GEN_ACCUM, -1, *z.shape[1:]), y.reshape(GEN_ACCUM, -1)
+
+    step = build_dit_train_step(cfg, tcfg)
+    # the plain run first, from a copy freed before the counted steps, so
+    # that their peak memory is the trainer's own
+    plain_state = copy.deepcopy(state)
+    with _plain_kernels():
+        plain = [step(plain_state, *split(*batches[i]), torch.Generator("cuda").manual_seed(i))[1]
+                 for i in range(GEN_TRAIN_STEPS)]
+    del plain_state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total, metrics, times = {}, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(GEN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, *split(*batches[i]), torch.Generator("cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        want = expected_dit_step_launches(cfg.depth, "attn")
+        print(f"generation: DiT-XL/1 step {i + 1} (B={GEN_BATCH} as {GEN_ACCUM} x "
+              f"{GEN_BATCH // GEN_ACCUM}, bf16 accumulators and moments, remat attn) "
+              f"{times[-1] * 1e3:.1f} ms; launches {counts} (expected {want})", flush=True)
+        if counts != want:
+            raise AssertionError(f"DiT step launches {counts}, expected {want}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        metrics.append(m)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(m.dtype != torch.bfloat16 for m in state.optimizer.mu.values()):
+        raise AssertionError("the Adam moments are not bf16")
+    for i in range(GEN_TRAIN_STEPS):
+        _hold_metrics(f"generation step {i + 1}", metrics[i], plain[i],
+                      {"loss/transport": LOSS_REL, "loss/mse": LOSS_REL, "loss/cos": LOSS_REL,
+                       "grad_norm": 2e-2})
+    print(f"generation: DiT-XL/1 bf16-accumulator step on {GEN_BATCH} latents: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms (host clock); peak memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+
+    for j, remat in enumerate(("full", "dots")):
+        other = build_dit_train_step(cfg, dataclasses.replace(tcfg, remat=remat))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = other(state, *split(*batches[GEN_TRAIN_STEPS + j]),
+                         torch.Generator("cuda").manual_seed(10 + j))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = launch_counts()
+        want = expected_dit_step_launches(cfg.depth, remat)
+        print(f"generation: one step at remat {remat!r}: {step_s * 1e3:.1f} ms, loss "
+              f"{m['loss/transport'].item():.5f}; launches {counts} (expected {want})",
+              flush=True)
+        if counts != want or not all(math.isfinite(v.item()) for v in m.values()):
+            raise AssertionError(f"the {remat!r} step launched {counts}, expected {want}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total, state
+
+
+def gen_checkpoint(lat_dir, out_dir):
+    """Phase 6c, step 3: ``tools/train_dit.py``'s ``main`` in process at
+    DiT-XL/1 cut to depth GEN_CKPT_DEPTH: GEN_TRAIN_STEPS steps and a
+    checkpoint, the restore checked bit for bit, ``--resume`` for one more
+    step against an uninterrupted run's; write and read timed. Returns the
+    launch counts of the three runs and the checkpoint directory."""
+    import shutil
+
+    import torch
+
+    from vtp_tpu_torch.checkpoint import (
+        restore_train_state,
+        save_train_state,
+        train_state_tensors,
+    )
+    from vtp_tpu_torch.dit.model import make_dit_config
+    from vtp_tpu_torch.dit.train import DiTTrainConfig, init_dit_state
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.tools import train_dit
+
+    ckpt, straight = os.path.join(out_dir, "dit"), os.path.join(out_dir, "dit_straight")
+    args = ["--latent_dir", lat_dir, "--preset", "DiT-XL/1", "--depth", str(GEN_CKPT_DEPTH),
+            "--batch_size", str(GEN_BATCH), "--accum_steps", str(GEN_ACCUM), "--accum_dtype",
+            "bf16", "--moment_dtype", "bf16", "--log_every", "1", "--seed", str(SEED),
+            "--device", "cuda"]
+    n = GEN_TRAIN_STEPS
+    reset_launch_counts()
+    first = train_dit.main(args + ["--steps", str(n), "--ckpt_every", str(n), "--out", ckpt])
+    resumed = train_dit.main(args + ["--steps", str(n + 1), "--resume", "--out", ckpt])
+    whole = train_dit.main(args + ["--steps", str(n + 1), "--out", straight])
+    shutil.rmtree(straight)  # its metrics are what is held; its checkpoint is not read
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: (2 * n + 2) * v  # n steps, 1 resumed, n + 1 uninterrupted
+            for k, v in expected_dit_step_launches(GEN_CKPT_DEPTH, "attn").items()}
+    print(f"generation: tools/train_dit.py main at depth {GEN_CKPT_DEPTH}: {n} steps, "
+          f"--resume to {n + 1}, and {n + 1} uninterrupted; launches {counts} "
+          f"(expected {want})", flush=True)
+    if counts != want or resumed["start_step"] != n:
+        raise AssertionError(f"train_dit launches {counts} / resumed at "
+                             f"{resumed['start_step']}")
+
+    cfg = make_dit_config("DiT-XL/1", depth=GEN_CKPT_DEPTH)
+    tcfg = DiTTrainConfig(total_steps=n, moment_dtype="bf16")
+    saved = first["state"]
+    template = init_dit_state(cfg, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_train_state(ckpt, template, step=n)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    a, b = train_state_tensors(saved), train_state_tensors(template)
+    same = (a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            and template.step == saved.step == n and template.optimizer.count == n)
+    n_bytes = os.path.getsize(os.path.join(ckpt, f"step_{n:08d}", "train_state.safetensors"))
+    t0 = time.perf_counter()
+    save_train_state(os.path.join(out_dir, "timed"), saved, block=True)
+    write_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(out_dir, "timed"))
+    print(f"generation: train state of {n_bytes / 1e9:.3f} GB (DiT-XL/1 at depth "
+          f"{GEN_CKPT_DEPTH}, bf16 moments) written in {write_s:.2f} s, read into a template in "
+          f"{read_s:.2f} s (host clock, warm page cache); restored state bit for bit "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("the restored train state differs from the saved one")
+    _hold_metrics(f"generation resumed step {n + 1}", resumed["metrics"][0],
+                  whole["metrics"][n], {"loss/transport": LOSS_REL, "loss/mse": LOSS_REL,
+                                        "loss/cos": LOSS_REL, "grad_norm": 2e-2})
+    exact = all(resumed["metrics"][0][k] == whole["metrics"][n][k] for k in whole["metrics"][n])
+    print(f"generation: resumed step {n + 1} bit-equal to the uninterrupted one: {exact}",
+          flush=True)
+    return counts, ckpt
+
+
+def gen_sample(model_state, tokenizer, lat_dir, ckpt):
+    """Phase 6c, step 4: ``tools/sample_dit.py``'s ``sample_batches`` at
+    GEN_SAMPLE_STEPS euler steps and cfg GEN_CFG on the DiT-XL/1 EMA of
+    step 2, decoded by the tokenizer, counted, its latents against the plain
+    versions; then the same on the EMA restored from step 3's depth-cut
+    checkpoint, counted. Returns the launch counts of both."""
+    import numpy as np
+    import torch
+
+    from vtp_tpu_torch.checkpoint import restore_train_state
+    from vtp_tpu_torch.dit.model import make_dit_config
+    from vtp_tpu_torch.dit.train import DiTTrainConfig, init_dit_state
+    from vtp_tpu_torch.generation.latents import load_latent_stats
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, NORM_NAME
+    from vtp_tpu_torch.tools.sample_dit import sample_batches
+
+    stats = load_latent_stats(lat_dir)
+    kw = dict(num_samples=GEN_SAMPLES, batch_size=GEN_SAMPLES, num_steps=GEN_SAMPLE_STEPS,
+              cfg_scale=GEN_CFG, seed=SEED)
+    decode_depth = tokenizer.config.decoder_depth
+
+    def run(ema, label):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ((z, images),) = list(sample_batches(ema, tokenizer, stats, **kw))
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        counts = launch_counts()
+        want = {NORM_NAME: GEN_SAMPLE_STEPS * 2 * ema.config.depth,
+                ARM_NAME[torch.float32]: decode_depth}
+        size = tokenizer.img_size
+        print(f"generation: {label}: {GEN_SAMPLES} images, {GEN_SAMPLE_STEPS} euler steps at "
+              f"cfg {GEN_CFG}, decoded, in {sample_s:.3f} s (host clock); launches {counts} "
+              f"(expected {want})", flush=True)
+        if counts != want or tuple(images.shape) != (GEN_SAMPLES, size, size, 3) or \
+                images.dtype != torch.uint8:
+            raise AssertionError(f"{label}: launches {counts}, images {tuple(images.shape)} "
+                                 f"{images.dtype}")
+        return counts, z
+
+    counts, z = run(model_state.ema, "sample_batches on the DiT-XL/1 EMA")
+    with _plain_kernels():
+        ((z_ref, _),) = list(sample_batches(model_state.ema, tokenizer, stats, **kw))
+    err = ((z - z_ref).abs().max() / z_ref.abs().max()).item()
+    ok = err <= FEATURE_REL and torch.isfinite(z).all().item()
+    print(f"generation: sampled latents vs plain versions: max err {err:.3e} of max|ref| "
+          f"(limit {FEATURE_REL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the sampled latents disagree with the plain-version run")
+
+    cfg = make_dit_config("DiT-XL/1", depth=GEN_CKPT_DEPTH)
+    template = init_dit_state(cfg, DiTTrainConfig(total_steps=1), device="cuda")
+    restored = restore_train_state(ckpt, template, allow_dtype_mismatch=True)
+    more, _ = run(restored.ema, f"sample_batches on the EMA restored at depth {GEN_CKPT_DEPTH}")
+    return {k: counts.get(k, 0) + more.get(k, 0) for k in counts.keys() | more.keys()}
+
+
+def run_generation_pipeline(gen, model):
+    """Phase 6c: the generation pipeline, image batches -> latent shards ->
+    DiT training -> train-state checkpoints -> samples, on the VTP-L model
+    written with ``save_hf_checkpoint`` and read back by
+    ``VTPTokenizer.from_checkpoint`` (checked bit for bit), all in a
+    temporary directory. Returns the launch counts of the counted runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vtp_tpu_torch.convert import save_hf_checkpoint
+    from vtp_tpu_torch.generation import VTPTokenizer
+
+    n_bytes = sum(t.numel() * 4 for t in model.state_dict().values())
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * n_bytes:  # at most the VTP-L checkpoint, or 3 depth-cut train states
+        raise AssertionError(f"{tmp} has {free / 1e9:.1f} GB free; the phase needs "
+                             f"{2 * n_bytes / 1e9:.1f} GB")
+    totals = {}
+    with tempfile.TemporaryDirectory() as d:
+        vtp_dir = os.path.join(d, "vtp")
+        save_hf_checkpoint(vtp_dir, model)
+        tokenizer = VTPTokenizer.from_checkpoint(vtp_dir, device="cuda",
+                                                 img_size=model.config.image_size)
+        shutil.rmtree(vtp_dir)
+        if not _same_state(model, tokenizer.model):
+            raise AssertionError("VTPTokenizer.from_checkpoint differs from the saved model")
+        print("generation: VTPTokenizer.from_checkpoint on the VTP-L checkpoint, state bit for "
+              "bit ok", flush=True)
+        lat_dir = os.path.join(d, "latents")
+        t0 = time.perf_counter()
+        runs = [gen_extract(gen, tokenizer, lat_dir)]
+        counts, state = gen_train(gen, lat_dir)
+        runs.append(counts)
+        counts, ckpt = gen_checkpoint(lat_dir, d)
+        runs.append(counts)
+        runs.append(gen_sample(state, tokenizer, lat_dir, ckpt))
+        del state
+        torch.cuda.empty_cache()
+        print(f"generation pipeline: all steps in {time.perf_counter() - t0:.1f} s", flush=True)
+    for run in runs:
+        for k, n in run.items():
+            totals[k] = totals.get(k, 0) + n
+    return totals
+
+
 def profile_run(label: str, fn) -> None:
     """Phase 6 (--profile): device time of one call of ``fn`` by kernel, by
     kind of kernel, and the device's idle share of the wall time."""
@@ -2649,7 +3043,14 @@ def main() -> int:
           f"decode on {card_line}: {sample_s:.3f} s, {SAMPLE_BATCH / sample_s:.3f} images/s, "
           f"{sample_s / SAMPLE_STEPS * 1e3:.2f} ms an euler step with the decode spread over them "
           f"(host clock, one run)", flush=True)
-    del state, tokenizer
+    del state
+    torch.cuda.empty_cache()
+
+    # its own generator: the later phases draw what they drew before it
+    _set_phase("generation pipeline")
+    gen_counts = run_generation_pipeline(torch.Generator(device="cuda").manual_seed(SEED),
+                                         tokenizer.model)
+    del tokenizer
     torch.cuda.empty_cache()
 
     _set_phase("head dims 32 and 128")
@@ -2667,12 +3068,12 @@ def main() -> int:
     # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
     # one non-causal text call, the reconstruction and zero-shot evals, the
     # linear probe, the text intermediates, the extras, one train step, one
-    # DiT train step, one 250-step sample, and at head dims 32 and 128 one
-    # roundtrip, high decode, train step, DiT train step and 4-step sample
-    # each)
+    # DiT train step, one 250-step sample, the generation pipeline's counted
+    # runs, and at head dims 32 and 128 one roundtrip, high decode, train
+    # step, DiT train step and 4-step sample each)
     for run in (high_counts, serve_counts, hm_counts, text_counts, eval_counts, zs_counts,
                 probe_counts, ti_counts, extras_counts,
-                train_counts, dit_counts, sample_counts, *head_dim_counts):
+                train_counts, dit_counts, sample_counts, gen_counts, *head_dim_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     _set_phase("timing")

@@ -469,14 +469,6 @@ def test_accumulated_step_matches_jax():
     _check_moments("d48", state, jstate, "fp32")
 
 
-UNPORTED = {"accum_dtype": dict(accum_dtype="bf16"), "moment_dtype": dict(moment_dtype="bf16")}
-
-
-@pytest.mark.parametrize("option", list(UNPORTED))
-def test_unported_train_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        build_dit_train_step(DiTConfig(**CONFIGS["d64"]), DiTTrainConfig(**UNPORTED[option]))
-
 
 # ------------------------------------------------------- tokenizer, sampler
 
@@ -530,8 +522,6 @@ def test_tokenizer_unported_options_raise(tokenizers):
     for kw in (dict(quantize_int8=True), dict(data_sharding=object())):
         with pytest.raises(NotImplementedError):
             VTPTokenizer(tok.model, **kw)
-    with pytest.raises(NotImplementedError):
-        VTPTokenizer.from_checkpoint("any")
 
 
 def test_sample_images_matches_jax(tokenizers):

@@ -239,7 +239,7 @@ def test_safetensors_writer_is_read_by_the_package(tmp_path):
         assert got[name].dtype == value.dtype and got[name].shape == value.shape
         np.testing.assert_array_equal(got[name], value)
     with pytest.raises(TypeError):
-        save_safetensors(str(tmp_path / "bad.safetensors"), {"i": np.arange(3)})
+        save_safetensors(str(tmp_path / "bad.safetensors"), {"f64": np.arange(3.0)})
 
 
 # -------------------------------------------------------------------- server

@@ -204,8 +204,6 @@ def test_make_ssl_batch_layout():
 UNPORTED = {
     "accumulation": ({}, dict(accum_steps=2)),
     "drop_path": ({}, dict(ssl_drop_rate=0.1)),
-    "bf16_moments": ({}, dict(moment_dtype="bf16")),
-    "remat_policy": ({}, dict(remat="dots")),
     "sequence_parallel": ({}, dict(sequence_parallel=True)),
     "rope_augmentation": (dict(rope_shift_coords=0.1), {}),
 }

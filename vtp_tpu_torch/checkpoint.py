@@ -9,20 +9,44 @@ holding the JAX-layout parameter tree (``convert.from_torch``'s
 ``convert_state_dict``) flattened under ``/``-joined paths; a None leaf is
 a zero-size tensor named ``<path>/__none__``. The trunk's qkv columns are
 in the layout the config declares (``vision_qkv_head_major``), and the
-RoPE periods are BF16 when the rope dtype is. The orbax train state of
-``checkpoint.py`` is not ported.
+RoPE periods are BF16 when the rope dtype is.
+
+Train states (``checkpoint.py:109-215``, orbax there): ``save_train_state``
+writes a train state (``dit.train.DiTState`` or ``train.state.TrainState``)
+to ``<directory>/step_{step:08d}/train_state.safetensors`` with the port's
+own ``.safetensors`` writer: every module's state dict under its attribute
+name (``model/...``, ``ema/...``), every tensor attribute (the centers), the
+optimizer's moments (``optimizer/mu/<leaf>``, ``optimizer/nu/<leaf>``) in
+their dtypes and its Adam count, and the step (I32 scalars, as in the JAX
+tree). ``block=False`` copies the state to the host before it returns (a
+train step updates the state in place) and writes on a background thread;
+``wait_for_checkpoints`` waits for those writes. ``restore_train_state``
+fills a template state of the same structure in place and refuses a leaf
+whose stored dtype differs from the template's (a ``--moment_dtype``
+switch) unless ``allow_dtype_mismatch``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import os
-from typing import Any, Dict, Tuple
+import re
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 from vtp_tpu_torch.config import VTPConfig
-from vtp_tpu_torch.convert.safetensors_io import load_safetensors, save_safetensors
+from vtp_tpu_torch.convert.safetensors_io import (
+    load_safetensors,
+    read_safetensors_header,
+    save_safetensors,
+)
+from vtp_tpu_torch.train.optim import AdamW
 
 _SEP = "/"
 _NONE_MARKER = "__none__"
@@ -99,3 +123,143 @@ def load_pretrained(path: str) -> Tuple[VTPConfig, Any]:
                          f"read it with convert.load_vtp_checkpoint")
     config = VTPConfig.from_dict(cfg_dict)
     return config, unflatten_params(load_safetensors(os.path.join(path, "model.safetensors")))
+
+
+# ------------------------------------------------------------ train state
+
+TRAIN_STATE_FILE = "train_state.safetensors"
+_TAGS = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+         torch.int64: "I64", torch.int32: "I32"}
+_writer: Optional[cf.ThreadPoolExecutor] = None
+_pending: List[cf.Future] = []
+_pending_lock = threading.Lock()
+
+
+def train_state_tensors(state: Any) -> Dict[str, torch.Tensor]:
+    """Every tensor of a train state by checkpoint name: the state dicts of
+    its modules, its tensor attributes and its optimizer's moments. The
+    tensors are the state's own (a copy into them updates the state)."""
+    out: Dict[str, torch.Tensor] = {}
+    for attr, value in vars(state).items():
+        if isinstance(value, nn.Module):
+            out.update((f"{attr}/{k}", v) for k, v in value.state_dict().items())
+        elif isinstance(value, torch.Tensor):
+            out[attr] = value
+        elif isinstance(value, AdamW):
+            for moment in ("mu", "nu"):
+                out.update((f"{attr}/{moment}/{n}", t)
+                           for n, t in getattr(value, moment).items())
+    return out
+
+
+def _counters(state: Any) -> Dict[str, int]:
+    """The state's integer counters: its step and each optimizer's count."""
+    out = {"step": int(state.step)}
+    out.update((f"{attr}/count", int(v.count)) for attr, v in vars(state).items()
+               if isinstance(v, AdamW))
+    return out
+
+
+def _set_counters(state: Any, values: Dict[str, int]) -> None:
+    state.step = values["step"]
+    for attr, v in vars(state).items():
+        if isinstance(v, AdamW):
+            v.count = values[f"{attr}/count"]
+
+
+def _write_train_state(path: str, arrays: Dict[str, np.ndarray], bf16: List[str]) -> None:
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    save_safetensors(os.path.join(tmp, TRAIN_STATE_FILE), arrays, bf16=bf16,
+                     metadata={"format": "vtp_tpu_torch train state"})
+    if os.path.isdir(path):  # force, as the JAX package saves
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+
+
+def save_train_state(directory: str, state: Any, step: Optional[int] = None,
+                     block: bool = True) -> str:
+    """Write ``state`` to ``directory/step_{step:08d}`` (``step`` defaults to
+    the state's) and return that path. The state is copied to the host
+    before this returns; with ``block=False`` the file is written on a
+    background thread: call :func:`wait_for_checkpoints` before the
+    process exits or the checkpoint is read back."""
+    global _writer
+    step = int(state.step) if step is None else step
+    arrays, bf16 = {}, []
+    for name, t in train_state_tensors(state).items():
+        t = t.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            t = t.float()  # written back as BF16, exactly
+            bf16.append(name)
+        arrays[name] = t.numpy()
+    arrays.update((k, np.array(v, np.int32)) for k, v in _counters(state).items())
+    path = os.path.join(os.path.abspath(directory), f"step_{step:08d}")
+    with _pending_lock:
+        if _writer is None:
+            _writer = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-state")
+        _pending.append(_writer.submit(_write_train_state, path, arrays, bf16))
+    if block:
+        wait_for_checkpoints()
+    return path
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every train-state write started so far is on disk; a
+    failed write raises here."""
+    with _pending_lock:
+        pending = list(_pending)
+        _pending.clear()
+    for fut in pending:
+        fut.result()
+
+
+def latest_train_state_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(m.group(1)) for d in os.listdir(directory)
+             if (m := re.match(r"step_(\d+)$", d))]
+    return max(steps) if steps else None
+
+
+def restore_train_state(directory: str, template: Any, step: Optional[int] = None,
+                        allow_dtype_mismatch: bool = False) -> Any:
+    """Fill ``template`` (a train state of the saved structure) in place
+    from ``directory``'s checkpoint at ``step`` (default: the latest) and
+    return it. A missing or extra leaf or a shape change raises
+    ``ValueError``, and so does a leaf whose stored dtype differs from the
+    template's (resuming with another ``--moment_dtype``) unless
+    ``allow_dtype_mismatch``, which casts it to the template's dtype."""
+    wait_for_checkpoints()
+    step = latest_train_state_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    path = os.path.join(os.path.abspath(directory), f"step_{step:08d}", TRAIN_STATE_FILE)
+    _, header = read_safetensors_header(path)
+    header.pop("__metadata__", None)
+    tensors = train_state_tensors(template)
+    counters = _counters(template)
+    want = set(tensors) | set(counters)
+    if set(header) != want:
+        missing, extra = sorted(want - set(header)), sorted(set(header) - want)
+        raise ValueError(f"checkpoint {path} does not match the template: missing "
+                         f"{missing[:10]}, unexpected {extra[:10]}")
+    bad = []
+    for name, t in tensors.items():
+        if tuple(header[name]["shape"]) != tuple(t.shape):
+            raise ValueError(f"checkpoint {path}: {name} has shape {header[name]['shape']}, "
+                             f"the template {tuple(t.shape)}")
+        if header[name]["dtype"] != _TAGS.get(t.dtype):
+            bad.append(f"  {name}: checkpoint {header[name]['dtype']} vs template {t.dtype}")
+    if bad and not allow_dtype_mismatch:
+        raise ValueError(f"checkpoint {path} dtype mismatch (did --moment_dtype change since it "
+                         "was written?); pass allow_dtype_mismatch=True to cast on restore:\n"
+                         + "\n".join(bad[:10])
+                         + ("" if len(bad) <= 10 else f"\n  ... {len(bad) - 10} more"))
+    arrays = load_safetensors(path)
+    with torch.no_grad():
+        for name, t in tensors.items():
+            t.copy_(torch.from_numpy(arrays[name]))
+    _set_counters(template, {k: int(arrays[k]) for k in counters})
+    return template

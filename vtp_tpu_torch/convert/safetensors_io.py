@@ -4,37 +4,52 @@ A file is an 8-byte little-endian header length, a JSON header of
 ``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (plus an
 optional ``"__metadata__"`` of strings), then the raw little-endian
 row-major data, the offsets counted from the end of the header. The
-writer pads the header with spaces to a multiple of 8 bytes and lays the
-tensors out back to back in name order, as the ``safetensors`` package
-does, so either side reads the other's files.
+writer lays the file out as the ``safetensors`` package does: the metadata
+first in the header (its keys sorted; the package's follow a hash map),
+the tensors back to back by dtype (I64, F32, I32, BF16, F16: the package's
+dtype order, descending), then by name, and the header padded with spaces
+to a multiple of 8 bytes. A file of the same tensors with at most one
+metadata key is then byte for byte the package's, and either side reads
+the other's files.
 
-F32, F16 and BF16 are read; numpy has no bfloat16, so a BF16 tensor comes
-back as fp32 (its bits shifted up by 16, which is exact). F32 and F16 are
-written, and fp32 arrays named in ``bf16`` as BF16 (rounded to nearest
-even, exact for values that came from bf16). Zero-size tensors (the JAX
-package's ``__none__`` markers) are read and written.
+F32, F16, BF16, I64 and I32 are read; numpy has no bfloat16, so a BF16
+tensor comes back as fp32 (its bits shifted up by 16, which is exact).
+F32, F16, I64 and I32 are written, and fp32 arrays named in ``bf16`` as
+BF16 (rounded to nearest even, exact for values that came from bf16).
+Zero-size tensors (the JAX package's ``__none__`` markers) are read and
+written.
 """
 
 from __future__ import annotations
 
 import json
 import struct
-from typing import Collection, Dict, Optional
+from typing import Collection, Dict, Optional, Tuple
 
 import numpy as np
 
-_READ = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "BF16": np.dtype("<u2")}
-_WRITE = {np.dtype("float32"): "F32", np.dtype("float16"): "F16"}
+_READ = {"F32": np.dtype("<f4"), "F16": np.dtype("<f2"), "BF16": np.dtype("<u2"),
+         "I64": np.dtype("<i8"), "I32": np.dtype("<i4")}
+_WRITE = {np.dtype("float32"): "F32", np.dtype("float16"): "F16", np.dtype("int64"): "I64",
+          np.dtype("int32"): "I32"}
+# the layout order of the tags written: the safetensors package's, by dtype
+_ORDER = {tag: i for i, tag in enumerate(("I64", "F32", "I32", "BF16", "F16"))}
 _MAX_HEADER = 100 * 1024 * 1024
 
 
-def load_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """Every tensor of the file, as numpy arrays (BF16 as fp32)."""
+def read_safetensors_header(path: str) -> Tuple[int, Dict]:
+    """(header length, the JSON header: ``{name: {"dtype", "shape",
+    "data_offsets"}}`` and any ``"__metadata__"``) of a file."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         if n > _MAX_HEADER:
             raise ValueError(f"{path}: header of {n} bytes is not a safetensors header")
-        header = json.loads(f.read(n))
+        return n, json.loads(f.read(n))
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Every tensor of the file, as numpy arrays (BF16 as fp32)."""
+    n, header = read_safetensors_header(path)
     header.pop("__metadata__", None)
     if not header:
         return {}
@@ -71,27 +86,30 @@ def _to_bf16_bits(x: np.ndarray) -> np.ndarray:
 def save_safetensors(path: str, tensors: Dict[str, np.ndarray],
                      metadata: Optional[Dict[str, str]] = None,
                      bf16: Collection[str] = ()) -> None:
-    """Write fp32 or fp16 numpy arrays as one ``.safetensors`` file; the
-    fp32 arrays named in ``bf16`` are written as BF16."""
-    header, offset, arrays = {}, 0, []
-    for name in sorted(tensors):
-        arr = np.asarray(tensors[name])
+    """Write float32, float16, int64 or int32 numpy arrays as one
+    ``.safetensors`` file; the fp32 arrays named in ``bf16`` are written as
+    BF16."""
+    tagged = []
+    for name, value in tensors.items():
+        arr = np.asarray(value)
         if not arr.flags.c_contiguous:
             arr = arr.copy(order="C")  # (np.ascontiguousarray would make a 0-d array 1-d)
-        if arr.dtype not in _WRITE or (name in bf16 and arr.dtype != np.float32):
-            raise TypeError(f"{name}: dtype {arr.dtype}; only float32 and float16 are written, "
-                            f"and BF16 from float32")
+        dtype = arr.dtype.newbyteorder("=")
+        if dtype not in _WRITE or (name in bf16 and dtype != np.float32):
+            raise TypeError(f"{name}: dtype {arr.dtype}; only float32, float16, int64 and int32 "
+                            f"are written, and BF16 from float32")
         if name in bf16:
             arr, tag = _to_bf16_bits(arr).astype("<u2"), "BF16"
         else:
-            arr = arr.astype(arr.dtype.newbyteorder("<"), copy=False)
-            tag = _WRITE[arr.dtype.newbyteorder("=")]
+            arr, tag = arr.astype(dtype.newbyteorder("<"), copy=False), _WRITE[dtype]
+        tagged.append((_ORDER[tag], name, tag, arr))
+    header = {"__metadata__": dict(sorted(metadata.items()))} if metadata else {}
+    offset, arrays = 0, []
+    for _, name, tag, arr in sorted(tagged, key=lambda t: t[:2]):
         header[name] = {"dtype": tag, "shape": list(arr.shape),
                         "data_offsets": [offset, offset + arr.nbytes]}
         offset += arr.nbytes
         arrays.append(arr)
-    if metadata:
-        header["__metadata__"] = dict(metadata)
     raw = json.dumps(header, separators=(",", ":")).encode()
     raw += b" " * (-len(raw) % 8)
     with open(path, "wb") as f:

@@ -17,7 +17,9 @@ whose kernel takes 64 and raises on a CUDA tensor.
 The RoPE periods are an fp32 buffer (``rope_periods``) with no gradient,
 as the fused kernel's VJP gives the tables (the JAX split path on a CPU
 differentiates them). ``load_numpy_dit_params`` fills a module from the
-JAX parameter tree as numpy arrays.
+JAX parameter tree as numpy arrays, and ``load_numpy_dit_state`` a whole
+train state (parameters, EMA, Adam moments and count, step) from the JAX
+train state.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from vtp_tpu_torch.models.blocks import SwiGLUFFN, checkpoint_policy
 from vtp_tpu_torch.models.initializers import linear_, normal_
@@ -247,7 +248,8 @@ class DiT(nn.Module):
                 compute_dtype: Optional[torch.dtype] = torch.bfloat16,
                 remat: Union[bool, str] = False) -> torch.Tensor:
         """(B, C, H, W) latents, (B,) times, (B,) int labels -> (B, C, H, W)
-        fp32 velocity. ``remat`` recomputes each block in the backward."""
+        fp32 velocity. ``remat`` is the blocks' gradient-checkpoint policy
+        (``models/blocks.checkpoint_policy``)."""
         cfg = self.config
         B, C, H, W = x.shape
         ps = cfg.patch_size
@@ -261,10 +263,10 @@ class DiT(nn.Module):
         cond = t_emb.float() + F.embedding(y, self.y_embed.weight)
 
         rope = rope_sincos(self.rope_periods, gh, gw)
-        use_ckpt = checkpoint_policy(remat) and torch.is_grad_enabled()
+        run = checkpoint_policy(remat)
         for blk in self.blocks:
-            if use_ckpt:
-                h = checkpoint(blk, h, cond, rope, compute_dtype, use_reentrant=False)
+            if run is not None and torch.is_grad_enabled():
+                h = run(blk, h, cond, rope, compute_dtype)
             else:
                 h = blk(h, cond, rope, compute_dtype)
 
@@ -334,3 +336,38 @@ def load_numpy_dit_params(model: DiT, params: dict) -> None:
     missing = sorted(set(own) - filled)
     if missing:
         raise KeyError(f"not in the parameter tree: {missing}")
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside a nested optax state."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+@torch.no_grad()
+def load_numpy_dit_state(state, jstate: dict) -> None:
+    """Fill a ``dit.train.DiTState`` from the JAX package's DiT train state
+    (``init_dit_state``'s tree: params, ema, opt_state, step) as numpy
+    arrays: the parameters and the EMA through ``load_numpy_dit_params``,
+    the Adam moments (fp32 or bf16, cast to the optimizer's moment dtype)
+    by the same names, the Adam count and the step."""
+    load_numpy_dit_params(state.model, jstate["params"])
+    load_numpy_dit_params(state.ema, jstate["ema"])
+    adam = _adam_state(jstate["opt_state"])
+    if adam is None:
+        raise KeyError("no Adam state (count, mu, nu) in opt_state")
+    opt = state.optimizer
+    scratch = DiT(state.model.config, device="cpu")  # names the JAX moment trees
+    for moment in ("mu", "nu"):
+        load_numpy_dit_params(scratch, getattr(adam, moment))
+        named = scratch.state_dict()
+        for name, t in getattr(opt, moment).items():
+            t.copy_(named[name])
+    opt.count = int(np.asarray(adam.count))
+    state.step = int(np.asarray(jstate["step"]))

@@ -1,38 +1,47 @@
-"""The DiT training step (port of ``vtp_tpu/dit/train.py``:
-``DiTTrainConfig`` :27, ``make_dit_optimizer`` :67, ``init_dit_state``
-:84, ``build_dit_train_step`` :143).
+"""The DiT training step and the latent-shard dataset (port of
+``vtp_tpu/dit/train.py``: ``DiTTrainConfig`` :27, ``make_dit_optimizer``
+:67, ``init_dit_state`` :84, ``build_dit_train_step`` :143, the host-driven
+accumulation ``build_dit_microbatch_steps`` / ``run_accum_step`` /
+``zero_grad_accumulators`` :173-234, ``LatentShardDataset`` :237).
 
 One step: classifier-free label dropout, the flow-matching losses of
 ``transport.training_losses`` through ``DiT.forward`` (bf16 compute, remat
-on by default), one backward, clip by global norm, AdamW (a constant
-learning rate without warmup, else warmup-cosine), and the EMA of every
-parameter and the RoPE periods at ``ema_decay``. With ``accum_steps > 1``
-the latents and labels carry a leading microbatch axis; the gradients are
-summed in fp32 over the microbatches and averaged with the metrics before
-the one update, as the JAX package's in-jit scan does. The state is
-updated in place.
+on by default; every policy of ``models/blocks.checkpoint_policy``), one
+backward, clip by global norm, AdamW (a constant learning rate without
+warmup, else warmup-cosine; fp32 or bf16 moments), and the EMA of every
+parameter and the RoPE periods at ``ema_decay``. The state is updated in
+place.
 
-The host-driven accumulation of the JAX package
-(``build_dit_microbatch_steps``, ``run_accum_step``) is the same loop in
-PyTorch and is not given separately. ``accum_dtype="bf16"`` and
-``moment_dtype="bf16"`` raise ``NotImplementedError``; ``unroll_layers``
-changes nothing here (the depth loop is a Python loop). The latent-shard
-dataset (``LatentShardDataset``) is not ported.
+With ``accum_steps > 1`` the latents and labels carry a leading
+microbatch axis and the step is the JAX package's host-driven pair, which
+``tools/train_dit.py`` runs (:109-128, 147-151): the gradient sums start
+from zeros in ``accum_dtype`` (``zero_grad_accumulators``), each
+microbatch adds in fp32 and stores in ``accum_dtype``, and the sums are
+divided by ``accum_steps`` in fp32 before the one update; the metrics are
+averaged. The JAX package's in-jit scan (``build_dit_train_step``,
+:142-168) accumulates in fp32 always, from the first microbatch's
+gradients; in fp32 the two agree bit for bit (0 + g = g).
+``unroll_layers`` changes nothing here (the depth loop is a Python loop).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from vtp_tpu_torch.convert.safetensors_io import load_safetensors, read_safetensors_header
 from vtp_tpu_torch.dit.model import DiT, DiTConfig
 from vtp_tpu_torch.dit.transport import metric_keys, training_losses
-from vtp_tpu_torch.train.optim import AdamW
+from vtp_tpu_torch.generation.latents import list_latent_shards, load_latent_stats
+from vtp_tpu_torch.train.optim import AdamW, resolve_moment_dtype
 from vtp_tpu_torch.train.state import ema_update
+
+ACCUM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +74,11 @@ class DiTTrainConfig:
         return {None: None, "bf16": torch.bfloat16, "fp32": None}[self.compute_dtype]
 
 
-def check_supported(tcfg: DiTTrainConfig) -> None:
-    """Raise ``NotImplementedError`` for the options the port does not run."""
-    if tcfg.accum_dtype != "fp32":
-        raise NotImplementedError(f"accum_dtype={tcfg.accum_dtype!r} is not ported (fp32 only)")
-    if tcfg.moment_dtype not in ("fp32", "float32"):
-        raise NotImplementedError(f"moment_dtype={tcfg.moment_dtype!r} is not ported (fp32 only)")
+def check_config(tcfg: DiTTrainConfig) -> None:
+    """Raise ``ValueError`` for an unknown ``accum_dtype`` or ``moment_dtype``."""
+    if tcfg.accum_dtype not in ACCUM_DTYPES:
+        raise ValueError(f"unknown accum_dtype {tcfg.accum_dtype!r} (use 'fp32' or 'bf16')")
+    resolve_moment_dtype(tcfg.moment_dtype)
 
 
 class DiTState:
@@ -95,7 +103,7 @@ def make_dit_optimizer(leaves: Dict[str, torch.Tensor], tcfg: DiTTrainConfig) ->
     """Clip, then AdamW: a constant learning rate when ``warmup_steps == 0``,
     else ``optax.warmup_cosine_decay_schedule(0, lr, warmup,
     max(total, warmup + 1), 0)``."""
-    check_supported(tcfg)
+    check_config(tcfg)
     warmup = tcfg.warmup_steps
     return AdamW(leaves, learning_rate=tcfg.learning_rate, warmup_steps=warmup,
                  total_steps=max(tcfg.total_steps, warmup + 1),
@@ -112,13 +120,23 @@ def init_dit_state(cfg: DiTConfig, tcfg: DiTTrainConfig,
     return DiTState(model, ema, make_dit_optimizer(dit_leaves(model), tcfg))
 
 
+def zero_grad_accumulators(leaves: List[torch.Tensor], tcfg: DiTTrainConfig,
+                           device) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Fresh gradient sums, zeros in ``accum_dtype`` shaped like ``leaves``,
+    and metric sums, fp32 zeros under ``transport.metric_keys``."""
+    adt = ACCUM_DTYPES[tcfg.accum_dtype]
+    g_sum = [torch.zeros_like(p, dtype=adt) for p in leaves]
+    m_sum = {k: torch.zeros((), device=device) for k in metric_keys(tcfg.use_cosine_loss)}
+    return g_sum, m_sum
+
+
 def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
     """Returns ``train_step(state, latents, labels, generator, draws=None)
     -> (state, metrics)``. ``draws`` may give, per microbatch, the label
     dropout mask ``drop`` (B,) bool and the transport's ``t`` and ``x0``,
     with the latents' leading microbatch axis when ``accum_steps > 1``;
     what it lacks is drawn from ``generator`` (drop, then t, then x0)."""
-    check_supported(tcfg)
+    check_config(tcfg)
     cdt = tcfg.torch_compute_dtype
     accum = max(1, int(tcfg.accum_steps))
 
@@ -145,15 +163,22 @@ def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
         if accum == 1:
             grads, metrics = loss_and_grads(state, names, latents, labels, generator, draws)
         else:
-            g_sum, m_sum = None, dict.fromkeys(metric_keys(tcfg.use_cosine_loss), 0.0)
+            leaves = state.optimizer.leaves
+            g_sum, m_sum = zero_grad_accumulators([leaves[n] for n in names], tcfg,
+                                                  latents.device)
             for i in range(accum):
                 g, m = loss_and_grads(state, names, latents[i], labels[i], generator,
                                       {k: v[i] for k, v in draws.items()})
-                g_sum = [x.float() for x in g] if g_sum is None else [
-                    a + b.float() for a, b in zip(g_sum, g)]
+                for a, b in zip(g_sum, g):
+                    # add in fp32, store in the accumulator's dtype
+                    if a.dtype == torch.float32:
+                        a.add_(b.float())
+                    else:
+                        a.copy_(a.float() + b.float())
                 m_sum = {k: m_sum[k] + m[k] for k in m_sum}
                 del g
-            grads = [x / accum for x in g_sum]
+            grads = [x.float() / accum for x in g_sum]
+            del g_sum
             metrics = {k: v / accum for k, v in m_sum.items()}
         metrics["grad_norm"] = state.optimizer.step(dict(zip(names, grads)))
         del grads
@@ -162,3 +187,57 @@ def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
         return state, metrics
 
     return train_step
+
+
+class LatentShardDataset:
+    """Batches ``(latents, labels)`` from extracted latent shards
+    (``generation/latents.py``), normalised by the per-channel statistics
+    and flipped by taking rows of the precomputed ``latents_flip``. The
+    draws are the JAX package's, from ``np.random.default_rng(seed)`` in
+    its order (shard order, row permutation, flip draw, each epoch), so a
+    seed gives both packages the same batches bit for bit: fp32 latents
+    (B, d, h, w) and int32 labels (B,), as tensors on ``device``."""
+
+    def __init__(self, shard_dir: str, *, latent_norm: bool = True, seed: int = 0,
+                 device="cuda"):
+        self.paths = list_latent_shards(shard_dir)
+        if not self.paths:
+            raise FileNotFoundError(f"no latent shards in {shard_dir}")
+        self.mean = self.std = None
+        if latent_norm:
+            mean, std = load_latent_stats(shard_dir)
+            self.mean, self.std = mean.astype(np.float32), std.astype(np.float32)
+        self.seed = seed
+        self.device = device
+
+    def batches(self, batch_size: int,
+                skip: int = 0) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """An endless stream of batches; the tail of each shard that does not
+        fill a batch is skipped. The first ``skip`` batches are drawn but not
+        read (a resumed run's stream; a shard's rows come from its header).
+        Raises if no shard holds ``batch_size`` rows."""
+        rng = np.random.default_rng(self.seed)
+        while True:
+            yielded = False
+            for pi in rng.permutation(len(self.paths)):
+                n = read_safetensors_header(self.paths[pi])[1]["latents"]["shape"][0]
+                perm = rng.permutation(n)
+                shard = None
+                for s in range(0, n - batch_size + 1, batch_size):
+                    idx = perm[s:s + batch_size]
+                    flip = rng.random(batch_size) < 0.5
+                    yielded = True
+                    if skip:
+                        skip -= 1
+                        continue
+                    if shard is None:
+                        shard = load_safetensors(self.paths[pi])
+                    z = np.where(flip[:, None, None, None], shard["latents_flip"][idx],
+                                 shard["latents"][idx]).astype(np.float32)
+                    if self.mean is not None:
+                        z = (z - self.mean) / self.std
+                    labels = shard["labels"][idx].astype(np.int32)
+                    yield (torch.from_numpy(z).to(self.device),
+                           torch.from_numpy(labels).to(self.device))
+            if not yielded:
+                raise ValueError(f"no shard holds a batch of {batch_size} rows")

@@ -8,9 +8,10 @@ images (an exact-fp32 decode), and the ``patch_size``, ``embed_dim``,
 ``downsample_ratio`` and ``latent_size`` attributes. It wraps the port's
 ``VTPModel``; latents and images stay on the model's device as tensors.
 
+``from_checkpoint`` loads the model through ``VTPModel.from_checkpoint``.
 Not ported, and raising ``NotImplementedError``: the int8 encoder
-(``quantize_int8``), batch sharding over a device mesh (``data_sharding``)
-and ``from_checkpoint``.
+(``quantize_int8``) and batch sharding over a device mesh
+(``data_sharding``).
 """
 
 from __future__ import annotations
@@ -72,8 +73,11 @@ class VTPTokenizer:
         self.latent_size = img_size // self.downsample_ratio
 
     @classmethod
-    def from_checkpoint(cls, hf_model_path: str, **kw) -> "VTPTokenizer":
-        raise NotImplementedError("loading a released checkpoint is not ported")
+    def from_checkpoint(cls, hf_model_path: str, device="cuda", **kw) -> "VTPTokenizer":
+        """The tokenizer over ``VTPModel.from_checkpoint(hf_model_path,
+        device)`` (an HF-layout or native checkpoint directory); ``kw`` goes
+        to the constructor."""
+        return cls(VTPModel.from_checkpoint(hf_model_path, device=device), **kw)
 
     def img_transform(self, p_hflip: float = 0.0, img_size: Optional[int] = None,
                       seed: int = 0) -> Callable[..., np.ndarray]:

@@ -7,9 +7,9 @@ Parameter names follow the reference checkpoints (``norm1``,
 released state dict loads by name. The depth loop is a plain loop over
 an ``nn.ModuleList``. Multi-crop lists are packed once into one
 ``(sum B_i*N_i, D)`` matrix for every norm and GEMM; attention runs one
-fused launch per crop. ``remat=True`` recomputes each block in the
-backward (``torch.utils.checkpoint``); the JAX package's other remat
-policies raise. Drop-path is not ported (``train/step.py`` refuses it).
+fused launch per crop. ``remat`` selects a gradient-checkpoint policy
+per block (``checkpoint_policy``, the JAX package's ``remat_wrap``). Drop-path
+is not ported (``train/step.py`` refuses it).
 ``precision`` ("float32" or "high") is the fp32 GEMM and attention mode,
 an explicit argument where the JAX package reads the ambient matmul
 precision (``vtp_tpu/models/blocks.py:216-227``).
@@ -28,17 +28,23 @@ not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from vtp_tpu_torch.models.initializers import linear_
 from vtp_tpu_torch.ops.activations import ACT
 from vtp_tpu_torch.ops.ffn import ffn_align_to, linear, mlp, swiglu, swiglu_hidden_dim
 from vtp_tpu_torch.ops.attention import sdpa_reference
 from vtp_tpu_torch.ops.flash_attention import (
+    FUSED_FORWARD_OP,
     flash_attention_bnhd,
     flash_supported_bnhd,
     fused_attention_supported,
@@ -275,15 +281,50 @@ class Block(nn.Module):
         return flat + (self.ls2(f) if self.ls2 is not None else f)
 
 
-def checkpoint_policy(remat: Union[bool, str, None]) -> bool:
-    """Whether ``remat`` asks for per-block recompute: False/None saves
-    everything, True/"full" saves nothing. The JAX package's selective
-    policies ("dots", "attn", "dots_attn") are not ported."""
+# The ops whose outputs each selective policy saves: 2-D matmuls
+# (dots_with_no_batch_dims_saveable), the fused attention forward (the
+# output tagged "attn_out" in the JAX package), or both.
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+_ATTN = (FUSED_FORWARD_OP,)
+SELECTIVE_POLICIES = {"dots": _DOTS, "attn": _ATTN, "dots_attn": _DOTS + _ATTN}
+
+
+def _save_policy(saved, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op.overloadpacket in saved:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_policy(remat: Union[bool, str, None]) -> Optional[Callable[..., torch.Tensor]]:
+    """The JAX package's ``remat_wrap`` (``vtp_tpu/models/blocks.py:502``):
+    None for False/None (save everything), else ``run(fn, *args)``, which
+    calls ``fn`` under ``torch.utils.checkpoint`` with the policy:
+
+      True / "full"  save nothing; the backward recomputes the whole block;
+      "dots"         save the outputs of 2-D matmuls (``aten.mm``,
+                     ``aten.addmm``) and recompute the rest, the fused
+                     attention forward included;
+      "attn"         save the fused attention forward's output
+                     (``ops.flash_attention.FUSED_FORWARD_OP``): the backward
+                     recomputes the GEMMs and elementwise ops but never
+                     launches the fused forward again;
+      "dots_attn"    both.
+
+    Any other value raises ``ValueError``. Every policy computes what
+    ``remat=False`` does, bit for bit where the recompute is deterministic;
+    only what is kept between the forward and the backward changes. A
+    block that takes the split attention path (head-major columns, a head
+    dim off the fused gate) has no fused forward to save and recomputes its
+    attention under "attn"."""
     if remat is False or remat is None:
-        return False
+        return None
     if remat is True or remat == "full":
-        return True
-    raise NotImplementedError(f"remat policy {remat!r} is not ported (use False or True)")
+        return functools.partial(checkpoint, use_reentrant=False)
+    if not isinstance(remat, str) or remat not in SELECTIVE_POLICIES:
+        raise ValueError(f"unknown remat mode: {remat!r}")
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   functools.partial(_save_policy, SELECTIVE_POLICIES[remat]))
+    return functools.partial(checkpoint, use_reentrant=False, context_fn=context_fn)
 
 
 def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequence[Rope],
@@ -299,11 +340,11 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
     ropes = list(ropes)
     d = xs[0].shape[-1]
     flat = torch.cat([x.reshape(-1, d) for x in xs]) if len(xs) > 1 else xs[0].reshape(-1, d)
-    use_ckpt = checkpoint_policy(remat) and torch.is_grad_enabled()
+    run = checkpoint_policy(remat) if torch.is_grad_enabled() else None
     for blk in blocks:
-        if use_ckpt:
-            flat = checkpoint(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
-                              precision, use_reentrant=False)
+        if run is not None:
+            flat = run(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
+                       precision)
         else:
             flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype, precision)
     out, off = [], 0

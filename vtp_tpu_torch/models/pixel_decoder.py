@@ -108,7 +108,8 @@ class PixelDecoder(nn.Module):
         """(B, C_in, H', W') latents -> (B, 3, H'*u, W'*u) images: in fp32
         at ``precision`` ("float32", exact, or "high", bf16x3) by default,
         in ``compute_dtype`` when one is given (training).
-        ``remat=True`` recomputes each block in the backward."""
+        ``remat`` is the blocks' gradient-checkpoint policy
+        (``blocks.checkpoint_policy``)."""
         check_precision(precision)
         if compute_dtype is not None:
             return self._forward(latents, compute_dtype, remat, "float32")

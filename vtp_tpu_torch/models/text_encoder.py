@@ -31,7 +31,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from vtp_tpu_torch.models.blocks import LayerScale, Norm, checkpoint_policy
 from vtp_tpu_torch.models.initializers import normal_
@@ -244,13 +243,16 @@ class TextTransformer(nn.Module):
                 compute_dtype: Optional[torch.dtype] = None,
                 remat: Union[bool, str] = False):
         """Token ids (B, L) -> pooled, projected features; ``(pooled, tokens)``
-        when ``output_tokens`` is set. ``remat=True`` recomputes each block
-        in the backward (``torch.utils.checkpoint``)."""
+        when ``output_tokens`` is set. ``remat`` is the blocks'
+        gradient-checkpoint policy (``blocks.checkpoint_policy``). The JAX
+        text tower tags no "attn_out", so there "attn" recomputes the causal
+        fused attention; here "attn" saves its output as in the trunk (the
+        same arithmetic, no launch in the recompute)."""
         x, mask, is_causal = self.embeds(text)
-        use_ckpt = checkpoint_policy(remat)
+        run = checkpoint_policy(remat)
         for blk in self.text_transformer.resblocks:
-            if use_ckpt and torch.is_grad_enabled():
-                x = checkpoint(blk, x, mask, is_causal, compute_dtype, use_reentrant=False)
+            if run is not None and torch.is_grad_enabled():
+                x = run(blk, x, mask, is_causal, compute_dtype)
             else:
                 x = blk(x, mask, is_causal, compute_dtype)
         pooled, tokens = self.pool_project(x, text, compute_dtype)

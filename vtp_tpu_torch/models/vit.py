@@ -186,7 +186,8 @@ class VisionTransformer(nn.Module):
         """The reference's forward_features dict(s): x_norm_clstoken,
         x_storage_tokens, x_norm_patchtokens, x_prenorm, masks. A list of
         crops returns a list. ``training`` selects the local-crop cls norm;
-        ``remat=True`` recomputes each block in the backward."""
+        ``remat`` is the blocks' gradient-checkpoint policy
+        (``blocks.checkpoint_policy``)."""
         single = not isinstance(images, (list, tuple))
         x_list = [images] if single else list(images)
         if single:

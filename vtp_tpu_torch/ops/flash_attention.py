@@ -47,6 +47,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from vtp_tpu_torch.ops.attention import sdpa_reference
 from vtp_tpu_torch.ops.dispatch import count_launch, on_kernel_device
@@ -205,6 +206,29 @@ def _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
                        fp32_precision)
     return fused_qkv_rope_attention_reference(qkv, sin, cos, num_heads, q_scale, k_scale,
                                               n_valid, is_causal, fp32_precision)
+
+
+# ``_forward`` as one operator of the dispatcher, so that a selective
+# checkpoint policy sees the fused forward and can save its output
+# (``models/blocks.checkpoint_policy``: "attn", "dots_attn"); the backward's
+# recompute then takes the saved output and launches nothing. It has no
+# autograd of its own: ``_FusedAttention`` calls it, and only while a
+# dispatch mode (such a policy) is active, since the dispatcher's Python
+# kernel costs several microseconds a call.
+_LIB = torch.library.Library("vtp_torch", "DEF")
+_LIB.define("fused_attention_forward(Tensor qkv, Tensor? sin, Tensor? cos, Tensor? q_scale, "
+            "Tensor? k_scale, int num_heads, int n_valid, bool is_causal, str fp32_precision) "
+            "-> Tensor")
+
+
+def _forward_op_impl(qkv, sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal,
+                     fp32_precision):
+    return _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
+                    fp32_precision)
+
+
+_LIB.impl("fused_attention_forward", _forward_op_impl, "CompositeExplicitAutograd")
+FUSED_FORWARD_OP = torch.ops.vtp_torch.fused_attention_forward
 
 
 def _rope_adjoint(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
@@ -419,7 +443,8 @@ def fused_qkv_rope_attention_qk_norm_bwd(
 
 class _FusedAttention(torch.autograd.Function):
     """The differentiable fused attention (``_fused_with_vjp``). Its forward
-    (``_forward``) and bf16 backward (``fused_qkv_rope_attention_bwd``, and
+    (``_forward``; through ``FUSED_FORWARD_OP`` under a dispatch mode) and
+    bf16 backward (``fused_qkv_rope_attention_bwd``, and
     ``fused_qkv_rope_attention_qk_norm_bwd`` with qk-norm) pick the kernel
     or the plain version by device."""
 
@@ -428,8 +453,11 @@ class _FusedAttention(torch.autograd.Function):
                 fp32_precision):
         ctx.save_for_backward(qkv, sin, cos, q_scale, k_scale)
         ctx.args = (num_heads, n_valid, is_causal)
-        return _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
-                        fp32_precision)
+        if _get_current_dispatch_mode() is None:
+            return _forward(qkv, sin, cos, num_heads, q_scale, k_scale, n_valid, is_causal,
+                            fp32_precision)
+        return FUSED_FORWARD_OP(qkv, sin, cos, q_scale, k_scale, num_heads, n_valid, is_causal,
+                                fp32_precision)
 
     @staticmethod
     def backward(ctx, g):

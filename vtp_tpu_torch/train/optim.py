@@ -11,6 +11,11 @@ Per leaf p with gradient g, at step t (the count before this step):
     u  = (mu / (1 - b1^(t+1))) / (sqrt(nu / (1 - b2^(t+1))) + eps)
     p  = p + lr(t) * -(u + wd p)
 
+With ``moment_dtype="bf16"`` (``scale_by_adam_moments``, :44) the
+moments are stored in bf16, rounded to nearest even; the update is
+computed in fp32 from the unrounded moments, in the JAX package's order
+(``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + ((1 - b2) g) g``).
+
 Every leaf of the JAX package's parameter tree is a leaf here, RoPE
 ``periods`` included: ``optax.adamw`` there has no mask, so the periods
 (zero gradient) are decayed too. The port keeps them as buffers and
@@ -42,9 +47,21 @@ def warmup_cosine_lr(count: int, peak: float, warmup_steps: int, total_steps: in
     return float(f(peak) * cosine)
 
 
+def resolve_moment_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """Config string -> the moments' storage dtype: None (the leaf's own,
+    ``optax.adamw``) for 'fp32'/'float32'/None, bf16 for 'bf16'/'bfloat16'
+    (``vtp_tpu/train/optim.py:126``)."""
+    if name in (None, "fp32", "float32"):
+        return None
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"unknown moment_dtype {name!r} (use 'fp32' or 'bf16')")
+
+
 class AdamW:
-    """clip_by_global_norm -> AdamW over named leaves, fp32 moments (the
-    moment of a leaf has the leaf's dtype, as ``optax.adamw`` gives it).
+    """clip_by_global_norm -> AdamW over named leaves. With fp32 moments the
+    moment of a leaf has the leaf's dtype, as ``optax.adamw`` gives it; with
+    ``moment_dtype="bf16"`` every moment is stored in bf16.
     Each leaf's update is computed in fp32 and rounded to its dtype. Every
     leaf but the bf16 RoPE periods is fp32; for the periods (zero
     gradient, zero moments) the update is the decay alone, below half an
@@ -56,11 +73,10 @@ class AdamW:
                  moment_dtype: Optional[str] = "fp32", constant_lr: bool = False):
         """``constant_lr``: the learning rate stays at ``learning_rate``
         (the DiT optimizer without warmup) instead of the warmup-cosine."""
-        if moment_dtype not in (None, "fp32", "float32"):
-            raise NotImplementedError(f"moment_dtype={moment_dtype!r} is not ported (fp32 only)")
+        self.moment_dtype = resolve_moment_dtype(moment_dtype)
         self.leaves = leaves
-        self.mu = {n: torch.zeros_like(p) for n, p in leaves.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in leaves.items()}
+        self.mu = {n: torch.zeros_like(p, dtype=self.moment_dtype) for n, p in leaves.items()}
+        self.nu = {n: torch.zeros_like(p, dtype=self.moment_dtype) for n, p in leaves.items()}
         self.count = 0
         self.lr_args = (learning_rate, warmup_steps, total_steps)
         self.constant_lr = constant_lr
@@ -88,8 +104,12 @@ class AdamW:
         for n, p in self.leaves.items():
             g = gs[n].float()
             g = torch.where(keep, g, (g / norm) * self.grad_clip)
-            mu = (1 - b1) * g + b1 * self.mu[n].float()
-            nu = (1 - b2) * g ** 2 + b2 * self.nu[n].float()
+            if self.moment_dtype is None:
+                mu = (1 - b1) * g + b1 * self.mu[n].float()
+                nu = (1 - b2) * g ** 2 + b2 * self.nu[n].float()
+            else:
+                mu = b1 * self.mu[n].float() + (1 - b1) * g
+                nu = b2 * self.nu[n].float() + (1 - b2) * g * g
             self.mu[n].copy_(mu)
             self.nu[n].copy_(nu)
             pf = p.float()

@@ -9,10 +9,11 @@ the student on the masked globals and the local crops; DINO heads; DINO,
 iBOT and KoLeo losses), then one backward, clip by global norm, AdamW,
 the teacher EMA and both center updates. The state is updated in place.
 
-Ported: ``accum_steps == 1``, drop rates 0, ``remat`` False or True, fp32
-Adam moments, bf16 or fp32 compute. Each of gradient accumulation,
-drop-path, the RoPE coordinate augmentation, sequence and pipeline
-parallelism, the head-major TP layout and bf16 moments raises
+Ported: ``accum_steps == 1``, drop rates 0, every ``remat`` policy of the
+JAX package's ``remat_wrap`` (``models/blocks.py`` ``checkpoint_policy``),
+fp32 or bf16 Adam moments, bf16 or fp32 compute. Each of gradient
+accumulation, drop-path, the RoPE coordinate augmentation, sequence and
+pipeline parallelism and the head-major TP layout raises
 ``NotImplementedError`` when asked for.
 """
 
@@ -111,7 +112,6 @@ def check_supported(cfg: VTPConfig, tcfg: TrainConfig) -> None:
         "RoPE coordinate augmentation (rope_shift/jitter/rescale_coords)": any(
             v is not None for v in (cfg.rope_shift_coords, cfg.rope_jitter_coords,
                                     cfg.rope_rescale_coords)),
-        f"moment_dtype={tcfg.moment_dtype!r}": tcfg.moment_dtype not in ("fp32", "float32", None),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
