@@ -77,6 +77,20 @@
    kernels, counting their launches, and the same step from the same state
    and batch on the plain versions; compares the losses and the grad norm,
    checks that the state moved, then times steps (images/s, peak memory);
+4a. VTP training: the VTP-L step at full width and depth with gradient
+   accumulation (B = 16 as 2 microbatches of 8, fp32 accumulators),
+   drop-path at 0.1 on every objective and the RoPE coordinate augmentation
+   (shift 0.1, jitter 1.2, rescale 2.0), remat on; its draws taken once
+   (``sample_draws``), the step on the kernels, counted against
+   ``expected_vtp_step_launches`` (the formula printed), and the same step
+   with the same draws on the plain versions: losses, grad norm and
+   ``objective_grad_norms``, the state moved; then 3 steps timed (peak
+   memory). Then ``tools/train_vtp.py``'s ``main`` in process at VTP-L
+   widths cut to depth 4 (synthetic, B = 16 as 2 x 8, bf16 moments): 4
+   steps of a 6-step schedule with a checkpoint every 2, the restore bit for
+   bit, ``--resume`` to 6 with ``--export_hf`` against an uninterrupted
+   6-step run (metrics bit for bit), the export read by
+   ``VTPModel.from_checkpoint`` with the student's latents, counted;
 5. runs the DiT-XL/1 train step (``init_dit_state``,
    ``build_dit_train_step``; B = 32 latents that ``VTPTokenizer.encode_images``
    makes from seeded random images on the roundtrip's VTP-L model,
@@ -221,6 +235,18 @@ EXTRAS_BATCH, EXTRAS_CONTEXT, EXTRAS_DEPTH = 8, 256, 2
 # GEN_SAMPLE_STEPS euler steps at cfg GEN_CFG for GEN_SAMPLES labels
 GEN_IMAGES, GEN_BATCH, GEN_SHARD, GEN_ACCUM, GEN_TRAIN_STEPS = 64, 32, 32, 2, 2
 GEN_CKPT_DEPTH, GEN_SAMPLE_STEPS, GEN_CFG, GEN_SAMPLES = 4, 4, 1.5, 8
+# VTP training (phase 4a): VTP-L at full width and depth, TrainConfig's
+# defaults (remat on) with warmup 0, a global batch of VTP_ACCUM microbatches
+# of BATCH in fp32 accumulators, drop rate VTP_DROP on every objective and the
+# RoPE coordinate augmentation VTP_ROPE_AUG (shift, jitter, rescale): the
+# smoke's choices to drive every branch, not a published recipe; VTP_TIMED
+# timed steps. Then tools/train_vtp.py's main at VTP-L widths, every depth cut
+# to VTP_CLI_DEPTH: VTP_CLI_STEPS steps of a VTP_CLI_TOTAL-step schedule with
+# a checkpoint every VTP_CLI_CKPT, --resume to VTP_CLI_TOTAL, and an
+# uninterrupted run (global B = 2 * BATCH as VTP_ACCUM microbatches, bf16
+# moments, remat "full")
+VTP_ACCUM, VTP_DROP, VTP_ROPE_AUG, VTP_TIMED = 2, 0.1, (0.1, 1.2, 2.0), 3
+VTP_CLI_DEPTH, VTP_CLI_STEPS, VTP_CLI_CKPT, VTP_CLI_TOTAL = 4, 4, 2, 6
 # The bf16 features' gate, carried to every comparison of the new phases
 # with the plain run (losses: 5e-3 rel)
 FEATURE_REL, LOSS_REL = 5e-2, 5e-3
@@ -1422,6 +1448,234 @@ def run_train(gen):
         raise AssertionError(f"non-finite train metrics {metrics}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return counts, samples, peak_gb, state, batch, step
+
+
+def expected_vtp_step_launches(cfg, remat, accum=VTP_ACCUM):
+    """Launches of one VTP train step over ``accum`` microbatches, with the
+    formula: per microbatch, the bf16 forward once a block in the no-grad
+    teacher (v), the CLIP and rec trunks (2v), the student's two crops (2v),
+    the decoder (d) and the text tower (t), and again for the blocks under
+    grad when the policy recomputes the fused forward (remat True / "full" /
+    "dots": 4v + d + t); the backward 4v + d + t; the CE 3 + 3. Drop-path
+    changes the rows of each call, not the calls."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME
+    from vtp_tpu_torch.ops.fused_ce import BWD_NAME as CE_BWD
+    from vtp_tpu_torch.ops.fused_ce import FWD_NAME as CE_FWD
+
+    v, d, t = cfg.vision_depth, cfg.decoder_depth, cfg.text_depth
+    grad = 4 * v + d + t
+    recompute = remat in (True, "full", "dots")
+    want = {ARM_NAME[torch.bfloat16]: accum * (v + grad + (grad if recompute else 0)),
+            BWD_NAME: accum * grad, CE_FWD: 3 * accum, CE_BWD: 3 * accum}
+    formula = (f"bf16 forward {accum} x (v + (4v + d + t){' x 2' if recompute else ''}), "
+               f"backward {accum} x (4v + d + t), CE {accum} x 3 each; v={v} d={d} t={t}")
+    return want, formula
+
+
+def _stack_microbatches(micros):
+    """Microbatches -> one batch whose leaves carry a leading microbatch axis."""
+    import torch
+
+    return {k: (_stack_microbatches([m[k] for m in micros]) if isinstance(micros[0][k], dict)
+                else torch.stack([m[k] for m in micros])) for k in micros[0]}
+
+
+def vtp_train_step(gen, card):
+    """Phase 4a, step 1: the VTP-L step with accumulation, drop-path and the
+    RoPE augmentation (remat on), on the kernels, counted, against the same
+    step with the same draws on the plain versions; ``objective_grad_norms``
+    once on each; then VTP_TIMED steps timed. Returns the launch counts."""
+    import torch
+
+    from vtp_tpu_torch import vtp_large
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.train.step import TrainConfig, build_train_step, init_state
+
+    shift, jitter, rescale = VTP_ROPE_AUG
+    cfg = vtp_large(rope_shift_coords=shift, rope_jitter_coords=jitter,
+                    rope_rescale_coords=rescale)
+    tcfg = TrainConfig(warmup_steps=0, total_steps=1000, accum_steps=VTP_ACCUM,
+                       clip_drop_rate=VTP_DROP, ssl_drop_rate=VTP_DROP, rec_drop_rate=VTP_DROP)
+    state = init_state(cfg, tcfg, gen, device="cuda")
+    step = build_train_step(cfg, tcfg)
+    micros = [_train_batch(gen, cfg) for _ in range(VTP_ACCUM)]
+    batch = _stack_microbatches(micros)
+    draws = [step.sample_draws(state, gen, m) for m in micros]
+    keeps = [len(i) for i in draws[0]["ssl"]["drop"][0]]
+    print(f"vtp training: VTP-L, remat {tcfg.remat}, B={VTP_ACCUM * BATCH} as {VTP_ACCUM} x "
+          f"{BATCH}, drop rate {VTP_DROP} (rows kept of the global / local crops: {keeps[:2]}), "
+          f"RoPE shift {shift} jitter {jitter} rescale {rescale}", flush=True)
+    qkv_w = state.model.trunk.blocks[0].attn.qkv.weight.detach().clone()
+    teacher_w = state.teacher["trunk"].blocks[0].attn.qkv.weight.detach().clone()
+
+    # the plain run first, from a copy freed before the counted step
+    plain_state = copy.deepcopy(state)
+    with _plain_kernels():
+        plain_norms = step.objective_grad_norms(plain_state, micros[0], draws=draws[0])
+        plain_state, plain = step(plain_state, batch, draws=draws)
+    del plain_state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    norms = step.objective_grad_norms(state, micros[0], draws=draws[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want, formula = expected_vtp_step_launches(cfg, tcfg.remat)
+    print(f"vtp training: first step {first_s:.3f} s (host clock) on {card}; launches {counts} "
+          f"(expected {want}: {formula})", flush=True)
+    if counts != want:
+        raise AssertionError(f"VTP training step launches {counts}, expected {want}")
+    _hold_metrics("vtp training", metrics, plain,
+                  {**{k: LOSS_REL for k in metrics if k.startswith("loss/")}, "grad_norm": 2e-2})
+    _hold_metrics("vtp training objective", norms, plain_norms, {k: 2e-2 for k in norms})
+    moved = {
+        "params": not torch.equal(qkv_w, state.model.trunk.blocks[0].attn.qkv.weight),
+        "teacher": not torch.equal(teacher_w, state.teacher["trunk"].blocks[0].attn.qkv.weight),
+        "dino_center": state.dino_center.abs().sum().item() > 0,
+        "ibot_center": state.ibot_center.abs().sum().item() > 0,
+    }
+    print(f"vtp training: state moved: {moved}", flush=True)
+    if not all(moved.values()):
+        raise AssertionError(f"the VTP training step left part of the state unchanged: {moved}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(VTP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v.item()) for v in metrics.values()):
+        raise AssertionError(f"non-finite VTP training metrics {metrics}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(times)
+    print(f"vtp training step VTP-L B={VTP_ACCUM * BATCH} as {VTP_ACCUM} x {BATCH} (remat on, "
+          f"drop-path, RoPE augmentation, fp32 accumulators) on {card}: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms (host clock), median {step_s * 1e3:.1f}"
+          f" ms, {VTP_ACCUM * BATCH / step_s:.2f} images/s; peak memory {peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    return counts
+
+
+def vtp_train_cli(card):
+    """Phase 4a, step 2: ``tools/train_vtp.py``'s ``main`` in process at VTP-L
+    widths cut to depth VTP_CLI_DEPTH, synthetic: VTP_CLI_STEPS steps with a
+    checkpoint every VTP_CLI_CKPT, the restore checked bit for bit,
+    ``--resume`` to VTP_CLI_TOTAL with ``--export_hf`` against an
+    uninterrupted run (metrics bit for bit), the export loaded by
+    ``VTPModel.from_checkpoint`` (latents equal to the student's). Returns the
+    launch counts of the three runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.checkpoint import restore_train_state, train_state_tensors
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.tools import train_vtp
+    from vtp_tpu_torch.train.step import TrainConfig, init_state
+
+    n, total = VTP_CLI_STEPS, VTP_CLI_TOTAL
+    args = ["--synthetic", "--preset", "vtp-large", "--depth", str(VTP_CLI_DEPTH),
+            "--batch_size", str(VTP_ACCUM * BATCH), "--accum_steps", str(VTP_ACCUM),
+            "--moment_dtype", "bf16", "--total_steps", str(total), "--log_every", "1",
+            "--seed", str(SEED), "--device", "cuda"]
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < 12e9:  # four depth-cut train states of ~1.8 GB and an export
+        raise AssertionError(f"{tmp} has {free / 1e9:.1f} GB free; the CLI round trip needs 12 GB")
+    with tempfile.TemporaryDirectory() as d:
+        ckpt, straight = os.path.join(d, "vtp"), os.path.join(d, "vtp_straight")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = train_vtp.main(args + ["--steps", str(n), "--ckpt_every", str(VTP_CLI_CKPT),
+                                       "--out", ckpt])
+        resumed = train_vtp.main(args + ["--steps", str(total), "--resume", "--export_hf",
+                                         "--out", ckpt])
+        whole = train_vtp.main(args + ["--steps", str(total), "--ckpt_every", str(total),
+                                       "--out", straight])
+        torch.cuda.synchronize()
+        runs_s = time.perf_counter() - t0
+        shutil.rmtree(straight)  # its metrics are what is held
+        counts = launch_counts()
+        cfg = train_vtp.load_config(train_vtp.parse_args(args))
+        per_step, formula = expected_vtp_step_launches(cfg, True)
+        steps = n + (total - n) + total
+        want = {k: steps * v for k, v in per_step.items()}
+        print(f"vtp training: tools/train_vtp.py main at depth {VTP_CLI_DEPTH}: {n} steps, "
+              f"--resume to {total}, {total} uninterrupted, in {runs_s:.1f} s (host clock, "
+              f"checkpoint writes included) on {card}; launches {counts} (expected {steps} steps x "
+              f"({formula}) = {want})", flush=True)
+        if counts != want or resumed["start_step"] != n:
+            raise AssertionError(f"train_vtp launches {counts} / resumed at "
+                                 f"{resumed['start_step']}")
+
+        template = init_state(cfg, TrainConfig(moment_dtype="bf16"), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_train_state(ckpt, template, step=n)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        a, b = train_state_tensors(first["state"]), train_state_tensors(template)
+        same = (a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                and template.step == first["state"].step == n and template.optimizer.count == n)
+        n_bytes = os.path.getsize(os.path.join(ckpt, f"step_{n:08d}", "train_state.safetensors"))
+        print(f"vtp training: train state of {n_bytes / 1e9:.3f} GB (VTP-L at depth "
+              f"{VTP_CLI_DEPTH}, bf16 moments) read into a template in {read_s:.2f} s (host "
+              f"clock, warm page cache) on {card}; restored state bit for bit "
+              f"{'ok' if same else 'FAIL'}", flush=True)
+        del template, a, b, first
+        if not same:
+            raise AssertionError("the restored VTP train state differs from the saved one")
+        exact = resumed["metrics"] == whole["metrics"][n:]
+        for i, (got, ref) in enumerate(zip(resumed["metrics"], whole["metrics"][n:])):
+            _hold_metrics(f"vtp training resumed step {n + i + 1}", got, ref,
+                          {**{k: LOSS_REL for k in got if k.startswith("loss/")},
+                           "grad_norm": 2e-2})
+        print(f"vtp training: resumed steps {n + 1}-{total} bit-equal to the uninterrupted "
+              f"run's: {exact}", flush=True)
+        if not exact:
+            raise AssertionError("the resumed steps differ from the uninterrupted run's")
+
+        student = resumed["state"].model
+        loaded = VTPModel.from_checkpoint(os.path.join(ckpt, "hf_export"), device="cuda")
+        images = torch.randn((BATCH, 3, cfg.image_size, cfg.image_size),
+                             generator=torch.Generator("cuda").manual_seed(SEED), device="cuda")
+        with torch.no_grad():
+            same_latents = torch.equal(loaded.get_reconstruction_latents(images),
+                                       student.get_reconstruction_latents(images))
+        print(f"vtp training: --export_hf read by VTPModel.from_checkpoint, latents equal to "
+              f"the trained student's: {same_latents}", flush=True)
+        if not same_latents:
+            raise AssertionError("the exported model's latents differ from the student's")
+        del resumed, whole, student, loaded
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_vtp_training(gen, card):
+    """Phase 4a: the VTP training step with accumulation, drop-path and the
+    RoPE augmentation at VTP-L, then the CLI's train-state round trip.
+    Returns the launch counts of the counted runs."""
+    import torch
+
+    t0 = time.perf_counter()
+    totals = {}
+    for run in (vtp_train_step(gen, card), vtp_train_cli(card)):
+        torch.cuda.empty_cache()
+        for k, n in run.items():
+            totals[k] = totals.get(k, 0) + n
+    print(f"vtp training: phase in {time.perf_counter() - t0:.1f} s (host clock) on {card}",
+          flush=True)
+    return totals
 
 
 def dit_latents(gen, model):
@@ -3024,6 +3278,12 @@ def main() -> int:
     del state, batch, step
     torch.cuda.empty_cache()
 
+    # its own generator: the later phases draw what they drew before it
+    _set_phase("vtp training")
+    vtp_counts = run_vtp_training(torch.Generator(device="cuda").manual_seed(SEED + 1),
+                                  card_line)
+    torch.cuda.empty_cache()
+
     _set_phase("dit train step")
     dit_counts, samples, peak_gb, state, labels, draws, step = run_dit_train(gen, latents)
     step_s = statistics.median(samples)
@@ -3067,13 +3327,14 @@ def main() -> int:
     # launches: each arm's count summed over the main paths' runs (one
     # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
     # one non-causal text call, the reconstruction and zero-shot evals, the
-    # linear probe, the text intermediates, the extras, one train step, one
-    # DiT train step, one 250-step sample, the generation pipeline's counted
-    # runs, and at head dims 32 and 128 one roundtrip, high decode, train
-    # step, DiT train step and 4-step sample each)
+    # linear probe, the text intermediates, the extras, one train step, the
+    # VTP training phase's counted runs, one DiT train step, one 250-step
+    # sample, the generation pipeline's counted runs, and at head dims 32
+    # and 128 one roundtrip, high decode, train step, DiT train step and
+    # 4-step sample each)
     for run in (high_counts, serve_counts, hm_counts, text_counts, eval_counts, zs_counts,
-                probe_counts, ti_counts, extras_counts,
-                train_counts, dit_counts, sample_counts, gen_counts, *head_dim_counts):
+                probe_counts, ti_counts, extras_counts, train_counts, vtp_counts,
+                dit_counts, sample_counts, gen_counts, *head_dim_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     _set_phase("timing")

@@ -66,7 +66,9 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.ops.pos_embed", "vtp_tpu_torch.models.extras",
                 "vtp_tpu_torch.native", "vtp_tpu_torch.data.native_loader",
                 "vtp_tpu_torch.generation.latents", "vtp_tpu_torch.tools.extract_latents",
-                "vtp_tpu_torch.tools.train_dit", "vtp_tpu_torch.tools.sample_dit"):
+                "vtp_tpu_torch.tools.train_dit", "vtp_tpu_torch.tools.sample_dit",
+                "vtp_tpu_torch.data.ssl_crops", "vtp_tpu_torch.train.schedules",
+                "vtp_tpu_torch.models.vtp_train_arch", "vtp_tpu_torch.tools.train_vtp"):
         assert mod in imported
 
 

@@ -202,10 +202,10 @@ def test_make_ssl_batch_layout():
 
 
 UNPORTED = {
-    "accumulation": ({}, dict(accum_steps=2)),
-    "drop_path": ({}, dict(ssl_drop_rate=0.1)),
+    "drop_shards": ({}, dict(drop_shards=2)),
+    "pipeline_stages": ({}, dict(pipeline_stages=2)),
     "sequence_parallel": ({}, dict(sequence_parallel=True)),
-    "rope_augmentation": (dict(rope_shift_coords=0.1), {}),
+    "tp_head_major": ({}, dict(tp_head_major=2)),
 }
 
 

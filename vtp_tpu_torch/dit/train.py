@@ -38,10 +38,8 @@ from vtp_tpu_torch.convert.safetensors_io import load_safetensors, read_safetens
 from vtp_tpu_torch.dit.model import DiT, DiTConfig
 from vtp_tpu_torch.dit.transport import metric_keys, training_losses
 from vtp_tpu_torch.generation.latents import list_latent_shards, load_latent_stats
-from vtp_tpu_torch.train.optim import AdamW, resolve_moment_dtype
+from vtp_tpu_torch.train.optim import ACCUM_DTYPES, AdamW, accumulate_grads, resolve_moment_dtype
 from vtp_tpu_torch.train.state import ema_update
-
-ACCUM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,12 +167,7 @@ def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
             for i in range(accum):
                 g, m = loss_and_grads(state, names, latents[i], labels[i], generator,
                                       {k: v[i] for k, v in draws.items()})
-                for a, b in zip(g_sum, g):
-                    # add in fp32, store in the accumulator's dtype
-                    if a.dtype == torch.float32:
-                        a.add_(b.float())
-                    else:
-                        a.copy_(a.float() + b.float())
+                accumulate_grads(g_sum, g)
                 m_sum = {k: m_sum[k] + m[k] for k in m_sum}
                 del g
             grads = [x.float() / accum for x in g_sum]

@@ -8,8 +8,16 @@ released state dict loads by name. The depth loop is a plain loop over
 an ``nn.ModuleList``. Multi-crop lists are packed once into one
 ``(sum B_i*N_i, D)`` matrix for every norm and GEMM; attention runs one
 fused launch per crop. ``remat`` selects a gradient-checkpoint policy
-per block (``checkpoint_policy``, the JAX package's ``remat_wrap``). Drop-path
-is not ported (``train/step.py`` refuses it).
+per block (``checkpoint_policy``, the JAX package's ``remat_wrap``).
+
+Drop-path (``drop_keep_count`` :426, ``sample_drop_indices`` :436,
+``_residual_scatter`` :440, ``_block_apply_droppath`` :445) keeps the
+crops unpacked (B_i, N_i, D): each block runs its attention branch on a
+random batch subset of each crop and its FFN branch on a fresh subset,
+and adds each branch's output, scaled by b / keep, at the kept rows. The
+subsets are drawn before the depth loop and passed in, so a block that
+``torch.utils.checkpoint`` recomputes sees the same rows (it restores the
+default RNG states, never an explicit generator's).
 ``precision`` ("float32" or "high") is the fp32 GEMM and attention mode,
 an explicit argument where the JAX package reads the ambient matmul
 precision (``vtp_tpu/models/blocks.py:216-227``).
@@ -280,6 +288,70 @@ class Block(nn.Module):
         f = self.mlp(self.norm2(flat), compute_dtype, precision)
         return flat + (self.ls2(f) if self.ls2 is not None else f)
 
+    def forward_droppath(self, xs: Sequence[torch.Tensor], ropes: Sequence[Rope],
+                         n_valids: Sequence[int], idx: Sequence[torch.Tensor],
+                         compute_dtype: Optional[torch.dtype] = None,
+                         precision: str = "float32") -> List[torch.Tensor]:
+        """Drop-path on (B_i, N_i, D) crops (``_block_apply_droppath``):
+        ``idx`` holds the attention branch's kept rows of each crop, then the
+        FFN branch's."""
+        n = len(xs)
+
+        def attn(flat, shapes):
+            a = self.attn(self.norm1(flat), shapes, ropes, n_valids, compute_dtype, precision)
+            return self.ls1(a) if self.ls1 is not None else a
+
+        def ffn(flat, shapes):
+            f = self.mlp(self.norm2(flat), compute_dtype, precision)
+            return self.ls2(f) if self.ls2 is not None else f
+
+        xs = _droppath_branch(xs, idx[:n], attn)
+        return _droppath_branch(xs, idx[n:], ffn)
+
+
+def _droppath_branch(xs: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
+                     fn: Callable[[torch.Tensor, Shapes], torch.Tensor]) -> List[torch.Tensor]:
+    """``fn`` on the packed kept rows of every crop, each crop's output added
+    back at its rows, scaled by b / keep."""
+    sub = [x[ix] for x, ix in zip(xs, idx)]
+    shapes = [(t.shape[0], t.shape[1]) for t in sub]
+    d = xs[0].shape[-1]
+    out = fn(torch.cat([t.reshape(-1, d) for t in sub]), shapes)
+    res, off = [], 0
+    for x, ix, (b, n) in zip(xs, idx, shapes):
+        r = out[off:off + b * n].reshape(b, n, d)
+        off += b * n
+        res.append(_residual_scatter(x, r, ix, x.shape[0] / b))
+    return res
+
+
+def drop_keep_count(batch: int, drop_ratio: float, shards: int = 1) -> int:
+    """Rows a crop keeps in a drop-path branch: the reference's global keep
+    (block.py:55-66) split equally over ``shards``, rounded down."""
+    if shards <= 1:
+        return max(int(batch * (1.0 - drop_ratio)), 1)
+    global_keep = max(int(batch * shards * (1.0 - drop_ratio)), shards)
+    return min(max(global_keep // shards, 1), batch)
+
+
+def sample_drop_indices(generator: torch.Generator, batch: int, keep: int) -> torch.Tensor:
+    return torch.randperm(batch, generator=generator, device=generator.device)[:keep]
+
+
+def draw_drop_indices(generator: torch.Generator, batches: Sequence[int], depth: int,
+                      drop_ratio: float) -> List[List[torch.Tensor]]:
+    """Every block's kept rows for crops of ``batches`` rows: per block, the
+    attention branch's subset of each crop, then the FFN branch's (the
+    order of JAX's ``split(key, 2 * len(xs))``)."""
+    return [[sample_drop_indices(generator, b, drop_keep_count(b, drop_ratio))
+             for b in list(batches) * 2] for _ in range(depth)]
+
+
+def _residual_scatter(x: torch.Tensor, res: torch.Tensor, idx: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """x with ``scale * res`` (in fp32, cast to x's dtype) added at rows ``idx``."""
+    return x.index_add(0, idx, (scale * res.float()).to(x.dtype))
+
 
 # The ops whose outputs each selective policy saves: 2-D matmuls
 # (dots_with_no_batch_dims_saveable), the fused attention forward (the
@@ -330,17 +402,30 @@ def checkpoint_policy(remat: Union[bool, str, None]) -> Optional[Callable[..., t
 def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequence[Rope],
                n_valids: Optional[Sequence[int]] = None,
                compute_dtype: Optional[torch.dtype] = None,
-               remat: Union[bool, str] = False, precision: str = "float32"
+               remat: Union[bool, str] = False, precision: str = "float32",
+               drop: Optional[Sequence[Sequence[torch.Tensor]]] = None
                ) -> List[torch.Tensor]:
-    """The depth loop over a list of (B_i, N_i, D) crops (scan_blocks,
-    without drop-path): packed once, unpacked at the end. ``n_valids``
-    masks trailing key columns per crop (default: all valid)."""
+    """The depth loop over a list of (B_i, N_i, D) crops (scan_blocks):
+    packed once, unpacked at the end. ``n_valids`` masks trailing key
+    columns per crop (default: all valid). ``drop`` (per block, the kept
+    rows of ``draw_drop_indices``) runs every block with drop-path on
+    unpacked crops."""
     shapes = [(x.shape[0], x.shape[1]) for x in xs]
     n_valids = list(n_valids) if n_valids is not None else [n for _, n in shapes]
     ropes = list(ropes)
+    run = checkpoint_policy(remat) if torch.is_grad_enabled() else None
+    if drop is not None:
+        xs = list(xs)
+        for blk, idx in zip(blocks, drop, strict=True):
+            if run is not None:
+                xs = run(blk.forward_droppath, xs, ropes, n_valids, list(idx), compute_dtype,
+                         precision)
+            else:
+                xs = blk.forward_droppath(xs, ropes, n_valids, list(idx), compute_dtype,
+                                          precision)
+        return xs
     d = xs[0].shape[-1]
     flat = torch.cat([x.reshape(-1, d) for x in xs]) if len(xs) > 1 else xs[0].reshape(-1, d)
-    run = checkpoint_policy(remat) if torch.is_grad_enabled() else None
     for blk in blocks:
         if run is not None:
             flat = run(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,

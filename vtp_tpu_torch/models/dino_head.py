@@ -4,14 +4,18 @@ MLP -> L2 normalize -> weight-normalized projection to the prototypes.
 The last layer is stored in decomposed form like torch's ``weight_norm``:
 direction ``last_layer.v`` in torch layout (out, in) and gain
 ``last_layer.g`` (out,); the weight is ``g * v / ||v||`` with the norm over
-the input dim. The MLP linears are ``mlp.layer{i}``.
+the input dim. Without weight norm (``use_weight_norm=False``, JAX
+:44-48) the last layer is a plain bias-free linear, ``last_layer.weight``.
+The MLP linears are ``mlp.layer{i}``. ``head_state_dict`` carries a JAX
+head's parameter tree across.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,21 +50,25 @@ class WeightNormLinear(nn.Module):
 class DinoHead(nn.Module):
     def __init__(self, cfg: DinoHeadConfig):
         super().__init__()
-        if not cfg.use_weight_norm:
-            raise NotImplementedError("the DINO head without weight norm is not ported")
         self.cfg = cfg
         n = max(cfg.nlayers, 1)
         dims = ([cfg.in_dim, cfg.bottleneck_dim] if n == 1 else
                 [cfg.in_dim] + [cfg.hidden_dim] * (n - 1) + [cfg.bottleneck_dim])
         self.mlp = nn.ModuleDict({f"layer{i}": nn.Linear(dims[i], dims[i + 1], bias=cfg.mlp_bias)
                                   for i in range(n)})
-        self.last_layer = WeightNormLinear(cfg.bottleneck_dim, cfg.out_dim)
+        if cfg.use_weight_norm:
+            self.last_layer = WeightNormLinear(cfg.bottleneck_dim, cfg.out_dim)
+        else:
+            self.last_layer = nn.Linear(cfg.bottleneck_dim, cfg.out_dim, bias=False)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """trunc_normal(0.02) linears with zero bias; v trunc_normal(0.02), g ones."""
         for lin in self.mlp.values():
             linear_(lin, generator)
+        if isinstance(self.last_layer, nn.Linear):
+            linear_(self.last_layer, generator)
+            return
         trunc_normal_(self.last_layer.v, 0.02, generator)
         nn.init.ones_(self.last_layer.g)
 
@@ -84,7 +92,29 @@ class DinoHead(nn.Module):
             x = torch.where(is_zero, 0.0, x) / torch.sqrt(torch.where(is_zero, 1.0, sq))
         else:
             x = x / torch.clamp(torch.sqrt(torch.clamp(sq, min=eps * eps)), min=eps)
-        w = self.last_layer.weight()
+        last = self.last_layer
+        w = last.weight if isinstance(last, nn.Linear) else last.weight()
         if compute_dtype is not None:
             x, w = x.to(compute_dtype), w.to(compute_dtype)
         return torch.matmul(x, w.t())
+
+
+def head_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX DINO head's parameter tree (numpy arrays: ``mlp.layer{i}``
+    kernels (in, out) and biases, ``last_layer`` as ``v`` (in, out) and
+    ``g``, or as a plain ``kernel``) -> this module's state dict."""
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(np.asarray(a, np.float32).T))
+
+    sd = {}
+    for name, lin in tree["mlp"].items():
+        sd[f"mlp.{name}.weight"] = t(lin["kernel"])
+        if lin.get("bias") is not None:
+            sd[f"mlp.{name}.bias"] = torch.tensor(np.asarray(lin["bias"], np.float32))
+    last = tree["last_layer"]
+    if "v" in last:
+        sd["last_layer.v"] = t(last["v"])
+        sd["last_layer.g"] = torch.tensor(np.asarray(last["g"], np.float32))
+    else:
+        sd["last_layer.weight"] = t(last["kernel"])
+    return sd

@@ -7,8 +7,14 @@ Patchify is a reshape + GEMM and the RoPE tables are built once per
 forward and crop shape. A list of crops (the SSL multi-crop forward) runs
 through one packed block stack; ``masks`` swap masked patch tokens for
 ``mask_token``. The JAX package pads tokens to the TPU's sublane tile;
-the port does not, since the CUDA kernel masks keys by bounds. Drop-path
-and the train-time RoPE coordinate augmentation are not ported.
+the port does not, since the CUDA kernel masks keys by bounds.
+
+In training, ``forward_features`` takes a ``generator`` or ``draws`` where
+the JAX forward takes a key: each crop's RoPE coordinate augmentation
+(``vit.py:263-271``, a key folded per crop) and, with ``drop_ratio > 0``,
+every block's drop-path rows (``scan_blocks`` :590-636). ``sample_draws``
+draws them all before the forward, so no draw happens inside a
+checkpointed block; a test gives the JAX package's draws instead.
 """
 
 from __future__ import annotations
@@ -19,10 +25,24 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from vtp_tpu_torch.models.blocks import Block, BlockConfig, Norm, Rope, reset_block_parameters, run_blocks
+from vtp_tpu_torch.models.blocks import (
+    Block,
+    BlockConfig,
+    Norm,
+    Rope,
+    draw_drop_indices,
+    reset_block_parameters,
+    run_blocks,
+)
 from vtp_tpu_torch.models.initializers import normal_, patch_embed_uniform_, trunc_normal_
 from vtp_tpu_torch.ops.patchify import patchify
-from vtp_tpu_torch.ops.rope import ROPE_DTYPES, pad_rope_prefix, rope_periods_init, rope_sincos
+from vtp_tpu_torch.ops.rope import (
+    ROPE_DTYPES,
+    draw_rope_coords,
+    pad_rope_prefix,
+    rope_periods_init,
+    rope_sincos,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +69,9 @@ class ViTConfig:
     rope_min_period: Optional[float] = None
     rope_max_period: Optional[float] = None
     rope_normalize_coords: str = "separate"
+    rope_shift_coords: Optional[float] = None
+    rope_jitter_coords: Optional[float] = None
+    rope_rescale_coords: Optional[float] = None
     rope_dtype: str = "bf16"
     # the head-major TP layout factor of the qkv parameters (parallel/sharding.py)
     qkv_head_major: int = 1
@@ -145,10 +168,30 @@ class VisionTransformer(nn.Module):
         pieces.append(x)
         return torch.cat(pieces, dim=1), (gh, gw)
 
-    def rope_for(self, gh: int, gw: int) -> Rope:
+    def rope_for(self, gh: int, gw: int, draws: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Rope:
+        """The (1 + storage + gh*gw, head_dim) tables; ``draws`` (one crop's
+        ``draw_rope_coords``) applies the configured coordinate augmentations."""
+        cfg = self.cfg
         sin, cos = rope_sincos(self.rope_embed.periods, gh, gw,
-                               normalize_coords=self.cfg.rope_normalize_coords)
-        return pad_rope_prefix(sin, cos, 1 + self.cfg.n_storage_tokens)
+                               normalize_coords=cfg.rope_normalize_coords,
+                               shift_coords=cfg.rope_shift_coords,
+                               jitter_coords=cfg.rope_jitter_coords,
+                               rescale_coords=cfg.rope_rescale_coords, draws=draws)
+        return pad_rope_prefix(sin, cos, 1 + cfg.n_storage_tokens)
+
+    def sample_draws(self, generator: torch.Generator, batches: Sequence[int],
+                     drop_ratio: float = 0.0) -> Dict[str, list]:
+        """A training forward's draws for crops of ``batches`` rows: ``rope``,
+        each crop's augmentation factors (``draw_rope_coords``), and, with
+        ``drop_ratio > 0``, ``drop``, each block's kept rows
+        (``draw_drop_indices``)."""
+        cfg = self.cfg
+        out = {"rope": [draw_rope_coords(generator, cfg.rope_shift_coords, cfg.rope_jitter_coords,
+                                         cfg.rope_rescale_coords) for _ in batches]}
+        if drop_ratio > 0.0:
+            out["drop"] = draw_drop_indices(generator, batches, cfg.depth, drop_ratio)
+        return out
 
     def final_norms(self, x: torch.Tensor, crop_index: int = 0, training: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,24 +225,35 @@ class VisionTransformer(nn.Module):
         compute_dtype: Optional[torch.dtype] = None,
         training: bool = False,
         remat: Union[bool, str] = False,
+        drop_ratio: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, list]] = None,
     ) -> Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]:
         """The reference's forward_features dict(s): x_norm_clstoken,
         x_storage_tokens, x_norm_patchtokens, x_prenorm, masks. A list of
         crops returns a list. ``training`` selects the local-crop cls norm;
         ``remat`` is the blocks' gradient-checkpoint policy
-        (``blocks.checkpoint_policy``)."""
+        (``blocks.checkpoint_policy``). With ``training`` and a ``generator``
+        or ``draws`` (``sample_draws``'s, which are drawn from the generator
+        when not given), the RoPE coordinates are augmented as configured and,
+        with ``drop_ratio > 0``, every block runs drop-path."""
         single = not isinstance(images, (list, tuple))
         x_list = [images] if single else list(images)
         if single:
             masks_list = [masks]
         else:
             masks_list = list(masks) if masks is not None else [None] * len(x_list)
+        if not training or (generator is None and draws is None):
+            draws = None
+        elif draws is None:
+            draws = self.sample_draws(generator, [x.shape[0] for x in x_list], drop_ratio)
         xs, ropes = [], []
-        for img, m in zip(x_list, masks_list):
+        for i, (img, m) in enumerate(zip(x_list, masks_list)):
             x, (gh, gw) = self.prepare_tokens(img, compute_dtype, m)
             xs.append(x)
-            ropes.append(self.rope_for(gh, gw))
-        xs = run_blocks(self.blocks, xs, ropes, None, compute_dtype, remat)
+            ropes.append(self.rope_for(gh, gw, draws["rope"][i] if draws is not None else None))
+        drop = draws["drop"] if draws is not None and drop_ratio > 0.0 else None
+        xs = run_blocks(self.blocks, xs, ropes, None, compute_dtype, remat, drop=drop)
         outputs = []
         for i, (x, m) in enumerate(zip(xs, masks_list)):
             cls_reg, patch = self.final_norms(x, crop_index=i, training=training)

@@ -91,6 +91,9 @@ def vit_config_from(cfg: VTPConfig) -> ViTConfig:
         rope_min_period=cfg.rope_min_period,
         rope_max_period=cfg.rope_max_period,
         rope_normalize_coords=cfg.rope_normalize_coords,
+        rope_shift_coords=cfg.rope_shift_coords,
+        rope_jitter_coords=cfg.rope_jitter_coords,
+        rope_rescale_coords=cfg.rope_rescale_coords,
         rope_dtype=cfg.rope_dtype,
         qkv_head_major=cfg.vision_qkv_head_major,
     )

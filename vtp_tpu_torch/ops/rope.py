@@ -8,12 +8,17 @@ angle vector is ``[h*p0..h*pP, w*p0..w*pP]`` tiled twice to length
 Tables are built in the rope dtype (bf16 for released checkpoints) with
 the same op-by-op rounding as the JAX package, so they are bit-identical
 to it. q/k are rotated in that dtype and cast back.
+
+The train-time coordinate augmentations (``rope_sincos`` :58-126:
+shift, log-uniform jitter per axis, log-uniform rescale) take their
+factors from the caller: drawn by ``draw_rope_coords`` from a
+``torch.Generator``, or the JAX package's draws in the tests.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,15 +53,40 @@ def _normalized_coords(n: int, denom: int, dtype: torch.dtype, device) -> torch.
     return c / denom
 
 
+def draw_rope_coords(generator: torch.Generator, shift_coords: Optional[float] = None,
+                     jitter_coords: Optional[float] = None,
+                     rescale_coords: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    """One crop's augmentation factors, fp32 on the generator's device, for
+    each augmentation configured, in the JAX package's order: ``shift``
+    (2,) uniform in [-shift, shift]; ``jitter`` (2,) and ``rescale`` (1,),
+    exp of a uniform in [-log j, log j]."""
+    kw = dict(generator=generator, device=generator.device, dtype=torch.float32)
+    out = {}
+    if shift_coords is not None:
+        out["shift"] = (2 * torch.rand(2, **kw) - 1) * shift_coords
+    if jitter_coords is not None:
+        out["jitter"] = torch.exp((2 * torch.rand(2, **kw) - 1) * math.log(jitter_coords))
+    if rescale_coords is not None:
+        out["rescale"] = torch.exp((2 * torch.rand(1, **kw) - 1) * math.log(rescale_coords))
+    return out
+
+
 def rope_sincos(
     periods: torch.Tensor,
     H: int,
     W: int,
     *,
     normalize_coords: str = "separate",
+    shift_coords: Optional[float] = None,
+    jitter_coords: Optional[float] = None,
+    rescale_coords: Optional[float] = None,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sin, cos)`` tables of shape ``(H*W, head_dim)`` in the periods'
-    dtype. The train-time coordinate augmentations are not ported."""
+    dtype. With ``draws`` (a training forward's factors, as
+    ``draw_rope_coords`` gives them), each configured augmentation applies:
+    the fp32 factor is cast to the rope dtype, then the coordinates are
+    shifted, jittered per axis and rescaled, each op in that dtype."""
     dtype, device = periods.dtype, periods.device
     if normalize_coords == "max":
         d = max(H, W)
@@ -72,6 +102,13 @@ def rope_sincos(
     grid_h, grid_w = torch.meshgrid(ch, cw, indexing="ij")
     coords = torch.stack([grid_h, grid_w], dim=-1).reshape(H * W, 2)
     coords = 2.0 * coords - 1.0  # [0,1] -> [-1,1]
+    if draws is not None:
+        if shift_coords is not None:
+            coords = coords + draws["shift"].to(device, dtype)[None, :]
+        if jitter_coords is not None:
+            coords = coords * draws["jitter"].to(device, dtype)[None, :]
+        if rescale_coords is not None:
+            coords = coords * draws["rescale"].to(device, dtype)
     # each op computes in fp32 with the full-precision 2*pi and rounds
     # to the rope dtype, as the reference does
     angles = (coords[:, :, None].float() * (2.0 * math.pi)).to(dtype)

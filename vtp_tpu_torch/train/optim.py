@@ -27,10 +27,13 @@ leaves them unchanged, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+# The host-driven gradient accumulators' storage dtypes (``accum_dtype``)
+ACCUM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def warmup_cosine_lr(count: int, peak: float, warmup_steps: int, total_steps: int) -> float:
@@ -56,6 +59,21 @@ def resolve_moment_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     if name in ("bf16", "bfloat16"):
         return torch.bfloat16
     raise ValueError(f"unknown moment_dtype {name!r} (use 'fp32' or 'bf16')")
+
+
+@torch.no_grad()
+def accumulate_grads(g_sum: Sequence[torch.Tensor],
+                     grads: Sequence[Optional[torch.Tensor]]) -> None:
+    """``g_sum += grads`` in place, each sum added in fp32 and stored in its
+    own dtype (the JAX package's host accumulation); a None gradient adds
+    nothing."""
+    for a, b in zip(g_sum, grads):
+        if b is None:
+            continue
+        if a.dtype == torch.float32:
+            a.add_(b.float())
+        else:
+            a.copy_(a.float() + b.float())
 
 
 class AdamW:

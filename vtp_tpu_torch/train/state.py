@@ -94,9 +94,10 @@ def load_numpy_train_state(state: TrainState, params: Dict[str, np.ndarray],
     ``params``, ``teacher``, ``mu`` and ``nu`` are flat dicts under the
     reference checkpoint's names (``vtp_tpu.convert.to_torch.export_state_dict``
     of each tree; the moments have the parameters' tree, so the same
-    export applies) plus the DINO head as ``dino_head.mlp.layer{i}.weight``
-    / ``.bias`` (torch layout) and ``dino_head.last_layer.v`` (torch layout,
-    (out, in)) / ``.g``. ``count`` is the Adam count."""
+    export applies) plus the DINO head under ``dino_head.`` as
+    ``models.dino_head.head_state_dict`` gives it (``mlp.layer{i}.weight`` /
+    ``.bias``, ``last_layer.v`` / ``.g`` or, without weight norm,
+    ``last_layer.weight``; torch layout). ``count`` is the Adam count."""
     body = {k: v for k, v in params.items() if not k.startswith("dino_head.")}
     state.model.load_numpy_state_dict(body)
     if state.dino_head is not None:

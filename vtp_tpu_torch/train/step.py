@@ -1,6 +1,8 @@
 """The VTP training step: CLIP + DINOv2-style SSL + reconstruction (port of
 ``vtp_tpu/train/step.py``: ``TrainConfig`` :58, ``make_optimizer`` :160,
-``init_state`` :208, ``make_ssl_batch`` :216, ``build_train_step`` :263).
+``init_state`` :208, ``make_ssl_batch`` :216, ``build_train_step`` :263,
+its accumulation :474-598, ``objective_grad_norms`` :600,
+``run_host_accum_step`` :639).
 
 One step runs the CLIP branch (image and text towers, contrastive loss),
 the reconstruction branch (bf16 trunk + pixel decoder, pixel loss) and the
@@ -9,18 +11,30 @@ the student on the masked globals and the local crops; DINO heads; DINO,
 iBOT and KoLeo losses), then one backward, clip by global norm, AdamW,
 the teacher EMA and both center updates. The state is updated in place.
 
-Ported: ``accum_steps == 1``, drop rates 0, every ``remat`` policy of the
-JAX package's ``remat_wrap`` (``models/blocks.py`` ``checkpoint_policy``),
-fp32 or bf16 Adam moments, bf16 or fp32 compute. Each of gradient
-accumulation, drop-path, the RoPE coordinate augmentation, sequence and
-pipeline parallelism and the head-major TP layout raises
-``NotImplementedError`` when asked for.
+Where the JAX step takes a key, this one takes a ``generator`` or
+``draws``: each trained trunk forward's RoPE coordinate augmentation and
+drop-path rows (``VisionTransformer.sample_draws``), per branch
+(``clip``, ``rec``, ``ssl``, as JAX splits its key). ``sample_draws``
+draws a whole step's before its first forward, so a checkpointed block
+recomputes with the rows it ran with. A test gives the JAX package's
+draws instead.
+
+With ``accum_steps > 1`` every batch leaf carries a leading (accum,)
+microbatch axis and the step is the host-driven accumulation
+(``micro_step``, ``zero_accumulators``, ``apply_accum``; ``run_host_accum_step``):
+the gradient sums add in fp32 and are stored in ``accum_dtype``, grads and
+metrics are averaged over the microbatches before the one update, and the
+centers move by statistics pooled over them. In fp32 this equals the JAX
+package's in-jit scan bit for bit (its sums start from the first
+microbatch's gradients; 0 + g = g). Sequence and pipeline parallelism,
+``drop_shards > 1`` and the head-major TP layout raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -37,7 +51,7 @@ from vtp_tpu_torch.train.losses import (
     siglip_loss,
     update_center,
 )
-from vtp_tpu_torch.train.optim import AdamW
+from vtp_tpu_torch.train.optim import ACCUM_DTYPES, AdamW, accumulate_grads
 from vtp_tpu_torch.train.state import (
     TrainState,
     ema_update,
@@ -47,10 +61,13 @@ from vtp_tpu_torch.train.state import (
 )
 
 
+BRANCH_DROP = {"clip": "clip_drop_rate", "rec": "rec_drop_rate", "ssl": "ssl_drop_rate"}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """A copy of the JAX package's ``TrainConfig`` (same fields and
-    defaults); the options the port does not run raise in
+    defaults); the parallel options, which the port does not run, raise in
     ``check_supported``."""
 
     train_clip: bool = True
@@ -99,23 +116,20 @@ class TrainConfig:
 
 
 def check_supported(cfg: VTPConfig, tcfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every option the port does not run."""
+    """Raise ``NotImplementedError`` for every option the port does not run
+    (the parallel layouts), ``ValueError`` for an unknown ``accum_dtype``."""
     unported = {
-        "accum_steps > 1 (gradient accumulation)": tcfg.accum_steps > 1,
-        "drop-path (clip/ssl/rec drop rates > 0)":
-            max(tcfg.clip_drop_rate, tcfg.ssl_drop_rate, tcfg.rec_drop_rate) > 0,
         "sequence_parallel": tcfg.sequence_parallel,
         "pipeline_stages > 1": tcfg.pipeline_stages > 1,
         "tp_head_major > 1": tcfg.tp_head_major > 1,
         "vision_qkv_head_major > 1 (training a head-major model)": cfg.vision_qkv_head_major > 1,
         "drop_shards > 1": tcfg.drop_shards > 1,
-        "RoPE coordinate augmentation (rope_shift/jitter/rescale_coords)": any(
-            v is not None for v in (cfg.rope_shift_coords, cfg.rope_jitter_coords,
-                                    cfg.rope_rescale_coords)),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported: {', '.join(asked)}")
+    if tcfg.accum_dtype not in ACCUM_DTYPES:
+        raise ValueError(f"unknown accum_dtype {tcfg.accum_dtype!r} (use 'fp32' or 'bf16')")
 
 
 def dino_head_config(cfg: VTPConfig, tcfg: TrainConfig) -> DinoHeadConfig:
@@ -130,12 +144,12 @@ def make_optimizer(leaves: Dict[str, torch.Tensor], tcfg: TrainConfig) -> AdamW:
                  b2=tcfg.beta2, grad_clip=tcfg.grad_clip, moment_dtype=tcfg.moment_dtype)
 
 
-def init_state(cfg: VTPConfig, tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
-               device="cuda") -> TrainState:
+def init_train_modules(cfg: VTPConfig, tcfg: TrainConfig,
+                       generator: Optional[torch.Generator] = None, device="cuda"
+                       ) -> Tuple[VTPModel, Optional[DinoHead]]:
     """Random student weights drawn from ``generator`` (on ``device``,
-    seeded with 0 when not given), a teacher copied from them, zero
-    moments and zero centers."""
-    check_supported(cfg, tcfg)
+    seeded with 0 when not given): the model and, with ``train_ssl``, the
+    DINO head (JAX ``init_train_params`` :185)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     model = VTPModel.init(cfg, generator, device=device)
@@ -145,6 +159,15 @@ def init_state(cfg: VTPConfig, tcfg: TrainConfig, generator: Optional[torch.Gene
             head = DinoHead(dino_head_config(cfg, tcfg))
         head.to_empty(device=device)
         head.reset_parameters(generator)
+    return model, head
+
+
+def init_state(cfg: VTPConfig, tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
+               device="cuda") -> TrainState:
+    """``init_train_modules``' student, a teacher copied from it, zero
+    moments and zero centers."""
+    check_supported(cfg, tcfg)
+    model, head = init_train_modules(cfg, tcfg, generator, device)
     optimizer = make_optimizer(train_leaves(model, head), tcfg)
     teacher = centers = None
     if head is not None:
@@ -179,39 +202,103 @@ def make_ssl_batch(generator: torch.Generator, batch: int, *, global_size: int =
             "mask_weight": mask_weight}
 
 
-def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
-    """Returns ``train_step(state, batch) -> (state, metrics)``, which
-    updates ``state`` in place.
+def _center_stats(aux, ssl) -> Tuple[torch.Tensor, ...]:
+    """The center EMAs' sufficient statistics of one microbatch (JAX
+    :436): the sum of the teacher cls logits, their row count, the
+    weighted sum of the teacher masked logits and the weight sum."""
+    t_cls_head, t_masked_head = aux
+    w = ssl["mask_weight"].float()
+    return (t_cls_head.float().sum(0),
+            torch.tensor(float(t_cls_head.shape[0]), device=t_cls_head.device),
+            (t_masked_head.float() * w[:, None]).sum(0), w.sum())
 
-    batch keys (each objective runs when its keys are present):
+
+def _micro(batch: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _micro(v, i) if isinstance(v, dict) else v[i] for k, v in batch.items()}
+
+
+def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
+    """Returns ``train_step(state, batch, generator=None, draws=None) ->
+    (state, metrics)``, which updates ``state`` in place.
+
+    batch keys (each objective runs when its keys are present), with a
+    leading (accum_steps,) axis on every leaf when ``accum_steps > 1``:
       image (B,3,H,W), text (B,L): the CLIP pair
       rec_image (B,3,H,W): the reconstruction target
       ssl: a dict as ``make_ssl_batch`` returns
+    ``draws``: ``train_step.sample_draws``'s (a list of one per microbatch
+    when accumulating), drawn from ``generator`` when not given; a step that
+    augments the RoPE coordinates or drops paths needs one of them.
     metrics: 0-dim tensors ``loss/{clip,rec,dino,ibot,koleo,total}`` and
-    ``grad_norm`` (before clipping)."""
+    ``grad_norm`` (before clipping, after averaging the microbatches).
+
+    Attributes: ``sample_draws(generator, batch)``, ``micro_step``,
+    ``zero_accumulators``, ``apply_accum`` and ``objective_grad_norms``."""
     check_supported(cfg, tcfg)
     cdt = tcfg.torch_compute_dtype
     remat = tcfg.remat
     use_bn_for_ssl = not cfg.vision_bottleneck_ae_only
     p = cfg.vision_patch_size
+    accum = max(1, int(tcfg.accum_steps))
+    adt = ACCUM_DTYPES[tcfg.accum_dtype]
+    random = (max(tcfg.clip_drop_rate, tcfg.ssl_drop_rate, tcfg.rec_drop_rate) > 0
+              or any(v is not None for v in (cfg.rope_shift_coords, cfg.rope_jitter_coords,
+                                             cfg.rope_rescale_coords)))
 
-    def clip_branch(model: VTPModel, image, text):
-        img = l2_normalize(model.clip_image_embedding(image, cdt, training=True, remat=remat))
+    def trunk_kw(branch: str, draws) -> Dict[str, Any]:
+        return dict(training=True, remat=remat, drop_ratio=getattr(tcfg, BRANCH_DROP[branch]),
+                    draws=draws)
+
+    def branches(batch) -> List[str]:
+        out = []
+        if tcfg.train_clip and "image" in batch:
+            out.append("clip")
+        if tcfg.train_reconstruction and "rec_image" in batch:
+            out.append("rec")
+        if tcfg.train_ssl and "ssl" in batch:
+            out.append("ssl")
+        return out
+
+    def sample_draws(state: TrainState, generator: torch.Generator,
+                     batch: Dict[str, Any]) -> Dict[str, Dict[str, list]]:
+        """One microbatch's draws (no accum axis), per branch that runs, in
+        the order clip, rec, ssl."""
+        trunk = state.model.trunk
+        out = {}
+        for name in branches(batch):
+            if name == "ssl":
+                crops = [batch["ssl"]["global_crops"], batch["ssl"]["local_crops"]]
+            else:
+                crops = [batch["image" if name == "clip" else "rec_image"]]
+            out[name] = trunk.sample_draws(generator, [c.shape[0] for c in crops],
+                                           getattr(tcfg, BRANCH_DROP[name]))
+        return out
+
+    def resolve_draws(state, batch, generator, draws):
+        if draws is not None or not random:
+            return draws or {}
+        if generator is None:
+            raise ValueError("this step augments the RoPE coordinates or drops paths: "
+                             "pass a generator or draws")
+        return sample_draws(state, generator, batch)
+
+    def clip_branch(model: VTPModel, image, text, draws):
+        img = l2_normalize(model.clip_image_embedding(image, cdt, **trunk_kw("clip", draws)))
         t_out = model.text(text, compute_dtype=cdt, remat=remat)
         txt = l2_normalize(t_out[0] if isinstance(t_out, tuple) else t_out)
         if model.logit_bias is not None:
             return siglip_loss(img, txt, model.logit_scale, model.logit_bias)
         return clip_loss(img, txt, model.logit_scale)
 
-    def rec_branch(model: VTPModel, image):
+    def rec_branch(model: VTPModel, image, draws):
         _, _, H, W = image.shape
         out = model.trunk.forward_features(image, use_bottleneck=True, compute_dtype=cdt,
-                                           training=True, remat=remat)
+                                           **trunk_kw("rec", draws))
         latents = patch_tokens_to_4d(out["x_norm_patchtokens"], H // p, W // p)
         rec = model.pixel_decoder(latents, compute_dtype=cdt, remat=remat)
         return reconstruction_loss(rec, image, loss_type=tcfg.rec_loss_type)
 
-    def ssl_branch(state: TrainState, ssl):
+    def ssl_branch(state: TrainState, ssl, draws):
         teacher = state.teacher
         g = ssl["global_crops"]
         bc = g.shape[0] // tcfg.n_global_crops
@@ -228,9 +315,12 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
 
         s_global, s_local = state.model.trunk.forward_features(
             [g, ssl["local_crops"]], masks=[ssl["masks"], None], use_bottleneck=use_bn_for_ssl,
-            compute_dtype=cdt, training=True, remat=remat)
+            compute_dtype=cdt, **trunk_kw("ssl", draws))
         s_g_cls, s_l_cls = s_global["x_norm_clstoken"], s_local["x_norm_clstoken"]
 
+        # the student heads keep the zero-safe normalize: a sample that
+        # drop-path dropped from every branch leaves its masked tokens equal
+        # to the zero mask_token, whose clamped normalize has a 1/eps Jacobian
         def head(x):
             return state.dino_head(x, compute_dtype=cdt,
                                    zero_safe_normalize=tcfg.zero_safe_normalize)
@@ -250,42 +340,162 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         l_koleo = koleo_loss(s_g_cls)
         return l_dino_g + l_dino_l, l_ibot, l_koleo, (t_cls_head, t_masked_head)
 
-    def train_step(state: TrainState, batch: Dict[str, Any]):
+    def trained(state: TrainState) -> List[str]:
+        return [n for n, t in state.optimizer.leaves.items() if t.requires_grad]
+
+    def loss_and_grads(state: TrainState, batch: Dict[str, Any], draws):
+        """One microbatch's gradients (by ``trained`` leaf; None where a leaf
+        gets none), its detached metrics and the teacher heads (or None)."""
         model = state.model
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
         aux = None
         if tcfg.train_clip and "image" in batch:
-            loss = clip_branch(model, batch["image"], batch["text"])
+            loss = clip_branch(model, batch["image"], batch["text"], draws.get("clip"))
             metrics["loss/clip"] = loss
             total = total + tcfg.clip_weight * loss
         if tcfg.train_reconstruction and "rec_image" in batch:
-            loss = rec_branch(model, batch["rec_image"])
+            loss = rec_branch(model, batch["rec_image"], draws.get("rec"))
             metrics["loss/rec"] = loss
             total = total + tcfg.rec_weight * loss
         if tcfg.train_ssl and "ssl" in batch:
-            l_dino, l_ibot, l_koleo, aux = ssl_branch(state, batch["ssl"])
+            l_dino, l_ibot, l_koleo, aux = ssl_branch(state, batch["ssl"], draws.get("ssl"))
             metrics.update({"loss/dino": l_dino, "loss/ibot": l_ibot, "loss/koleo": l_koleo})
             total = (total + tcfg.dino_weight * l_dino + tcfg.ibot_weight * l_ibot
                      + tcfg.koleo_weight * l_koleo)
         metrics["loss/total"] = total
-
         leaves = state.optimizer.leaves
-        names = [n for n, t in leaves.items() if t.requires_grad]
-        grads = torch.autograd.grad(total, [leaves[n] for n in names], allow_unused=True)
-        metrics["grad_norm"] = state.optimizer.step(dict(zip(names, grads)))
-        del grads
+        grads = torch.autograd.grad(total, [leaves[n] for n in trained(state)],
+                                    allow_unused=True)
+        return list(grads), {k: v.detach() for k, v in metrics.items()}, aux
+
+    def finish(state: TrainState, grads: Sequence[Optional[torch.Tensor]],
+               metrics: Dict[str, torch.Tensor], centers) -> Tuple[TrainState, Dict]:
+        """The optimizer step, the teacher EMA and ``centers(state)``."""
+        metrics["grad_norm"] = state.optimizer.step(dict(zip(trained(state), grads)))
         state.step += 1
         if state.teacher is not None:
             ema_update(state.teacher, student_parts(state.model, state.dino_head),
                        tcfg.teacher_momentum)
-            if aux is not None:
-                t_cls_head, t_masked_head = aux
-                state.dino_center = update_center(state.dino_center, t_cls_head,
-                                                  tcfg.center_momentum)
-                state.ibot_center = update_center(state.ibot_center, t_masked_head,
-                                                  tcfg.center_momentum,
-                                                  weight=batch["ssl"]["mask_weight"])
-        return state, {k: v.detach() for k, v in metrics.items()}
+            centers(state)
+        return state, metrics
 
+    def zero_accumulators(state: TrainState, micro0: Dict[str, Any]):
+        """Fresh (g_sum, m_sum, c_sum) for one microbatch's keys (no accum
+        axis): gradient sums, zeros in ``accum_dtype`` by ``trained`` leaf;
+        fp32 zero metric sums, their keys from the same conditions as the
+        loss; the center statistics' sums (None without SSL)."""
+        leaves = state.optimizer.leaves
+        g_sum = [torch.zeros_like(leaves[n], dtype=adt) for n in trained(state)]
+        names = {"clip": ["loss/clip"], "rec": ["loss/rec"],
+                 "ssl": ["loss/dino", "loss/ibot", "loss/koleo"]}
+        device = g_sum[0].device
+        m_sum = {k: torch.zeros((), device=device)
+                 for b in branches(micro0) for k in names[b]}
+        m_sum["loss/total"] = torch.zeros((), device=device)
+        c_sum = None
+        if "ssl" in branches(micro0):
+            d = tcfg.dino_out_dim
+            c_sum = (torch.zeros(d, device=device), torch.zeros((), device=device),
+                     torch.zeros(d, device=device), torch.zeros((), device=device))
+        return g_sum, m_sum, c_sum
+
+    def micro_step(state: TrainState, g_sum, m_sum, c_sum, micro: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None, draws=None):
+        """One microbatch (no accum axis) added into the accumulators: the
+        gradients in fp32, stored in their dtype; metrics and center
+        statistics in fp32. Returns (g_sum, m_sum, c_sum)."""
+        draws = resolve_draws(state, micro, generator, draws)
+        g, m, aux = loss_and_grads(state, micro, draws)
+        accumulate_grads(g_sum, g)
+        del g
+        m_sum = {k: m_sum[k] + m[k] for k in m_sum}
+        if aux is not None:
+            c_sum = tuple(a + b for a, b in zip(c_sum, _center_stats(aux, micro["ssl"])))
+        return g_sum, m_sum, c_sum
+
+    def apply_accum(state: TrainState, g_sum, m_sum, c_sum):
+        """The accumulation's epilogue (JAX ``_apply_accumulated`` :513):
+        grads and metrics divided by ``accum_steps`` in fp32, one optimizer
+        and EMA step, the centers from the pooled statistics."""
+        grads = [a.float() / accum for a in g_sum]
+        metrics = {k: v / accum for k, v in m_sum.items()}
+
+        def centers(st):
+            if c_sum is None:
+                return
+            cls_sum, cls_n, masked_sum, w_sum = c_sum
+            m_c = tcfg.center_momentum
+            st.dino_center = (m_c * st.dino_center
+                              + (1.0 - m_c) * cls_sum / torch.clamp(cls_n, min=1.0))
+            st.ibot_center = (m_c * st.ibot_center
+                              + (1.0 - m_c) * masked_sum / torch.clamp(w_sum, min=1.0))
+
+        return finish(state, grads, metrics, centers)
+
+    def train_step(state: TrainState, batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None, draws=None):
+        if accum > 1:
+            return run_host_accum_step(train_step, tcfg, state, batch, generator, draws)
+        draws = resolve_draws(state, batch, generator, draws)
+        grads, metrics, aux = loss_and_grads(state, batch, draws)
+
+        def centers(st):
+            if aux is None:
+                return
+            t_cls_head, t_masked_head = aux
+            st.dino_center = update_center(st.dino_center, t_cls_head, tcfg.center_momentum)
+            st.ibot_center = update_center(st.ibot_center, t_masked_head, tcfg.center_momentum,
+                                           weight=batch["ssl"]["mask_weight"])
+
+        return finish(state, grads, metrics, centers)
+
+    def objective_grad_norms(state: TrainState, batch: Dict[str, Any],
+                             generator: Optional[torch.Generator] = None, draws=None
+                             ) -> Dict[str, torch.Tensor]:
+        """The global gradient norm of each objective alone (JAX :600): one
+        forward and backward per objective, all on the same draws; a
+        diagnostic of what the summed ``grad_norm`` hides, such as the iBOT x
+        drop-path zero-row spike. ``batch`` is one microbatch (no accum axis)."""
+        draws = resolve_draws(state, batch, generator, draws)
+        leaves = state.optimizer.leaves
+        params = [leaves[n] for n in trained(state)]
+
+        def norm(loss):
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            return torch.sqrt(sum(g.float().square().sum() for g in gs if g is not None))
+
+        model, norms = state.model, {}
+        if "clip" in branches(batch):
+            norms["grad_norm/clip"] = norm(clip_branch(model, batch["image"], batch["text"],
+                                                       draws.get("clip")))
+        if "rec" in branches(batch):
+            norms["grad_norm/rec"] = norm(rec_branch(model, batch["rec_image"], draws.get("rec")))
+        if "ssl" in branches(batch):
+            for i, name in enumerate(("dino", "ibot", "koleo")):
+                norms[f"grad_norm/{name}"] = norm(
+                    ssl_branch(state, batch["ssl"], draws.get("ssl"))[i])
+        return {k: v.detach() for k, v in norms.items()}
+
+    train_step.sample_draws = sample_draws
+    train_step.micro_step = micro_step
+    train_step.zero_accumulators = zero_accumulators
+    train_step.apply_accum = apply_accum
+    train_step.objective_grad_norms = objective_grad_norms
     return train_step
+
+
+def run_host_accum_step(train_step, tcfg: TrainConfig, state: TrainState, batch: Dict[str, Any],
+                        generator: Optional[torch.Generator] = None,
+                        draws: Optional[Sequence[Dict]] = None):
+    """One optimizer step of host-driven accumulation (JAX :639): every batch
+    leaf carries a leading (accum_steps,) axis. ``draws`` gives one entry per
+    microbatch; without it each microbatch's are drawn from ``generator``."""
+    accum = max(1, tcfg.accum_steps)
+    g_sum, m_sum, c_sum = train_step.zero_accumulators(state, _micro(batch, 0))
+    for i in range(accum):
+        micro = _micro(batch, i)
+        g_sum, m_sum, c_sum = train_step.micro_step(
+            state, g_sum, m_sum, c_sum, micro, generator,
+            draws[i] if draws is not None else None)
+    return train_step.apply_accum(state, g_sum, m_sum, c_sum)
