@@ -35,6 +35,17 @@
    encode, decode, clip_image and clip_text requests of 1, 3, 8 and 40
    rows; counts the launches, prints rows/s and p50/p99 latency per kind,
    and after shutdown holds every result against a direct call;
+   the int8 W8A8 serving tier on the same model: ``torch._int_mm`` against
+   the float64 product of the same codes (VTP-L's trunk GEMMs and padded
+   small-row cases), ``quantize_for_serving()``'s encode counted, against the
+   bf16 encode (cosine > 0.99) and the plain versions, profiled (one
+   ``_int_mm`` a linear, no weight-sized copy); the trunk+decoder tier's
+   bf16 decode against the exact decode (rel < 0.2, PSNR) and the plain
+   versions; ``VTPServer`` over the int8 model against direct calls;
+   ``VTPTokenizer(quantize_int8=True)``; the encode timed with the per-call
+   cast, ``cast_matmul_params``, ``fuse_ffn_params``, both and int8, in
+   turns; peak memory; then ``tools/bench_serve.py``'s ``main`` at VTP-L
+   for 5 s (its JSON line printed);
    the head-major checkpoint path: the roundtrip's weights permuted to
    ``vision_qkv_head_major = 4`` (the layout a tensor-parallel run writes),
    written with ``save_pretrained`` (the native format) to a temporary
@@ -101,7 +112,10 @@
    0 and passes no gradient to its attention;
 6. samples 8 images with ``sample_images`` (250 euler steps, shift 0.075,
    cfg 1.0, then the VTP-L decode to uint8), counted and timed, and holds
-   a 4-step sample's latents against the same on the plain versions;
+   a 4-step sample's latents against the same on the plain versions; then
+   the same with the DiT in int8 W8A8 (``sample_dit --int8``'s
+   quantization): a 4-step sample against the plain versions and beside the
+   bf16 sampler, and the 250-step sample timed beside the bf16 one;
 6a. the generation pipeline (image batches -> latent shards -> DiT training
    -> train-state checkpoints -> samples): the VTP-L model written with
    ``save_hf_checkpoint`` and loaded by ``VTPTokenizer.from_checkpoint``;
@@ -134,9 +148,9 @@
    ``library_device_ms``: the device's time alone), every forward arm and
    both backward arms also at head dims 32 and 128 (1024 wide); and the
    roundtrip's images/s;
-8. with --profile, traces one roundtrip, one train step and one DiT train
-   step with torch.profiler and prints the device time by kernel and the
-   device's idle share.
+8. with --profile, traces one roundtrip, one bf16 and one int8 encode, one
+   train step and one DiT train step with torch.profiler and prints the
+   device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, one JSON line {"kernels": [...]} and,
 as the last line, {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -904,6 +918,357 @@ def run_serve(model, card):
         if not ok:
             raise AssertionError(f"served {kind} results disagree with direct calls")
     return counts
+
+
+# The int8 product's main shapes: VTP-L's trunk GEMMs at B = 8 (2056 rows:
+# qkv, proj, w1 / w2, w3), and rows the card's _int_mm does not take, padded:
+# the DiT's ada at B = 8 and its t_embed fc1 at the CFG-doubled B = 16
+INT8_GEMMS = ((2056, 1024, 3072), (2056, 1024, 1024), (2056, 1024, 2736), (2056, 2736, 1024),
+              (8, 1152, 6912), (16, 256, 1152))
+INT8_SAMPLES = 7   # rounds of the encode timings, each variant once a round, in turns
+
+
+def check_int_mm(card):
+    """Phase 3d (a): ``int8_matmul`` (``torch._int_mm`` on the column-major
+    codes, small row counts padded) against the float64 product of the same
+    int8 codes, bit for bit, at INT8_GEMMS."""
+    import torch
+
+    from vtp_tpu_torch.utils.quantization import int8_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for m, k, n in INT8_GEMMS:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        acc = int8_matmul(xq, q)
+        exact = acc.dtype == torch.int32 and torch.equal(acc.double(), xq.double() @ q.double().t())
+        ms = _time_ms(lambda: int8_matmul(xq, q))
+        print(f"int8 GEMM ({m}, {k}) x ({k}, {n}) on {card}: int32 accumulators equal to the "
+              f"float64 product {'ok' if exact else 'FAIL'}; {ms:.4f} ms, "
+              f"{2 * m * k * n / ms / 1e9:.1f} TOP/s (CUDA events, median of 7 x 10)", flush=True)
+        if not exact:
+            raise AssertionError(f"torch._int_mm disagrees with the float64 product at {m, k, n}")
+
+
+def _encode_times(variants, images):
+    """Host-clock ms of each variant's encode, INT8_SAMPLES rounds, the
+    variants in turns within a round: {label: [ms, ...]}."""
+    import torch
+
+    times = {label: [] for label in variants}
+    for fn in variants.values():
+        fn(images)
+    for _ in range(INT8_SAMPLES):
+        for label, fn in variants.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(images)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _psnr_255(images, ref):
+    """PSNR of de-normalised (ImageNet mean/std) images in [0, 255]."""
+    import torch
+
+    from vtp_tpu_torch.generation.vtp_tokenizer import IMAGENET_MEAN, IMAGENET_STD
+    from vtp_tpu_torch.metrics.psnr import psnr
+
+    mean = torch.tensor(IMAGENET_MEAN, device=ref.device).reshape(1, 3, 1, 1)
+    std = torch.tensor(IMAGENET_STD, device=ref.device).reshape(1, 3, 1, 1)
+    to255 = lambda x: torch.clamp((x.float() * std + mean) * 255.0, 0, 255)
+    return psnr(to255(ref), to255(images)).mean().item()
+
+
+def run_int8_serving(model, images, card, profiling=False):
+    """Phase 3d: the int8 W8A8 serving tier on the roundtrip's VTP-L model.
+    ``torch._int_mm`` checked (``check_int_mm``); ``quantize_for_serving()``
+    (trunk): its encode counted (24 bf16-arm launches), against the bf16
+    encode (cosine > 0.99, JAX's gate) and the plain versions (5e-2 of
+    max|ref|), profiled (120 ``_int_mm`` calls, no copy of a weight-sized
+    tensor); the trunk+decoder tier: a bf16 decode (counted), within rel 0.2
+    of the exact decode of the same latents (JAX's gate), its PSNR, against
+    the plain versions, and its decoder refusing the fp32 decode;
+    ``VTPServer`` over the int8 model (every result against a direct call);
+    ``VTPTokenizer(quantize_int8=True)``; the encode timed with the
+    per-call cast, ``cast_matmul_params`` (bit-equal), ``fuse_ffn_params``,
+    both, and int8; peak memory; with ``profiling``, the bf16 and the int8
+    encode traced (``profile_run``). Returns the launches of the counted
+    runs."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vtp_tpu_torch.generation import VTPTokenizer
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+    from vtp_tpu_torch.serve import VTPServer
+    from vtp_tpu_torch.utils.params import cast_matmul_params, fuse_ffn_params, tree_bytes
+    from vtp_tpu_torch.utils.quantization import Int8Weight, shallow_copy
+
+    cfg = model.config
+    bf16 = ARM_NAME[torch.bfloat16]
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    check_int_mm(card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    qmodel = model.quantize_for_serving()
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - base
+    print(f"int8: quantize_for_serving() in place of {tree_bytes(model.trunk) / 1e9:.3f} GB of "
+          f"fp32 trunk holds {tree_bytes(qmodel.trunk) / 1e9:.3f} GB; allocated "
+          f"{added / 1e9:.3f} GB more (the other towers shared)", flush=True)
+    if qmodel.pixel_decoder is not model.pixel_decoder or qmodel.text is not model.text:
+        raise AssertionError("quantize_for_serving copied a tower it does not quantize")
+
+    reset_launch_counts()
+    z8 = qmodel.get_reconstruction_latents(images)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add(counts)
+    want = {bf16: cfg.vision_depth}
+    print(f"int8 encode: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"int8 encode launches {counts}, expected {want}")
+    z16 = model.get_reconstruction_latents(images)
+    with _plain_kernels():
+        z8_plain = qmodel.get_reconstruction_latents(images)
+    torch.cuda.synchronize()
+    a, b = z8.float().ravel(), z16.float().ravel()
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    rel = ((a - b).norm() / b.norm()).item()
+    err = ((z8.float() - z8_plain.float()).abs().max() / z8_plain.float().abs().max()).item()
+    ok = cos > 0.99 and err <= FEATURE_REL and torch.isfinite(z8).all().item()
+    print(f"int8 encode VTP-L B={BATCH} on {card}: vs the bf16 encode cosine {cos:.6f} (limit > "
+          f"0.99), relative error {rel:.4e}; vs plain versions max err {err:.3e} of max|ref| "
+          f"(limit {FEATURE_REL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the int8 encode disagrees with the bf16 encode or the plain run")
+
+    weight_shapes = {tuple(m.q.shape) for m in qmodel.trunk.modules() if isinstance(m, Int8Weight)}
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        qmodel.get_reconstruction_latents(images)
+        torch.cuda.synchronize()
+    n_mm = sum(1 for e in prof.events() if e.name == "aten::_int_mm")
+    weight_copies = sum(1 for e in prof.events() if e.name == "aten::copy_" and any(
+        tuple(s) in weight_shapes or tuple(s[::-1]) in weight_shapes
+        for s in (e.input_shapes or []) if s))
+    linears = 5 * cfg.vision_depth
+    print(f"int8 encode profile: {n_mm} aten::_int_mm calls (expected {linears}), {weight_copies} "
+          f"aten::copy_ of a weight-sized tensor (expected 0)", flush=True)
+    if n_mm != linears or weight_copies:
+        raise AssertionError("the int8 encode did not run one _int_mm a linear without copies")
+
+    qdec = model.quantize_for_serving(("trunk", "pixel_decoder"))
+    if qdec.decode_dtype != torch.bfloat16:
+        raise AssertionError(f"the decoder tier decodes in {qdec.decode_dtype}, not bf16")
+    try:
+        qdec.pixel_decoder(z8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the int8 decoder ran the fp32 protocol decode")
+    reset_launch_counts()
+    rec8 = qdec.get_latents_decoded_images(z8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add(counts)
+    want = {bf16: cfg.decoder_depth}
+    print(f"int8 decoder tier decode: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"int8 decoder tier launches {counts}, expected {want}")
+    exact = model.get_latents_decoded_images(z8)
+    with _plain_kernels():
+        rec8_plain = qdec.get_latents_decoded_images(z8)
+    torch.cuda.synchronize()
+    rel = ((rec8.float() - exact).norm() / exact.norm()).item()
+    err = ((rec8.float() - rec8_plain.float()).abs().max() / rec8_plain.float().abs().max()).item()
+    ok = rel < 0.2 and err <= FEATURE_REL and torch.isfinite(rec8).all().item()
+    print(f"int8 trunk+decoder tier on {card}: bf16 decode vs the exact decode of the same "
+          f"latents rel {rel:.4e} (limit 0.2), PSNR {_psnr_255(rec8, exact):.2f} dB (ImageNet "
+          f"de-normalised, [0, 255]); vs plain versions max err {err:.3e} of max|ref| (limit "
+          f"{FEATURE_REL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the int8 decoder tier disagrees with the exact decode or plain run")
+    del qdec, rec8, rec8_plain, exact
+
+    rng = np.random.default_rng(SEED + 3)
+    s, g = cfg.image_size, cfg.image_size // cfg.vision_patch_size
+    make = {
+        "encode": lambda n: rng.standard_normal((n, 3, s, s), dtype=np.float32),
+        "decode": lambda n: rng.standard_normal((n, cfg.vision_feature_bottleneck, g, g),
+                                                dtype=np.float32),
+        "clip_image": lambda n: rng.standard_normal((n, 3, s, s), dtype=np.float32),
+        "clip_text": lambda n: rng.integers(1, cfg.text_vocab_size - 1,
+                                            (n, cfg.text_context_length)),
+    }
+    srv = VTPServer(qmodel, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        futures = [(kind, x, srv.submit(kind, x)) for kind in make
+                   for x in (make[kind](n) for n in SERVE_ROWS)]
+        served = [(kind, x, f.result(timeout=300)) for kind, x, f in futures]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        calls = dict(srv.calls)
+    finally:
+        srv.shutdown()
+    add(counts)
+    want = {bf16: cfg.vision_depth * (calls["encode"] + calls["clip_image"])
+            + cfg.text_depth * calls["clip_text"],
+            ARM_NAME[torch.float32]: cfg.decoder_depth * calls["decode"]}
+    print(f"int8 serve: model calls {calls}; kernel launches {counts} (expected {want})",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"int8 serve launches {counts}, expected {want}")
+    enc = qmodel.encode_dtype
+    direct = {"encode": qmodel.get_reconstruction_latents,
+              "decode": qmodel.get_latents_decoded_images,
+              "clip_image": lambda x: qmodel.get_clip_image_feature(x, True, enc),
+              "clip_text": lambda x: qmodel.get_clip_text_feature(x, True, enc)}
+    worst = {}
+    for kind, x, y in served:
+        ref = direct[kind](torch.as_tensor(x).cuda()).float().cpu()
+        if tuple(y.shape) != tuple(ref.shape):
+            raise AssertionError(f"int8 serve {kind}: result {tuple(y.shape)}, direct "
+                                 f"{tuple(ref.shape)}")
+        err = ((y.float() - ref).abs().max() / ref.abs().max()).item()
+        worst[kind] = max(worst.get(kind, 0.0), err)
+    ok = all(v <= FEATURE_REL for v in worst.values())
+    print(f"int8 serve vs direct calls on the same rows: max err of max|ref| "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (limit {FEATURE_REL:g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("served int8 results disagree with direct calls")
+
+    reset_launch_counts()
+    tok = VTPTokenizer(model, img_size=cfg.image_size, quantize_int8=True)
+    zt = tok.encode_images(images)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add(counts)
+    ok = counts == {bf16: cfg.vision_depth} and torch.equal(zt, z8.float())
+    print(f"VTPTokenizer(quantize_int8=True).encode_images: {tuple(zt.shape)} {zt.dtype}, "
+          f"launches {counts}, equal to the int8 model's latents {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the int8 tokenizer's encode differs from the int8 model's")
+    del tok, zt
+
+    cast = shallow_copy(model)
+    cast.trunk = cast_matmul_params(model.trunk)
+    fused = shallow_copy(model)
+    fused.trunk = fuse_ffn_params(model.trunk)
+    both = shallow_copy(model)
+    both.trunk = fuse_ffn_params(cast.trunk)
+    zc, zf, zb = (m.get_reconstruction_latents(images) for m in (cast, fused, both))
+    torch.cuda.synchronize()
+    errs = [((z.float() - z16.float()).abs().max() / z16.float().abs().max()).item()
+            for z in (zf, zb)]
+    ok = torch.equal(zc, z16) and max(errs) <= FEATURE_REL
+    print(f"param transforms: cast_matmul_params latents bit-equal to the per-call cast "
+          f"{'ok' if torch.equal(zc, z16) else 'FAIL'}; fuse_ffn_params {errs[0]:.3e}, cast + "
+          f"fuse {errs[1]:.3e} of max|ref| (limit {FEATURE_REL:g}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("a param transform changed the encode")
+    variants = {"bf16, per-call cast": model.get_reconstruction_latents,
+                "cast_matmul_params": cast.get_reconstruction_latents,
+                "fuse_ffn_params": fused.get_reconstruction_latents,
+                "cast + fuse": both.get_reconstruction_latents,
+                "int8 W8A8": qmodel.get_reconstruction_latents}
+    times = _encode_times(variants, images)
+    for label, ts in times.items():
+        print(f"encode VTP-L 256px B={BATCH}, {label:20s} on {card}: median "
+              f"{statistics.median(ts):.2f} ms (min {min(ts):.2f}, max {max(ts):.2f}; host clock, "
+              f"{len(ts)} samples, the five variants in turns)", flush=True)
+    print(f"int8 serving phase: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated) on {card}", flush=True)
+    if profiling:
+        profile_run("bf16 encode", lambda: model.get_reconstruction_latents(images))
+        profile_run("int8 encode", lambda: qmodel.get_reconstruction_latents(images))
+    return total
+
+
+def run_bench_serve(card):
+    """Phase 3e: ``tools/bench_serve.main`` at VTP-L for 5 s (its own seeded
+    model); its JSON line is printed before the result line."""
+    from vtp_tpu_torch.tools import bench_serve
+
+    print(f"bench_serve on {card}: VTP-L, 5 s, encode + decode + clip_image clients, 8-row "
+          f"requests, batch 32", flush=True)
+    result = bench_serve.main(["--preset", "vtp-large", "--seconds", "5", "--device", "cuda"])
+    if not result["value"] > 0 or set(result["kinds"]) != {"encode", "decode", "clip_image"}:
+        raise AssertionError(f"bench_serve served nothing: {result}")
+
+
+def run_int8_sampling(gen, state, tokenizer, stats, bf16_sample_s, card):
+    """Phase 6b: the int8 DiT-XL/1 (``sample_dit --int8``'s quantization:
+    every linear but ``x_embed`` and ``final``): a 4-step sample counted,
+    against the same int8 sampler on the plain versions (5e-2 of max|ref|)
+    and beside the bf16 sampler (JAX's rel 0.15); then SAMPLE_BATCH images
+    at SAMPLE_STEPS steps, counted and timed beside the bf16 sample."""
+    import torch
+
+    from vtp_tpu_torch.dit.sample import make_sampler, sample_images
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, NORM_NAME
+    from vtp_tpu_torch.tools.sample_dit import quantize_dit_for_serving
+
+    cfg = state.ema.config
+    q_ema = quantize_dit_for_serving(state.ema)
+    labels = torch.arange(SAMPLE_BATCH, device="cuda") * (cfg.num_classes // SAMPLE_BATCH)
+    shape = (SAMPLE_BATCH, cfg.in_channels, cfg.input_size, cfg.input_size)
+    noise = torch.randn(shape, generator=gen, device="cuda")
+    short = make_sampler(cfg, num_steps=4)
+    reset_launch_counts()
+    z8 = short(q_ema, labels, noise=noise)
+    torch.cuda.synchronize()
+    short_counts = counts = launch_counts()
+    want = {NORM_NAME: 4 * cfg.depth}
+    if counts != want:
+        raise AssertionError(f"int8 4-step sample launches {counts}, expected {want}")
+    with _plain_kernels():
+        z8_plain = short(q_ema, labels, noise=noise)
+    z16 = short(state.ema, labels, noise=noise)
+    torch.cuda.synchronize()
+    err = ((z8 - z8_plain).abs().max() / z8_plain.abs().max()).item()
+    rel = ((z8 - z16).norm() / z16.norm()).item()
+    ok = err <= FEATURE_REL and rel < 0.15 and torch.isfinite(z8).all().item()
+    print(f"int8 DiT-XL/1 4-step sample on {card}: launches {counts}; vs plain versions max err "
+          f"{err:.3e} of max|ref| (limit {FEATURE_REL:g}); vs the bf16 sampler rel {rel:.4e} "
+          f"(limit 0.15) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the int8 sampler disagrees with the plain run or the bf16 sampler")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    images = sample_images(q_ema, tokenizer, labels, gen, latent_stats=stats,
+                           num_steps=SAMPLE_STEPS, timestep_shift=0.075, cfg_scale=1.0)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {NORM_NAME: SAMPLE_STEPS * cfg.depth,
+            ARM_NAME[torch.float32]: tokenizer.config.decoder_depth}
+    print(f"int8 sampling: kernel launches {counts} (expected {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"int8 sampling launches {counts}, expected {want}")
+    if tuple(images.shape) != (SAMPLE_BATCH, tokenizer.img_size, tokenizer.img_size, 3):
+        raise AssertionError(f"int8 sampled images {tuple(images.shape)}")
+    print(f"sampling DiT-XL/1 int8 W8A8 {SAMPLE_BATCH} images, {SAMPLE_STEPS} euler steps, cfg "
+          f"1.0, VTP-L decode on {card}: {sample_s:.3f} s ({sample_s / SAMPLE_STEPS * 1e3:.2f} ms "
+          f"a step), bf16 {bf16_sample_s:.3f} s ({bf16_sample_s / SAMPLE_STEPS * 1e3:.2f} ms); "
+          f"int8 / bf16 {sample_s / bf16_sample_s:.3f} (host clock, one run each)", flush=True)
+    return {name: n + short_counts.get(name, 0) for name, n in counts.items()}
 
 
 def check_train_kernels(gen):
@@ -3234,6 +3599,13 @@ def main() -> int:
     if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != prev_tf32:
         raise AssertionError("the decodes did not restore the TF32 settings")
     torch.cuda.empty_cache()
+    _set_phase("int8 serving")
+    t0 = time.perf_counter()
+    int8_counts = run_int8_serving(model, images, card_line, profiling)
+    torch.cuda.empty_cache()
+    run_bench_serve(card_line)
+    torch.cuda.empty_cache()
+    print(f"int8 serving and bench_serve: {time.perf_counter() - t0:.1f} s", flush=True)
     _set_phase("head-major")
     hm_counts, hm_model = run_head_major(model, images, rt_s)
     if profiling:
@@ -3303,6 +3675,11 @@ def main() -> int:
           f"decode on {card_line}: {sample_s:.3f} s, {SAMPLE_BATCH / sample_s:.3f} images/s, "
           f"{sample_s / SAMPLE_STEPS * 1e3:.2f} ms an euler step with the decode spread over them "
           f"(host clock, one run)", flush=True)
+    _set_phase("int8 sampling")
+    t0 = time.perf_counter()
+    int8_sample_counts = run_int8_sampling(gen, state, tokenizer, latent_stats, sample_s,
+                                           card_line)
+    print(f"int8 sampling: {time.perf_counter() - t0:.1f} s", flush=True)
     del state
     torch.cuda.empty_cache()
 
@@ -3325,14 +3702,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # launches: each arm's count summed over the main paths' runs (one
-    # roundtrip, one high roundtrip, the serve run, one head-major roundtrip,
+    # roundtrip, one high roundtrip, the serve run, the int8 serving phase's
+    # counted runs, the int8 sampling phase's, one head-major roundtrip,
     # one non-causal text call, the reconstruction and zero-shot evals, the
     # linear probe, the text intermediates, the extras, one train step, the
     # VTP training phase's counted runs, one DiT train step, one 250-step
     # sample, the generation pipeline's counted runs, and at head dims 32
     # and 128 one roundtrip, high decode, train step, DiT train step and
     # 4-step sample each)
-    for run in (high_counts, serve_counts, hm_counts, text_counts, eval_counts, zs_counts,
+    for run in (high_counts, serve_counts, int8_counts, int8_sample_counts, hm_counts,
+                text_counts, eval_counts, zs_counts,
                 probe_counts, ti_counts, extras_counts, train_counts, vtp_counts,
                 dit_counts, sample_counts, gen_counts, *head_dim_counts):
         for name, n in run.items():

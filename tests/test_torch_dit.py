@@ -518,10 +518,13 @@ def test_tokenizer_img_transform_matches_jax(tokenizers, p_hflip):
 
 
 def test_tokenizer_unported_options_raise(tokenizers):
+    """Batch sharding over a mesh is not ported; the int8 encoder is (its
+    tokenizer quantizes the trunk only: tests/test_torch_quantized_models.py)."""
     _, tok = tokenizers
-    for kw in (dict(quantize_int8=True), dict(data_sharding=object())):
-        with pytest.raises(NotImplementedError):
-            VTPTokenizer(tok.model, **kw)
+    with pytest.raises(NotImplementedError):
+        VTPTokenizer(tok.model, data_sharding=object())
+    int8 = VTPTokenizer(tok.model, quantize_int8=True)
+    assert int8.model is not tok.model and int8.model.pixel_decoder is tok.model.pixel_decoder
 
 
 def test_sample_images_matches_jax(tokenizers):

@@ -150,9 +150,13 @@ def test_tokenizer_from_checkpoint_matches_jax(pipeline_inputs):
     want = jtok.encode_images(x)
     got = tok.encode_images(x).numpy()
     assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
-    for kw in (dict(quantize_int8=True), dict(data_sharding=object())):
-        with pytest.raises(NotImplementedError):
-            VTPTokenizer.from_checkpoint(ckpt, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        VTPTokenizer.from_checkpoint(ckpt, device="cpu", data_sharding=object())
+    # the int8 encoder: JAX's int8 tokenizer on the same checkpoint
+    want = JaxTokenizer.from_checkpoint(ckpt, img_size=32, quantize_int8=True).encode_images(x)
+    got = VTPTokenizer.from_checkpoint(ckpt, device="cpu", img_size=32,
+                                       quantize_int8=True).encode_images(x).numpy()
+    assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
 
 
 def _run(args, **env):
@@ -226,11 +230,40 @@ def test_train_resume_and_sample_clis(pipeline_inputs, latent_dir):
 
 
 def test_int8_flags_raise(pipeline_inputs, latent_dir):
+    """The ``--int8`` flags, which raised before the int8 tier was ported,
+    now run at depth 2: the int8 extraction's shards within JAX's int8
+    cosine gate (> 0.99) of the float extraction's, labels equal; the int8
+    DiT's samples beside the float DiT's from the same seed, on a train
+    state of its own whose adaLN-zero leaves are drawn (a fresh DiT
+    predicts exactly 0)."""
+    from vtp_tpu_torch.checkpoint import save_train_state
+    from vtp_tpu_torch.dit.model import make_dit_config
+    from vtp_tpu_torch.dit.train import DiTTrainConfig, init_dit_state
     from vtp_tpu_torch.tools import extract_latents, sample_dit
 
     root = pipeline_inputs
-    with pytest.raises(NotImplementedError):
-        extract_latents.main([*_extract_args(root, root / "int8"), "--device", "cpu", "--int8"])
-    with pytest.raises(NotImplementedError):
-        sample_dit.main(["--dit_ckpt", str(root / "dit_ckpt"), "--model_path", str(root / "vtp"),
-                         "--latent_dir", str(latent_dir), *DIT_ARGS, "--int8"])
+    gen = torch.Generator().manual_seed(4)
+    state = init_dit_state(make_dit_config("DiT-L/1", depth=2, dim=64, in_channels=16,
+                                           input_size=2), DiTTrainConfig(total_steps=1), gen,
+                           device="cpu")
+    with torch.no_grad():
+        for name, p in state.ema.named_parameters():
+            if ".ada." in name or name.startswith("final."):
+                p.normal_(0.0, 0.02, generator=gen)
+    save_train_state(str(root / "int8_dit"), state, step=1)
+    out = extract_latents.main([*_extract_args(root, root / "int8"), "--device", "cpu", "--int8"])
+    got, want = tlatents.list_latent_shards(out), tlatents.list_latent_shards(str(latent_dir))
+    assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
+    for g, w in zip(got, want):
+        g, w = load_file(g), load_file(w)
+        assert np.array_equal(g["labels"], w["labels"])
+        for key in ("latents", "latents_flip"):
+            a, b = g[key].ravel(), w[key].ravel()
+            assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.99, key
+    args = ["--dit_ckpt", str(root / "int8_dit"), "--model_path", str(root / "vtp"),
+            "--latent_dir", str(latent_dir), *DIT_ARGS, "--num_samples", "4",
+            "--batch_size", "4", "--num_steps", "4", "--save_npz"]
+    int8 = sample_dit.main([*args, "--out", str(root / "int8_samples"), "--int8"])
+    ref = sample_dit.main([*args, "--out", str(root / "float_samples")])
+    assert int8.shape == ref.shape == (4, 32, 32, 3) and int8.dtype == np.uint8
+    assert int8.std() > 0 and not np.array_equal(int8, ref)

@@ -68,7 +68,10 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.generation.latents", "vtp_tpu_torch.tools.extract_latents",
                 "vtp_tpu_torch.tools.train_dit", "vtp_tpu_torch.tools.sample_dit",
                 "vtp_tpu_torch.data.ssl_crops", "vtp_tpu_torch.train.schedules",
-                "vtp_tpu_torch.models.vtp_train_arch", "vtp_tpu_torch.tools.train_vtp"):
+                "vtp_tpu_torch.models.vtp_train_arch", "vtp_tpu_torch.tools.train_vtp",
+                "vtp_tpu_torch.utils", "vtp_tpu_torch.utils.quantization",
+                "vtp_tpu_torch.utils.params", "vtp_tpu_torch.utils.buckets",
+                "vtp_tpu_torch.utils.misc", "vtp_tpu_torch.tools.bench_serve"):
         assert mod in imported
 
 

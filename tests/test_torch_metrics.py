@@ -114,8 +114,8 @@ def test_inception_features_match_jax(inception_sd):
     """The whole fid-variant graph at B = 1 from a 256^2 image (resized to
     299), both packages on the same seeded state dict."""
     x = np.random.default_rng(6).uniform(0, 1, (1, 3, 256, 256)).astype(np.float32)
-    got = _np(inception.inception_features(inception.convert_inception_state_dict(inception_sd),
-                                           torch.from_numpy(x)))
+    got = _np(inception.inception_features(
+        inception.convert_inception_state_dict(inception_sd, device="cpu"), torch.from_numpy(x)))
     want = np.asarray(jax_inception.inception_features(
         jax_inception.convert_inception_state_dict(inception_sd), jnp.asarray(x)))
     assert got.shape == want.shape == (1, 2048)
@@ -135,7 +135,7 @@ def test_inception_loader_reads_the_environment(inception_sd, tmp_path, monkeypa
     assert inception.inception_available()
     fn = inception.load_inception_feature_fn(device="cpu")
     x = torch.rand((1, 3, 96, 96), generator=torch.Generator().manual_seed(0))
-    params = inception.convert_inception_state_dict(inception_sd)
+    params = inception.convert_inception_state_dict(inception_sd, device="cpu")
     assert torch.equal(fn(x), inception.inception_features(params, x))
 
 

@@ -377,15 +377,20 @@ def test_shutdown_fails_pending_futures():
 
 
 def test_parallel_serving_and_int8_raise():
-    """The JAX server's mesh and head-major modes and the int8 serving tier
-    are not ported."""
+    """The JAX server's mesh and head-major modes are not ported. The int8
+    serving tier is (tests/test_torch_quantized_models.py): it no longer
+    raises, and a server takes its model."""
     model = VTPModel.init(VTPConfig(**TINY), torch.Generator().manual_seed(5), device="cpu")
     with pytest.raises(NotImplementedError):
         VTPServer(model, warmup=False, mesh=object())
     with pytest.raises(NotImplementedError):
         VTPServer(model, warmup=False, tp_head_major=True)
-    with pytest.raises(NotImplementedError):
-        model.quantize_for_serving()
+    srv = VTPServer(model.quantize_for_serving(), batch_size=2, warmup=False)
+    try:
+        z = srv.submit_encode(np.zeros((1, 3, 32, 32), np.float32)).result(timeout=120)
+        assert tuple(z.shape) == (1, 16, 2, 2)
+    finally:
+        srv.shutdown()
 
 
 def test_warmup_errors_reach_the_caller():

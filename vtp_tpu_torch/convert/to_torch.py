@@ -9,7 +9,12 @@ permuted back, and the config says ``vision_qkv_head_major: 1``.
 ``export_params_state_dict`` is the port's numpy copy of the JAX
 package's ``export_state_dict`` (:79-160): a parameter tree in the JAX
 layout (stacked ``(depth, ...)`` blocks, ``(in, out)`` kernels, the
-declared qkv layout) -> the canonical reference-named state dict.
+declared qkv layout) -> the canonical reference-named state dict. An int8
+tree (``vtp_tpu/utils/quantization.quantize_matmul_params``: ``{q, scale,
+bias}`` in place of ``{kernel, bias}``) gives the names and layout of a
+``VTPModel.quantize_for_serving`` model (``<linear>.weight.q`` int8
+``(out, in)``, ``<linear>.weight.scale``), which loads it with
+``load_numpy_state_dict``.
 """
 
 from __future__ import annotations
@@ -54,8 +59,20 @@ def _norm_out(sd: Dict[str, Array], prefix: str, p: dict) -> None:
         sd[f"{prefix}.bias"] = _np(p["bias"])
 
 
-def _linear_out(sd: Dict[str, Array], prefix: str, p: dict) -> None:
-    sd[f"{prefix}.weight"] = _t(p["kernel"])
+def _weight_out(sd: Dict[str, Array], name: str, p: dict, conv: bool = False) -> None:
+    """A linear's weight under ``name``: a float kernel ``(in, out)`` as
+    ``(out, in)`` (``(out, in, 1, 1)`` for a 1x1 ``conv``), or an int8 one
+    (``{q, scale}``, the JAX ``quantize_kernel``) as ``name.q`` ``(out, in)``
+    int8 and ``name.scale``, the port's ``Int8Weight``."""
+    if "q" in p:
+        sd[f"{name}.q"] = np.ascontiguousarray(np.asarray(p["q"], np.int8).T)
+        sd[f"{name}.scale"] = _np(p["scale"])
+    else:
+        sd[name] = _t(p["kernel"])[..., None, None] if conv else _t(p["kernel"])
+
+
+def _linear_out(sd: Dict[str, Array], prefix: str, p: dict, conv: bool = False) -> None:
+    _weight_out(sd, f"{prefix}.weight", p, conv)
     if p.get("bias") is not None:
         sd[f"{prefix}.bias"] = _np(p["bias"])
 
@@ -137,7 +154,7 @@ def export_params_state_dict(params: dict, cfg: VTPConfig) -> Dict[str, Array]:
             p = f"text_transformer.resblocks.{i}"
             _norm_out(sd, f"{p}.ln_1", blk["ln_1"])
             _norm_out(sd, f"{p}.ln_2", blk["ln_2"])
-            sd[f"{p}.attn.in_proj_weight"] = _t(blk["attn"]["in_proj"]["kernel"])
+            _weight_out(sd, f"{p}.attn.in_proj_weight", blk["attn"]["in_proj"])
             sd[f"{p}.attn.in_proj_bias"] = _np(blk["attn"]["in_proj"]["bias"])
             _linear_out(sd, f"{p}.attn.out_proj", blk["attn"]["out_proj"])
             _linear_out(sd, f"{p}.mlp.c_fc", blk["mlp"]["c_fc"])
@@ -148,10 +165,13 @@ def export_params_state_dict(params: dict, cfg: VTPConfig) -> Dict[str, Array]:
         _norm_out(sd, "ln_final", tx["ln_final"])
         if "text_projection" in tx:
             # a Linear only with a bias, else a bare (width, out) matrix
-            if tx["text_projection"].get("bias") is not None:
-                _linear_out(sd, "text_projection", tx["text_projection"])
+            proj = tx["text_projection"]
+            if proj.get("bias") is not None:
+                _linear_out(sd, "text_projection", proj)
+            elif "q" in proj:
+                _weight_out(sd, "text_projection", proj)
             else:
-                sd["text_projection"] = _np(tx["text_projection"]["kernel"])
+                sd["text_projection"] = _np(proj["kernel"])
     if "logit_scale" in params:
         sd["logit_scale"] = _np(params["logit_scale"])
     if "logit_bias" in params:
@@ -159,14 +179,9 @@ def export_params_state_dict(params: dict, cfg: VTPConfig) -> Dict[str, Array]:
 
     if "pixel_decoder" in params:
         dec = params["pixel_decoder"]
-        kin = np.asarray(dec["proj_in"]["kernel"], np.float32)  # (in, D)
-        sd["pixel_decoder.proj_in.weight"] = np.ascontiguousarray(kin.T)[..., None, None]
-        if dec["proj_in"].get("bias") is not None:
-            sd["pixel_decoder.proj_in.bias"] = _np(dec["proj_in"]["bias"])
-        kout = np.asarray(dec["proj_out"]["kernel"], np.float32)
-        sd["pixel_decoder.proj_out.weight"] = np.ascontiguousarray(kout.T)[..., None, None]
-        if dec["proj_out"].get("bias") is not None:
-            sd["pixel_decoder.proj_out.bias"] = _np(dec["proj_out"]["bias"])
+        # (in, D) GEMM kernels -> the 1x1 convolutions' (D, in, 1, 1)
+        _linear_out(sd, "pixel_decoder.proj_in", dec["proj_in"], conv=True)
+        _linear_out(sd, "pixel_decoder.proj_out", dec["proj_out"], conv=True)
         sd["pixel_decoder.rope_embed.periods"] = _np(dec["rope"]["periods"])
         _blocks_out(sd, "pixel_decoder.blocks", dec["blocks"], cfg.decoder_depth)
         _norm_out(sd, "pixel_decoder.norm", dec["norm"])

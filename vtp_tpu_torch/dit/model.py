@@ -296,14 +296,16 @@ def dit_forward(model: DiT, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor, *
 def load_numpy_dit_params(model: DiT, params: dict) -> None:
     """Fill ``model`` from the JAX parameter tree (``init_dit_params``'s
     layout) as numpy arrays: ``{"kernel": (in, out), "bias"}`` linears
-    (transposed to ``nn.Linear``'s (out, in)), the depth-stacked ``blocks``
+    (transposed to ``nn.Linear``'s (out, in)), or their int8 ``{"q", "scale",
+    "bias"}`` into a model that ``quantize_matmul_params`` quantized the same
+    way (``tools/sample_dit.py --int8``), the depth-stacked ``blocks``
     leaves split per layer, ``y_embed``, ``rope.periods`` and the qk-norm
     ``scale`` vectors. A shape mismatch or an unfilled tensor raises."""
     own = model.state_dict()
     filled = set()
 
-    def put(name: str, value) -> None:
-        value = np.asarray(value, np.float32)
+    def put(name: str, value, dtype=np.float32) -> None:
+        value = np.asarray(value, dtype)
         if tuple(value.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: parameter shape {value.shape} != model shape "
                              f"{tuple(own[name].shape)}")
@@ -311,7 +313,11 @@ def load_numpy_dit_params(model: DiT, params: dict) -> None:
         filled.add(name)
 
     def lin(name: str, p: dict) -> None:
-        put(f"{name}.weight", np.asarray(p["kernel"]).T)
+        if "q" in p:  # int8 (quantize_matmul_params): the codes go across as int8
+            put(f"{name}.weight.q", np.asarray(p["q"]).T, np.int8)
+            put(f"{name}.weight.scale", p["scale"])
+        else:
+            put(f"{name}.weight", np.asarray(p["kernel"]).T)
         put(f"{name}.bias", p["bias"])
 
     lin("x_embed", params["x_embed"])

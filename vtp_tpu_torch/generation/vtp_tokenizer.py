@@ -9,8 +9,10 @@ images (an exact-fp32 decode), and the ``patch_size``, ``embed_dim``,
 ``VTPModel``; latents and images stay on the model's device as tensors.
 
 ``from_checkpoint`` loads the model through ``VTPModel.from_checkpoint``.
-Not ported, and raising ``NotImplementedError``: the int8 encoder
-(``quantize_int8``) and batch sharding over a device mesh
+``quantize_int8`` encodes with an int8 W8A8 trunk
+(``VTPModel.quantize_for_serving``, the trunk only) for bulk extraction;
+the decode stays the exact fp32 one. Not ported, and raising
+``NotImplementedError``: batch sharding over a device mesh
 (``data_sharding``).
 """
 
@@ -53,7 +55,7 @@ class VTPTokenizer:
         if data_sharding is not None:
             raise NotImplementedError("batch sharding over a device mesh is not ported")
         if quantize_int8:
-            raise NotImplementedError("the int8 encoder is not ported")
+            model = model.quantize_for_serving(("trunk",))
         if normalize_type == "half":
             norm = NORMALIZE_HALF
         elif normalize_type == "imagenet":

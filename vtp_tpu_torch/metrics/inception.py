@@ -168,7 +168,7 @@ def inception_features(params: Params, x: torch.Tensor, *, fid_variant: bool = T
 # ------------------------------------------------------------- converter
 
 
-def convert_inception_state_dict(sd: Dict[str, np.ndarray], device="cpu") -> Params:
+def convert_inception_state_dict(sd: Dict[str, np.ndarray], device="cuda") -> Params:
     """A torch state dict (torchvision or pytorch_fid naming; numpy arrays
     or tensors) -> the params ``inception_features`` takes, fp32 on
     ``device``."""

@@ -85,7 +85,7 @@ def _slice_of(conv_idx: int) -> int:
         4 if conv_idx < 23 else 5
 
 
-def convert_lpips_state_dict(sd: Dict[str, np.ndarray], device="cpu") -> Dict:
+def convert_lpips_state_dict(sd: Dict[str, np.ndarray], device="cuda") -> Dict:
     """A full LPIPS torch state dict (``net.slice*`` / ``lin*``), or raw
     torchvision ``features.*`` merged with the lin heads (``lin{k}`` or
     ``lins.{k}``) -> the params ``lpips_forward`` takes, fp32 on

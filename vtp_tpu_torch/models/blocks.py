@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -228,15 +229,19 @@ def sdpa_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int = 
 
 
 class SwiGLUFFN(nn.Module):
+    """``w1``, ``w2``, ``w3``; after ``utils.params.fuse_ffn_params``, ``w12``
+    (``[w1; w2]``) and ``w3``, with ``w1`` and ``w2`` None."""
+
     def __init__(self, dim: int, hidden: int, bias: bool):
         super().__init__()
         self.w1 = nn.Linear(dim, hidden, bias=bias)
         self.w2 = nn.Linear(dim, hidden, bias=bias)
         self.w3 = nn.Linear(hidden, dim, bias=bias)
+        self.w12 = None
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
                 precision: str = "float32") -> torch.Tensor:
-        return swiglu(x, self.w1, self.w2, self.w3, compute_dtype, precision)
+        return swiglu(x, self.w1, self.w2, self.w3, compute_dtype, precision, self.w12)
 
 
 class Mlp(nn.Module):
@@ -424,18 +429,29 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
                 xs = blk.forward_droppath(xs, ropes, n_valids, list(idx), compute_dtype,
                                           precision)
         return xs
-    d = xs[0].shape[-1]
-    flat = torch.cat([x.reshape(-1, d) for x in xs]) if len(xs) > 1 else xs[0].reshape(-1, d)
+    flat = pack(xs)
     for blk in blocks:
         if run is not None:
             flat = run(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
                        precision)
         else:
             flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype, precision)
+    return unpack(flat, [x.shape for x in xs])
+
+
+def pack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(..., D) tensors -> one (sum of their rows, D) matrix (``pack`` :133)."""
+    d = xs[0].shape[-1]
+    return torch.cat([x.reshape(-1, d) for x in xs]) if len(xs) > 1 else xs[0].reshape(-1, d)
+
+
+def unpack(flat: torch.Tensor, shapes: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """The inverse of ``pack`` for tensors of ``shapes``."""
     out, off = [], 0
-    for b, n in shapes:
-        out.append(flat[off:off + b * n].reshape(b, n, d))
-        off += b * n
+    for shape in shapes:
+        n = math.prod(shape[:-1])
+        out.append(flat[off:off + n].reshape(shape))
+        off += n
     return out
 
 

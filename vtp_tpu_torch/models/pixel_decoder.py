@@ -11,7 +11,10 @@ TF32 stays off there too, so the splits and all other math are true
 fp32. torch's own "high" (single-pass TF32) is a different, coarser mode
 and is not a stand-in for it. Training decodes with a ``compute_dtype``
 (bf16 GEMMs and attention, fp32 norm statistics), the JAX package's
-``compute_dtype`` path, which ignores ``precision``.
+``compute_dtype`` path, which ignores ``precision``. The 1x1 convolutions
+``proj_in`` / ``proj_out`` run as GEMMs on their ``(out, in)`` view, so
+``utils.quantization`` quantizes them as the JAX package quantizes its 2-D
+kernels (:72-80).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import pixel_shuffle
 from vtp_tpu_torch.ops.precision import check_precision
 from vtp_tpu_torch.ops.rope import rope_sincos
+from vtp_tpu_torch.utils.quantization import Int8Weight, gemm_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +117,10 @@ class PixelDecoder(nn.Module):
         check_precision(precision)
         if compute_dtype is not None:
             return self._forward(latents, compute_dtype, remat, "float32")
+        if any(isinstance(m, Int8Weight) for m in self.modules()):
+            # int8 decoder weights are a serving tier: never the fp32 protocol decode
+            raise ValueError("an int8 pixel decoder decodes in a compute_dtype (bf16), "
+                             "not in the exact or 'high' fp32 protocol")
         with exact_fp32():
             return self._forward(latents.float(), None, remat, precision)
 
@@ -121,13 +129,12 @@ class PixelDecoder(nn.Module):
         cfg = self.cfg
         B, C, H, W = latents.shape
         x = latents.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        x = linear(x, self.proj_in.weight.reshape(cfg.embed_dim, C), self.proj_in.bias,
+        x = linear(x, gemm_weight(self.proj_in.weight, "conv"), self.proj_in.bias,
                    compute_dtype, precision)
         rope = rope_sincos(self.rope_embed.periods, H, W, normalize_coords=cfg.rope_normalize_coords)
         (x,) = run_blocks(self.blocks, [x], [rope], None, compute_dtype, remat, precision)
         x = self.norm(x)
-        w_out = self.proj_out.weight
-        x = linear(x, w_out.reshape(w_out.shape[0], cfg.embed_dim), self.proj_out.bias,
+        x = linear(x, gemm_weight(self.proj_out.weight, "conv"), self.proj_out.bias,
                    compute_dtype, precision)
         x = x.transpose(1, 2).reshape(B, -1, H, W)
         return pixel_shuffle(x, cfg.upscale_factor)

@@ -38,6 +38,7 @@ from vtp_tpu_torch.ops.activations import ACT
 from vtp_tpu_torch.ops.attention import sdpa
 from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.flash_attention import fused_attention_supported, fused_qkv_rope_attention
+from vtp_tpu_torch.utils.quantization import gemm_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,9 @@ class TextConfig:
 
 
 class TextAttention(nn.Module):
+    # the raw in-projection, fed to ``linear`` (``utils.quantization.linear_weights``)
+    LINEAR_WEIGHTS = (("in_proj_weight", "in_proj_bias", "out_in"),)
+
     def __init__(self, width: int):
         super().__init__()
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
@@ -153,6 +157,9 @@ def build_cls_mask(text: torch.Tensor, pad_id: int) -> torch.Tensor:
 
 
 class TextTransformer(nn.Module):
+    # a bias-free projection is a bare (width, out) matrix
+    LINEAR_WEIGHTS = (("text_projection", None, "in_out"),)
+
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.cfg = cfg
@@ -236,7 +243,7 @@ class TextTransformer(nn.Module):
         if isinstance(proj, nn.Linear):
             pooled = linear(pooled, proj.weight, proj.bias, compute_dtype)
         elif proj is not None:
-            pooled = linear(pooled, proj.t(), None, compute_dtype)
+            pooled = linear(pooled, gemm_weight(proj, "in_out"), None, compute_dtype)
         return pooled, tokens
 
     def forward(self, text: torch.Tensor, *, normalize: bool = False,

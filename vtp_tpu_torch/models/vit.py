@@ -35,6 +35,7 @@ from vtp_tpu_torch.models.blocks import (
     run_blocks,
 )
 from vtp_tpu_torch.models.initializers import normal_, patch_embed_uniform_, trunc_normal_
+from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import patchify
 from vtp_tpu_torch.ops.rope import (
     ROPE_DTYPES,
@@ -211,10 +212,7 @@ class VisionTransformer(nn.Module):
         return xn[:, :s], xn[:, s:]
 
     def apply_bottleneck(self, t: torch.Tensor, compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
-        w = self.feature_bottleneck.weight
-        if compute_dtype is not None:
-            t, w = t.to(compute_dtype), w.to(compute_dtype)
-        return torch.matmul(t, w.t())
+        return linear(t, self.feature_bottleneck.weight, None, compute_dtype)
 
     def forward_features(
         self,

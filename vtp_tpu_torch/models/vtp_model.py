@@ -21,7 +21,8 @@ the JAX ``VTPModel``, ``decode_precision="high"`` decodes in fp32 with the
 bf16x3 split, and a ``decode_dtype`` (bf16) decodes in that dtype instead.
 With ``train_clip`` the model also holds ``visual_proj``, the text tower
 and ``logit_scale`` (``logit_bias`` for SigLIP configs), under the
-reference checkpoint's names.
+reference checkpoint's names. ``quantize_for_serving`` (:314) gives the
+int8 W8A8 serving tier.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from vtp_tpu_torch.ops.ffn import linear
 from vtp_tpu_torch.ops.patchify import patch_tokens_to_4d
 from vtp_tpu_torch.ops.precision import check_precision
 from vtp_tpu_torch.parallel.sharding import is_trunk_qkv_key, permute_qkv_state_dict
+from vtp_tpu_torch.utils.quantization import quantize_matmul_params, shallow_copy
 
 DEFAULT_LOGIT_SCALE = math.log(1 / 0.07)
 # Checkpoint keys of the text tower, which lives under ``text.`` here
@@ -226,10 +228,27 @@ class VTPModel(nn.Module):
         model.load_numpy_state_dict(sd)
         return model
 
-    def quantize_for_serving(self, parts=("trunk",)) -> "VTPModel":
-        """The JAX package's int8 W8A8 serving tier (``utils/quantization``)
-        is not ported."""
-        raise NotImplementedError("int8 serving (quantize_for_serving) is not ported")
+    def quantize_for_serving(self, parts: Sequence[str] = ("trunk",)) -> "VTPModel":
+        """A new model with the linears of ``parts`` ("trunk", "text",
+        "pixel_decoder") in int8 W8A8 (``utils.quantization``; the JAX
+        ``quantize_for_serving``, :314-344). This model is unchanged, and the
+        new one shares every tensor it does not quantize (the other towers,
+        ``visual_proj``, ``logit_scale``, the norms and tokens). The trunk's
+        ``patch_embed`` and ``feature_bottleneck`` stay float; a head-major
+        trunk's permuted qkv quantizes as it stands (per-output-channel
+        scales follow the column permutation).
+
+        "pixel_decoder" is a serving tier, not the rFID protocol: it sets
+        ``decode_dtype`` to bf16, so int8 decoder weights never pose as the
+        exact or "high" fp32 decode. The default keeps the fp32 decode."""
+        new = shallow_copy(self)
+        for part in parts:
+            if part not in ("trunk", "text", "pixel_decoder") or getattr(self, part) is None:
+                raise ValueError(f"no part {part!r} to quantize in this model")
+            setattr(new, part, quantize_matmul_params(getattr(self, part)))
+        if "pixel_decoder" in parts:
+            new.decode_dtype = torch.bfloat16
+        return new
 
     @torch.no_grad()
     def load_numpy_state_dict(self, sd: Dict[str, np.ndarray]) -> None:

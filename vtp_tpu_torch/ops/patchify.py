@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from vtp_tpu_torch.ops.ffn import linear
+
 
 def extract_patches(images: torch.Tensor, patch: int) -> torch.Tensor:
     """``(B, C, H, W) -> (B, H/p * W/p, C*p*p)`` with the feature order of
@@ -28,16 +30,9 @@ def patchify(
 ) -> torch.Tensor:
     """Patch embedding ``(B, C, H, W) -> (B, N, D)`` as one GEMM.
 
-    weight: the conv weight ``(D, C, p, p)``."""
-    x = extract_patches(images, patch)
-    w = weight.reshape(weight.shape[0], -1)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        w = w.to(compute_dtype)
-    y = torch.matmul(x, w.t())
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    return y
+    weight: the conv weight ``(D, C, p, p)``; the GEMM is ``ops.ffn.linear``'s."""
+    return linear(extract_patches(images, patch), weight.reshape(weight.shape[0], -1), bias,
+                  compute_dtype)
 
 
 def pixel_shuffle(x: torch.Tensor, upscale: int) -> torch.Tensor:

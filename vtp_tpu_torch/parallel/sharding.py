@@ -52,9 +52,10 @@ def permute_trunk_qkv(trunk: dict, num_heads: int, tp: int, *, inverse: bool = F
     blocks = dict(trunk["blocks"])
     attn = dict(blocks["attn"])
     qkv = dict(attn["qkv"])
-    qkv["kernel"] = qkv_head_major(qkv["kernel"], num_heads, tp, inverse=inverse)
-    if qkv.get("bias") is not None:
-        qkv["bias"] = qkv_head_major(qkv["bias"], num_heads, tp, inverse=inverse)
+    # a float {kernel, bias} or an int8 {q, scale, bias}: each on its output dim
+    for leaf in ("kernel", "q", "scale", "bias"):
+        if qkv.get(leaf) is not None:
+            qkv[leaf] = qkv_head_major(qkv[leaf], num_heads, tp, inverse=inverse)
     attn["qkv"] = qkv
     blocks["attn"] = attn
     trunk["blocks"] = blocks
@@ -63,9 +64,10 @@ def permute_trunk_qkv(trunk: dict, num_heads: int, tp: int, *, inverse: bool = F
 
 def is_trunk_qkv_key(key: str) -> bool:
     """Whether a reference-named state-dict key is a trunk block's qkv
-    weight, bias or bias mask."""
+    weight (float, or an int8 one's codes and scales), bias or bias mask."""
     return key.startswith("trunk.blocks.") and key.endswith(
-        (".attn.qkv.weight", ".attn.qkv.bias", ".attn.qkv.bias_mask"))
+        (".attn.qkv.weight", ".attn.qkv.bias", ".attn.qkv.bias_mask",
+         ".attn.qkv.weight.q", ".attn.qkv.weight.scale"))
 
 
 def permute_qkv_state_dict(sd: dict, num_heads: int, tp: int, *, inverse: bool = False) -> dict:
@@ -78,7 +80,7 @@ def permute_qkv_state_dict(sd: dict, num_heads: int, tp: int, *, inverse: bool =
     out = dict(sd)
     for key, value in sd.items():
         if is_trunk_qkv_key(key):
-            if key.endswith(".weight"):
+            if key.endswith((".weight", ".weight.q")):
                 out[key] = qkv_head_major(value.T, num_heads, tp, inverse=inverse).T
             else:
                 out[key] = qkv_head_major(value, num_heads, tp, inverse=inverse)

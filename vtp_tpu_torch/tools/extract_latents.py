@@ -71,7 +71,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     p.add_argument("--shard_size", type=int, default=10000)
     p.add_argument("--max_samples", type=int, default=None)
     p.add_argument("--int8", action="store_true",
-                   help="the int8 W8A8 encoder (not ported: raises)")
+                   help="encode with the int8 W8A8 trunk (VTPTokenizer(quantize_int8=True))")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 

@@ -9,8 +9,11 @@ evaluation format).
 The train state restores into a template (``checkpoint.restore_train_state``)
 and the EMA weights sample; the Adam moments are not used, so a state
 written with either ``--moment_dtype`` restores. The flags are the JAX
-CLI's, plus ``--device``; ``--int8`` raises ``NotImplementedError`` (the
-int8 tier is not ported). Batch i draws its labels from
+CLI's, plus ``--device``; ``--int8`` samples with the EMA DiT's linears in
+int8 W8A8 (``utils.quantization.quantize_matmul_params``), all but the
+patchifier ``x_embed`` and the zero-init-sensitive ``final`` head, as the
+JAX CLI does (the class table ``y_embed`` is an embedding and stays).
+Batch i draws its labels from
 ``np.random.default_rng(seed)`` and its noise from a ``torch.Generator``
 seeded from (seed, images done).
 
@@ -55,6 +58,14 @@ def sample_batches(ema, tokenizer, latent_stats, *, num_samples: int, batch_size
         done += b
 
 
+def quantize_dit_for_serving(ema):
+    """The DiT with its linears in int8 W8A8 except the patchifier
+    ``x_embed`` and the ``final`` head (``tools/sample_dit.py:68-75``)."""
+    from vtp_tpu_torch.utils.quantization import quantize_matmul_params
+
+    return quantize_matmul_params(ema, exclude=lambda name: name in ("x_embed", "final"))
+
+
 def main(argv: Optional[List[str]] = None) -> Optional[np.ndarray]:
     """Runs the sampling; returns the (n, H, W, 3) uint8 stack with
     ``--save_npz``, else None."""
@@ -78,11 +89,9 @@ def main(argv: Optional[List[str]] = None) -> Optional[np.ndarray]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_npz", action="store_true")
     p.add_argument("--int8", action="store_true",
-                   help="int8 W8A8 DiT linears (not ported: raises)")
+                   help="int8 W8A8 DiT linears (all but x_embed and final)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("the int8 DiT serving tier (--int8) is not ported")
 
     from vtp_tpu_torch.checkpoint import restore_train_state
     from vtp_tpu_torch.dit.model import make_dit_config
@@ -95,6 +104,9 @@ def main(argv: Optional[List[str]] = None) -> Optional[np.ndarray]:
                           input_size=args.input_size, **overrides)
     template = init_dit_state(cfg, DiTTrainConfig(total_steps=1), device=args.device)
     state = restore_train_state(args.dit_ckpt, template, allow_dtype_mismatch=True)
+    ema = state.ema  # sample from the EMA weights
+    if args.int8:
+        ema = quantize_dit_for_serving(ema)
     tokenizer = VTPTokenizer.from_checkpoint(args.model_path, device=args.device)
     stats = load_latent_stats(args.latent_dir)
 
@@ -104,7 +116,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[np.ndarray]:
     all_images = [] if args.save_npz else None
     done = 0
     for _, images in sample_batches(
-            state.ema, tokenizer, stats, num_samples=args.num_samples,
+            ema, tokenizer, stats, num_samples=args.num_samples,
             batch_size=args.batch_size, num_steps=args.num_steps,
             timestep_shift=args.timestep_shift, cfg_scale=args.cfg_scale, seed=args.seed):
         images = images.cpu().numpy()
