@@ -102,6 +102,21 @@
    bit, ``--resume`` to 6 with ``--export_hf`` against an uninterrupted
    6-step run (metrics bit for bit), the export read by
    ``VTPModel.from_checkpoint`` with the student's latents, counted;
+4b. parallelism (``vtp_tpu_torch.parallel``): a world-size-1 NCCL group
+   (rendezvous through a file in a temporary directory) and a (1, 1) mesh;
+   the VTP-L step (B = 8) through the parallel path, the data-axis gradient
+   all-reduce, tensor parallelism at tp = 1 and FSDP at one shard, none
+   short-circuited, counted, against the same step without a mesh (losses
+   5e-3 rel, grad norm 2e-2 rel, parameters atol 1e-3 / rtol 5e-3); over the
+   same mesh ``VTPServer`` answers each kind of request and
+   ``VTPTokenizer(data_sharding=)`` encodes a batch, against direct calls;
+   then two spawned ranks share the card over gloo at VTP-L widths (depth
+   cut to PAR_DEPTH): data parallelism (2, 1), global B = 8 as 2 x 4 with
+   drop_shards = 2, and head-major tensor parallelism (1, 2), 8 trunk heads
+   of 64 a rank on the fused forward and backward, each rank against the
+   one-process step at the same gates (an arm whose collectives gloo
+   refuses on CUDA tensors is left out and named); launches and peak memory
+   of each rank printed;
 5. runs the DiT-XL/1 train step (``init_dit_state``,
    ``build_dit_train_step``; B = 32 latents that ``VTPTokenizer.encode_images``
    makes from seeded random images on the roundtrip's VTP-L model,
@@ -147,7 +162,9 @@
    queued behind a device sleep (``device_ms``, ``plain_device_ms``,
    ``library_device_ms``: the device's time alone), every forward arm and
    both backward arms also at head dims 32 and 128 (1024 wide); and the
-   roundtrip's images/s;
+   roundtrip's images/s; the fused forward and backward at the
+   tensor-parallel ranks' shapes (``TP_FWD_SHAPES``, ``TP_BWD_SHAPES``)
+   beside SDPA and their bound, printed;
 8. with --profile, traces one roundtrip, one bf16 and one int8 encode, one
    train step and one DiT train step with torch.profiler and prints the
    device time by kernel and the device's idle share.
@@ -261,6 +278,18 @@ GEN_CKPT_DEPTH, GEN_SAMPLE_STEPS, GEN_CFG, GEN_SAMPLES = 4, 4, 1.5, 8
 # moments, remat "full")
 VTP_ACCUM, VTP_DROP, VTP_ROPE_AUG, VTP_TIMED = 2, 0.1, (0.1, 1.2, 2.0), 3
 VTP_CLI_DEPTH, VTP_CLI_STEPS, VTP_CLI_CKPT, VTP_CLI_TOTAL = 4, 4, 2, 6
+# The parallel phase (4b): the two-rank gloo arms at VTP-L widths with every
+# depth cut to PAR_DEPTH, a global batch of PAR_BATCH (PAR_BATCH / 2 a rank in
+# the data-parallel arm), drop-path at PAR_DROP on the SSL branch with
+# drop_shards = 2; PAR_TIMEOUT_S bounds the two ranks' run; the server over
+# the (1, 1) mesh takes PAR_SERVE_ROWS rows a kind in batches of PAR_SERVE_BATCH
+PAR_DEPTH, PAR_BATCH, PAR_DROP, PAR_TIMEOUT_S = 4, 8, 0.1, 400
+PAR_SERVE_ROWS, PAR_SERVE_BATCH = 6, 4
+# The fused attention at the tensor-parallel ranks' shapes (B, N, H a rank, d):
+# VTP-L's 16 heads at tp = 2 and 4, the forward at the encode's B = 8, the
+# backward at the train step's global crops (B = 16)
+TP_FWD_SHAPES = [(8, 257, 8, 64), (8, 257, 4, 64)]
+TP_BWD_SHAPES = [(16, 257, 8, 64), (16, 257, 4, 64)]
 # The bf16 features' gate, carried to every comparison of the new phases
 # with the plain run (losses: 5e-3 rel)
 FEATURE_REL, LOSS_REL = 5e-2, 5e-3
@@ -2043,6 +2072,453 @@ def run_vtp_training(gen, card):
     return totals
 
 
+def _parallel_config(depth=None):
+    """VTP-L, every tower's depth cut to ``depth`` when given."""
+    from vtp_tpu_torch import vtp_large
+
+    cfg = vtp_large()
+    if depth is not None:
+        cfg = cfg.replace(vision_depth=depth, text_depth=depth, decoder_depth=depth)
+    return cfg
+
+
+def _parallel_train_config(**kw):
+    from vtp_tpu_torch.train.step import TrainConfig
+
+    return TrainConfig(warmup_steps=0, total_steps=1000, remat=False, **kw)
+
+
+def _parallel_batch(cfg, batch):
+    """A seeded global batch (the same on every rank): CLIP pairs, the rec
+    target and the SSL crops, as ``_train_batch`` makes them."""
+    import torch
+
+    from vtp_tpu_torch.train.step import make_ssl_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    size = cfg.image_size
+    images = torch.randn((batch, 3, size, size), generator=gen, device="cuda")
+    text = torch.randint(1, cfg.text_vocab_size - 1, (batch, cfg.text_context_length),
+                         generator=gen, device="cuda")
+    ssl = make_ssl_batch(gen, batch, global_size=size, patch=cfg.vision_patch_size)
+    return {"image": images, "text": text, "rec_image": images, "ssl": ssl}
+
+
+def _hold_step(label, metrics, ref, params, ref_params, mu, ref_mu, lr):
+    """A parallel step against the one-process step at the JAX gates: each
+    loss within 5e-3 rel, the grad norm within 2e-2 rel; each leaf's first
+    Adam moment (0.1 x the clipped gradient) within 5e-2 relative L2, its
+    norm floored at 1e-3 of the whole's (the bf16 train step's gate,
+    ``tests/test_torch_train_step.py``); every parameter element within atol
+    1e-3 / rtol 5e-3, but for sign flips. Adam's first step moves each
+    element by about ``lr`` whatever its gradient's size, so an element whose
+    bf16 gradient comes out with the other sign (partial sums rounded to
+    bf16 before they are added, on a rank or across ranks) moves 2 lr the
+    other way. A flip must miss by at most 2 lr and have first moments of
+    other signs (the update follows its own gradient), and a leaf may hold
+    at most 2 E + 1 of them, E the flips it would show if each element's
+    moment carried a Gaussian error of the leaf's RMS moment error (the sum
+    of Phi(-|mu| / rms) over the elements either side moved; 2 for errors
+    heavier than Gaussian near zero, 1 for a leaf that expects less than
+    one). A leaf whose gradient is 0 by construction, as the key bias's
+    under softmax, holds rounding noise whose signs flip at will, and E
+    counts them so. The CPU test ``test_dit_dp_step_matches_jax`` holds the
+    same rule."""
+    import torch
+
+    for name in ref:
+        got, want = float(metrics[name]), float(ref[name])
+        limit = 2e-2 if name == "grad_norm" else 5e-3
+        rel = abs(got - want) / abs(want)
+        ok = rel <= limit and math.isfinite(got)
+        print(f"{label} {name:11s} parallel {got:.6f} one-process {want:.6f} rel diff "
+              f"{rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: {name} disagrees with the one-process step")
+    total = math.sqrt(sum(m.float().square().sum().item() for m in ref_mu.values()))
+    worst_mu = 0.0
+    for name, want in ref_mu.items():
+        got, want = mu[name].to(want.device).float(), want.float()
+        rel = ((got - want).norm() / max(want.norm().item(), 1e-3 * total)).item()
+        worst_mu = max(worst_mu, rel)
+        if not rel <= 5e-2:
+            raise AssertionError(f"{label}: the first moment of {name} is {rel:.3e} (rel L2) "
+                                 f"from the one-process step's")
+    worst, flipped, n_elems, shares, failed = 0.0, 0, 0, [], []
+    for name, want in ref_params.items():
+        got, want = params[name].to(want.device).float(), want.float()
+        diff = (got - want).abs()
+        bad = ~torch.isclose(got, want, atol=1e-3, rtol=5e-3)
+        if name in ref_mu:  # a trained leaf: Adam's sign flips
+            got_mu, want_mu = mu[name].to(want.device).float(), ref_mu[name].float()
+            flips = bad & (diff <= 2 * lr + 1e-6) & (torch.sign(got_mu) != torch.sign(want_mu))
+            active = (got_mu != 0) | (want_mu != 0)
+            rms = (got_mu - want_mu)[active].double().square().mean().sqrt().clamp_min(1e-300)
+            expected = torch.special.ndtr(-want_mu[active].double().abs() / rms).sum().item()
+            n_flips = int(flips.sum())
+            shares.append((n_flips / (2 * expected + 1), name, n_flips, expected))
+            if n_flips > 2 * expected + 1:
+                failed.append(f"{n_flips} of {want.numel()} elements of {name} flipped sign, "
+                              f"more than 2 E + 1 for E = {expected:.1f}")
+            flipped += n_flips
+            bad &= ~flips
+        if bad.any():
+            failed.append(f"parameter {name} disagrees with the one-process step (max abs diff "
+                          f"{diff[bad].max().item():.3e}), and not by a sign flip of its gradient")
+        worst = max(worst, diff.max().item())
+        n_elems += want.numel()
+    top = ", ".join(f"{name} {n} of E {e:.1f}" for _, name, n, e in sorted(shares)[::-1][:3])
+    print(f"{label}: first moments within {worst_mu:.3e} (rel L2, limit 5e-2); {len(ref_params)} "
+          f"parameters within atol 1e-3 / rtol 5e-3 but {flipped} of {n_elems} elements "
+          f"({flipped / n_elems:.2e}), whose gradients' signs differ and which moved the other "
+          f"way by at most 2 lr (max abs diff {worst:.3e}); the leaves nearest their flip bound "
+          f"2 E + 1: {top}", flush=True)
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed[:5]))
+
+
+def parallel_one_rank(card):
+    """Phase 4b-1: a world-size-1 NCCL group and a (1, 1) mesh; the VTP-L
+    CLIP+SSL+rec step (B = 8) through the parallel path (the data-axis
+    gradient all-reduce, tensor parallelism at tp = 1, FSDP at one shard,
+    none of them short-circuited) against the same step without a mesh
+    from the same state and batch. Returns its launch counts."""
+    import torch
+
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel import fsdp
+    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.parallel.sharding import CALLS
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    cfg, tcfg = _parallel_config(), _parallel_train_config()
+    mesh = make_mesh(1, 1, device="cuda")
+    batch = _parallel_batch(cfg, BATCH)
+    init = lambda **kw: init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 3),
+                                   device="cuda", **kw)
+    ref_state = init()
+    ref_state, ref = build_train_step(cfg, tcfg)(ref_state, batch)
+    ref_params = {n: t.detach().clone() for n, t in ref_state.model.state_dict().items()}
+    ref_mu = dict(ref_state.optimizer.mu)
+    del ref_state
+    torch.cuda.empty_cache()
+
+    state = init(mesh=mesh)
+    specs = fsdp.fsdp_state_specs(fsdp.train_state_tree(state), 1)
+    fsdp.shard_state(state, mesh, specs)
+    step = build_train_step(cfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CALLS.clear()
+    reset_launch_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = expected_train_launches(cfg)
+    print(f"parallel one rank (NCCL, mesh 1x1, FSDP over {len(state.fsdp.dims)} leaves) on "
+          f"{card}: launches {counts} (expected {want}); collectives {dict(CALLS)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (torch.cuda.max_memory_allocated)",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"parallel one-rank step launches {counts}, expected {want}")
+    if not state.fsdp.dims or CALLS.get("reduce_from_model", 0) == 0:
+        raise AssertionError("the one-rank step skipped FSDP or the tensor-parallel collectives")
+    layout = state.layout
+    mu = {n: layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m
+          for n, m in state.optimizer.mu.items()}
+    _hold_step("parallel one rank", metrics, ref, state.model.state_dict(), ref_params, mu,
+               ref_mu, tcfg.learning_rate)
+    return counts
+
+
+def _gloo_rank(rank, arm, root):
+    """One of two ranks sharing the card over gloo (spawned): the arm's VTP
+    step from the seeded state and batch; writes its metrics, launches, peak
+    memory and rank-local parameters, or which collective gloo refused."""
+    import datetime
+
+    import torch
+
+    from vtp_tpu_torch import _build
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel import sharding
+    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.parallel.multihost import init_distributed
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    torch.cuda.set_device(0)
+    _build.load_library()  # built by the parent: loaded, not rebuilt
+    init_distributed("cuda", backend="gloo", init_method=f"file://{root}/store_{arm['name']}",
+                     rank=rank, world_size=2, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        group = torch.distributed.group.WORLD
+        probe = torch.ones(4, device="cuda")
+        for op in arm["collectives"]:
+            try:
+                if op == "all_reduce":
+                    torch.distributed.all_reduce(probe.clone(), group=group)
+                else:
+                    full = torch.empty(8, device="cuda")
+                    sharding._all_gather_single(full, probe, group)
+            except RuntimeError as e:
+                out["refused"] = f"{op} on CUDA tensors: {str(e).splitlines()[0]}"
+                return
+        cfg = _parallel_config(PAR_DEPTH)
+        tcfg = _parallel_train_config(**arm["train"])
+        mesh = make_mesh(*arm["mesh"], device="cuda")
+        state = init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 5),
+                           device="cuda", mesh=mesh)
+        batch = _parallel_batch(cfg, PAR_BATCH)
+        step = build_train_step(cfg, tcfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, torch.Generator(device="cuda").manual_seed(SEED + 9))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
+                   metrics={k: float(v) for k, v in metrics.items()},
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   params={n: t.detach().cpu() for n, t in state.model.state_dict().items()},
+                   mu={n: t.detach().cpu() for n, t in state.optimizer.mu.items()},
+                   hm=state.model.config.vision_qkv_head_major)
+    finally:
+        torch.save(out, os.path.join(root, f"{arm['name']}_rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+
+
+def parallel_two_ranks(card):
+    """Phase 4b-2: two ranks time-slicing the one card over gloo, each arm
+    against the one-process step of the same global batch, state and draws:
+    data parallelism (2, 1) with drop_shards = 2, and head-major tensor
+    parallelism (1, 2) (8 trunk heads of 64 a rank, the fused forward and
+    backward on each rank). An arm whose collectives gloo refuses on CUDA
+    tensors is left out and named. Returns rank 0's launch counts."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME
+    from vtp_tpu_torch.parallel.mesh import AxisGroup
+    from vtp_tpu_torch.parallel.sharding import ShardLayout
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    cfg = _parallel_config(PAR_DEPTH)
+    print(f"parallel two ranks: VTP-L widths, every depth cut to {PAR_DEPTH} (of "
+          f"{_parallel_config().vision_depth}), global B={PAR_BATCH}; two ranks share one card, "
+          f"so their times are correctness runs, not speed figures", flush=True)
+    arms = [{"name": "dp_2x1", "mesh": (2, 1), "collectives": ("all_reduce", "all_gather"),
+             "train": {"drop_shards": 2, "ssl_drop_rate": PAR_DROP}},
+            {"name": "tp_1x2_head_major", "mesh": (1, 2),
+             "collectives": ("all_reduce", "all_gather"),
+             "train": {"tp_head_major": 2}}]
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="vtp_par_") as root:
+        for arm in arms:
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(_gloo_rank, args=(arm, root), nprocs=2, join=False,
+                                     start_method="spawn")
+            deadline = time.monotonic() + PAR_TIMEOUT_S
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                if time.monotonic() >= deadline:
+                    for proc in ctx.processes:
+                        proc.kill()
+                    raise AssertionError(f"{arm['name']}: the two ranks ran past {PAR_TIMEOUT_S} s")
+            ranks = [torch.load(os.path.join(root, f"{arm['name']}_rank{r}.pt"),
+                                weights_only=False) for r in range(2)]
+            if any("refused" in r for r in ranks):
+                print(f"parallel {arm['name']}: LEFT OUT, gloo refused "
+                      f"{next(r['refused'] for r in ranks if 'refused' in r)}", flush=True)
+                continue
+            for r in ranks:
+                print(f"parallel {arm['name']} rank {r['rank']} on {card}: launches "
+                      f"{r['launches']}, peak memory {r['peak_gb']:.2f} GB "
+                      f"(torch.cuda.max_memory_allocated), step {r['seconds']:.2f} s (host "
+                      f"clock, two ranks on one card: a correctness run)", flush=True)
+            tcfg = _parallel_train_config(**arm["train"])
+            ref_tcfg = _parallel_train_config(**{k: v for k, v in arm["train"].items()
+                                                 if k != "tp_head_major"})
+            state = init_state(cfg, ref_tcfg, torch.Generator(device="cuda").manual_seed(SEED + 5),
+                               device="cuda")
+            batch = _parallel_batch(cfg, PAR_BATCH)
+            state, ref = build_train_step(cfg, ref_tcfg)(
+                state, batch, torch.Generator(device="cuda").manual_seed(SEED + 9))
+            ref_sd = {n: t.detach() for n, t in state.model.state_dict().items()}
+            ref_mu = dict(state.optimizer.mu)
+            del state
+            for r in ranks:
+                if arm["mesh"][1] == 1:
+                    want, want_mu = ref_sd, ref_mu
+                else:  # this rank's slab of the one-process (canonical) parameters
+                    if r["hm"] != 2:
+                        raise AssertionError(f"{arm['name']}: the trunk is not head-major")
+                    layout = ShardLayout(AxisGroup("model", None, 2, r["rank"]), None,
+                                         {"trunk": cfg.vision_num_heads,
+                                          "pixel_decoder": cfg.decoder_num_heads,
+                                          "text": cfg.text_num_heads}, {"trunk": 1})
+                    cut = lambda sd: {n: (layout.slab(n, t) if layout.is_sharded(n, t.ndim)
+                                          else t) for n, t in sd.items()}
+                    want, want_mu = cut(ref_sd), cut(ref_mu)
+                    launched = r["launches"]
+                    if not (launched.get(ARM_NAME[torch.bfloat16]) and launched.get(BWD_NAME)):
+                        raise AssertionError(f"{arm['name']} rank {r['rank']} launched no fused "
+                                             f"forward or backward: {launched}")
+                _hold_step(f"parallel {arm['name']} rank {r['rank']}", r["metrics"], ref,
+                           r["params"], want, r["mu"], want_mu, tcfg.learning_rate)
+            del ref_sd, ref_mu
+            torch.cuda.empty_cache()
+            print(f"parallel {arm['name']}: {time.perf_counter() - t0:.1f} s (host clock)",
+                  flush=True)
+            for k, n in ranks[0]["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+    return totals
+
+
+def parallel_serving(card):
+    """Phase 4b-3: over the (1, 1) mesh at world size 1 (NCCL): ``VTPServer``
+    answers encode, decode, clip_image and clip_text requests and
+    ``VTPTokenizer(data_sharding=)`` encodes and decodes one batch, each
+    against direct calls on an unparallelized copy of the same weights.
+    Returns their launch counts."""
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.generation import VTPTokenizer
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.serve import VTPServer
+
+    cfg = _parallel_config()
+    mesh = make_mesh(1, 1, device="cuda")
+    make = lambda: VTPModel.init(cfg, torch.Generator(device="cuda").manual_seed(SEED + 13),
+                                 device="cuda")
+    direct = make()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    g = cfg.image_size // cfg.vision_patch_size
+    inputs = {"encode": torch.randn((PAR_SERVE_ROWS, 3, cfg.image_size, cfg.image_size),
+                                    generator=gen, device="cuda"),
+              "decode": torch.randn((PAR_SERVE_ROWS, cfg.vision_feature_bottleneck, g, g),
+                                    generator=gen, device="cuda"),
+              "clip_text": torch.randint(1, cfg.text_vocab_size - 1,
+                                         (PAR_SERVE_ROWS, cfg.text_context_length),
+                                         generator=gen, device="cuda")}
+    inputs["clip_image"] = inputs["encode"]
+    enc = direct.encode_dtype
+    with torch.no_grad():
+        want = {"encode": direct.get_reconstruction_latents(inputs["encode"]),
+                "decode": direct.get_latents_decoded_images(inputs["decode"]),
+                "clip_image": direct.get_clip_image_feature(inputs["encode"], True, enc),
+                "clip_text": direct.get_clip_text_feature(inputs["clip_text"], True, enc)}
+        tok_want = VTPTokenizer(direct, img_size=cfg.image_size).encode_images(inputs["encode"])
+    del direct
+    reset_launch_counts()
+    model = make()
+    srv = VTPServer(model, batch_size=PAR_SERVE_BATCH, max_wait_ms=5, warmup=False, mesh=mesh)
+    try:
+        futs = {k: srv.submit(k, v) for k, v in inputs.items()}
+        got = {k: f.result(timeout=120) for k, f in futs.items()}
+    finally:
+        srv.shutdown()
+    tok = VTPTokenizer(make(), img_size=cfg.image_size, data_sharding=mesh)
+    tok_got = tok.encode_images(inputs["encode"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, w in list(want.items()) + [("tokenizer encode", tok_want)]:
+        out = (tok_got if k == "tokenizer encode" else got[k]).float().cpu()
+        w = w.float().cpu()
+        err = (out - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        print(f"parallel serving {k}: rel err {err:.3e} against direct calls (limit "
+              f"{FEATURE_REL:g})", flush=True)
+        if out.shape != w.shape or not err <= FEATURE_REL:
+            raise AssertionError(f"parallel serving {k} disagrees with the direct call")
+    print(f"parallel serving over the 1x1 mesh (NCCL) on {card}: launches {counts}", flush=True)
+    return counts
+
+
+def run_parallel(card):
+    """Phase 4b: data, tensor and sequence parallelism and FSDP (see the
+    module docstring). Returns the launch counts of its counted runs."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vtp_tpu_torch.parallel.multihost import init_distributed
+
+    t0 = time.perf_counter()
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="vtp_nccl_") as root:
+        init_distributed("cuda", init_method=f"file://{root}/store", rank=0, world_size=1)
+        print(f"parallel: world size 1, backend {dist.get_backend()}", flush=True)
+        try:
+            runs = [parallel_one_rank(card)]
+            torch.cuda.empty_cache()
+            runs.append(parallel_serving(card))
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    runs.append(parallel_two_ranks(card))
+    for run in runs:
+        for k, n in run.items():
+            totals[k] = totals.get(k, 0) + n
+    print(f"parallel: phase in {time.perf_counter() - t0:.1f} s (host clock) on {card}",
+          flush=True)
+    return totals
+
+
+def time_tp_kernels(gen, card):
+    """Phase 7, the fused attention at the tensor-parallel ranks' shapes
+    (``TP_FWD_SHAPES``, ``TP_BWD_SHAPES``): bf16 forward and backward against
+    their plain versions and SDPA on split, pre-roped q/k/v, with the byte
+    bound. Printed lines; the kernels' JSON rows stay at the full-head shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtp_tpu_torch.ops.flash_attention import (
+        fused_qkv_rope_attention,
+        fused_qkv_rope_attention_bwd,
+        fused_qkv_rope_attention_bwd_reference,
+        fused_qkv_rope_attention_reference,
+    )
+    from vtp_tpu_torch.ops.rope import rope_apply
+
+    bw, bf16_peak, _ = next((v for k, v in PEAKS.items() if k in card), PEAKS["H100"])
+    for part, shapes in (("fwd", TP_FWD_SHAPES), ("bwd", TP_BWD_SHAPES)):
+        for B, N, H, d in shapes:
+            qkv, (sin, cos), _ = _attention_inputs(gen, B, N, H, torch.bfloat16, 16, 1)
+            q, k, v = qkv.reshape(B, N, 3, H, d).unbind(2)
+            s, c = sin[None, :, None, :], cos[None, :, None, :]
+            q, k = rope_apply(q, s, c), rope_apply(k, s, c)
+            q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            if part == "fwd":
+                kern = lambda: fused_qkv_rope_attention(qkv, sin, cos, H)
+                plain = lambda: fused_qkv_rope_attention_reference(qkv, sin, cos, H)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v)
+                nbytes, flops = B * N * 4 * H * d * 2, 4 * B * H * N * N * d
+            else:
+                g = torch.randn((B, N, H * d), generator=gen, device="cuda").bfloat16()
+                kern = lambda: fused_qkv_rope_attention_bwd(qkv, g, sin, cos, H, 0, False)
+                plain = lambda: fused_qkv_rope_attention_bwd_reference(qkv, g, sin, cos, H, 0,
+                                                                       False)
+                qg, kg, vg = (x.requires_grad_() for x in (q, k, v))
+                gt = g.reshape(B, N, H, d).transpose(1, 2).contiguous()
+
+                def lib():
+                    out = F.scaled_dot_product_attention(qg, kg, vg)
+                    torch.autograd.grad(out, (qg, kg, vg), gt)
+
+                nbytes, flops = B * N * 7 * H * d * 2, 10 * B * H * N * N * d
+            tm = _timings(kern, plain, lib)
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+            print(f"timing attention_{part} tensor-parallel rank shape B={B} N={N} H={H} d={d} "
+                  f"on {card}: {_fmt_times(tm, 'sdpa' if part == 'fwd' else 'sdpa fwd+bwd')}, "
+                  f"bound {max(t_bytes, t_ops):.4f} ms by "
+                  f"{'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP)", flush=True)
+
+
 def dit_latents(gen, model):
     """DIT_BATCH latents from ``VTPTokenizer.encode_images`` of seeded random
     images on the VTP-L model, normalised by their per-channel statistics,
@@ -3656,6 +4132,11 @@ def main() -> int:
                                   card_line)
     torch.cuda.empty_cache()
 
+    # its own seeds: the later phases draw what they drew before it
+    _set_phase("parallel")
+    parallel_counts = run_parallel(card_line)
+    torch.cuda.empty_cache()
+
     _set_phase("dit train step")
     dit_counts, samples, peak_gb, state, labels, draws, step = run_dit_train(gen, latents)
     step_s = statistics.median(samples)
@@ -3712,7 +4193,7 @@ def main() -> int:
     # 4-step sample each)
     for run in (high_counts, serve_counts, int8_counts, int8_sample_counts, hm_counts,
                 text_counts, eval_counts, zs_counts,
-                probe_counts, ti_counts, extras_counts, train_counts, vtp_counts,
+                probe_counts, ti_counts, extras_counts, train_counts, vtp_counts, parallel_counts,
                 dit_counts, sample_counts, gen_counts, *head_dim_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
@@ -3722,6 +4203,7 @@ def main() -> int:
     rows += time_dit_kernels(gen, card_line, errs, counts)
     rows += time_flash_kernels(gen, card_line, errs, counts)
     rows += time_head_dim_kernels(gen, card_line, counts)
+    time_tp_kernels(gen, card_line)
 
     kind = torch.cuda.get_device_name(0)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s", flush=True)

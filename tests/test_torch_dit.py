@@ -518,10 +518,11 @@ def test_tokenizer_img_transform_matches_jax(tokenizers, p_hflip):
 
 
 def test_tokenizer_unported_options_raise(tokenizers):
-    """Batch sharding over a mesh is not ported; the int8 encoder is (its
+    """A ``data_sharding`` that is not a DeviceMesh raises (a mesh encodes:
+    tests/test_torch_parallel_serve.py); the int8 encoder is ported (its
     tokenizer quantizes the trunk only: tests/test_torch_quantized_models.py)."""
     _, tok = tokenizers
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         VTPTokenizer(tok.model, data_sharding=object())
     int8 = VTPTokenizer(tok.model, quantize_int8=True)
     assert int8.model is not tok.model and int8.model.pixel_decoder is tok.model.pixel_decoder

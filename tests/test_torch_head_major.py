@@ -40,7 +40,7 @@ from vtp_tpu_torch.convert.to_torch import export_state_dict
 from vtp_tpu_torch.models.blocks import Attention, BlockConfig
 from vtp_tpu_torch.ops import flash_attention as fa
 from vtp_tpu_torch.parallel import sharding as tsh
-from vtp_tpu_torch.train.step import TrainConfig, init_state
+from vtp_tpu_torch.train.step import TrainConfig, build_train_step, init_state, make_ssl_batch
 
 torch.set_num_threads(1)
 F32_ABS = 5e-4
@@ -235,8 +235,32 @@ def test_init_draws_canonical_weights_then_permutes():
 
 
 def test_training_a_head_major_model_is_refused():
-    with pytest.raises(NotImplementedError, match="vision_qkv_head_major"):
-        init_state(VTPConfig(**VARIANTS["plain"]), TrainConfig(), device="cpu")
+    """A head-major model trains (the single-process half of the JAX
+    package's ``test_train_step_tp_head_major``): from the same canonical
+    init, permuted, one fp32 step gives the canonical step's loss (1e-5 rel)
+    and grad norm (1e-4 rel), and its updated trunk equals the canonical
+    one's through the inverse permutation (atol 1e-3, rtol 5e-3)."""
+    tcfg = TrainConfig(compute_dtype="fp32", dino_out_dim=256, dino_hidden_dim=32,
+                       dino_bottleneck_dim=16, warmup_steps=0, total_steps=10, remat=False)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"rec_image": torch.randn((2, 3, 64, 64), generator=gen),
+             "ssl": make_ssl_batch(gen, 2, global_size=64, local_size=32, n_local=2,
+                                   device="cpu")}
+    runs = {}
+    for hm in (1, 2):
+        cfg = VTPConfig(**dict(VARIANTS["plain"], vision_qkv_head_major=hm))
+        state = init_state(cfg, tcfg, torch.Generator().manual_seed(0), device="cpu")
+        runs[hm] = build_train_step(cfg, tcfg)(state, batch)
+    (s1, m1), (s2, m2) = runs[1], runs[2]
+    assert s2.model.config.vision_qkv_head_major == 2
+    assert abs(float(m2["loss/total"]) - float(m1["loss/total"])) <= 1e-5 * abs(
+        float(m1["loss/total"]))
+    assert abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) <= 1e-4 * float(m1["grad_norm"])
+    want = s1.model.trunk.state_dict()
+    got = tsh.permute_qkv_state_dict({f"trunk.{k}": v for k, v in s2.model.trunk.state_dict()
+                                      .items()}, 4, 2, inverse=True)
+    for k, v in want.items():
+        torch.testing.assert_close(got[f"trunk.{k}"].float(), v.float(), atol=1e-3, rtol=5e-3)
 
 
 # ------------------------------------------------------------- checkpoints

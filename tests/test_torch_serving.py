@@ -377,14 +377,23 @@ def test_shutdown_fails_pending_futures():
 
 
 def test_parallel_serving_and_int8_raise():
-    """The JAX server's mesh and head-major modes are not ported. The int8
-    serving tier is (tests/test_torch_quantized_models.py): it no longer
-    raises, and a server takes its model."""
+    """A ``mesh=`` that is not a DeviceMesh raises (a mesh serves: over four
+    ranks in tests/test_torch_parallel_serve.py); ``tp_head_major`` without a
+    mesh is ignored, as the JAX server ignores it. The int8 serving tier
+    (tests/test_torch_quantized_models.py) does not raise, and a server takes
+    its model."""
     model = VTPModel.init(VTPConfig(**TINY), torch.Generator().manual_seed(5), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         VTPServer(model, warmup=False, mesh=object())
-    with pytest.raises(NotImplementedError):
-        VTPServer(model, warmup=False, tp_head_major=True)
+    srv = VTPServer(model, batch_size=2, warmup=False, tp_head_major=True)
+    try:
+        got = srv.submit_encode(np.zeros((1, 3, 32, 32), np.float32)).result(timeout=120)
+    finally:
+        srv.shutdown()
+    assert model.config.vision_qkv_head_major == 1
+    with torch.no_grad():
+        want = model.get_reconstruction_latents(torch.zeros((1, 3, 32, 32)))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
     srv = VTPServer(model.quantize_for_serving(), batch_size=2, warmup=False)
     try:
         z = srv.submit_encode(np.zeros((1, 3, 32, 32), np.float32)).result(timeout=120)

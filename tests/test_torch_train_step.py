@@ -99,8 +99,9 @@ def _state_sd(tree, cfg):
     return sd
 
 
-def _jax_step(dtype, batch):
-    jcfg, jtcfg = JaxConfig(**TINY), JaxTrainConfig(compute_dtype=dtype, **TRAIN)
+def _jax_step(dtype, batch, **train_kw):
+    jcfg = JaxConfig(**TINY)
+    jtcfg = JaxTrainConfig(compute_dtype=dtype, **dict(TRAIN, **train_kw))
     state = jax_init_state(jax.random.key(0), jcfg, jtcfg)
     new, metrics = jax.jit(jax_build_train_step(jcfg, jtcfg))(state, _to(batch, _jax_array),
                                                                jax.random.key(1))
@@ -210,13 +211,40 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("option", list(UNPORTED))
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, kernels):
+    """Pipeline stages raise. The other options run in one process without
+    a mesh and match the JAX step with the same option on one device, in
+    fp32: ``drop_shards`` splits drop-path's keep counts (no drop rate here;
+    with one, against JAX: tests/test_torch_parallel_step.py), sequence
+    parallelism without a model axis changes nothing, and ``tp_head_major``
+    trains the trunk head-major (the split attention path) from the
+    permuted canonical init."""
     cfg_kw, train_kw = UNPORTED[option]
     cfg = VTPConfig(**dict(TINY, **cfg_kw))
     tcfg = TrainConfig(**dict(TRAIN, **train_kw))
-    with pytest.raises(NotImplementedError):
-        state = init_state(cfg, tcfg, device="cpu")
-        build_train_step(cfg, tcfg)(state, _port_batch(_batch()))
+    if option == "pipeline_stages":
+        with pytest.raises(NotImplementedError):
+            state = init_state(cfg, tcfg, device="cpu")
+            build_train_step(cfg, tcfg)(state, _port_batch(_batch()))
+        return
+    kernels(interpret=True)
+    batch = _batch()
+    jcfg, jstate, _, jmetrics = _jax_step("fp32", batch, **train_kw)
+    hm = train_kw.get("tp_head_major", 1)
+    # the JAX trunk is stored head-major under tp_head_major: the parameters
+    # go across canonical (load_numpy_state_dict permutes them), the teacher
+    # as stored (it is copied as it is)
+    params = _state_sd(jstate["params"], dataclasses.replace(jcfg, vision_qkv_head_major=hm))
+    tcfg = TrainConfig(compute_dtype="fp32", **dict(TRAIN, **train_kw))
+    state = init_state(cfg, tcfg, device="cpu")
+    assert state.model.config.vision_qkv_head_major == hm
+    load_numpy_train_state(state, params, teacher=_state_sd(jstate["teacher"], jcfg))
+    state, metrics = build_train_step(cfg, tcfg)(state, _port_batch(batch))
+    assert set(metrics) == set(jmetrics)
+    for name in metrics:
+        got, want = float(metrics[name]), float(jmetrics[name])
+        rel = 2e-2 if name == "grad_norm" else 5e-3
+        assert np.isfinite(got) and abs(got - want) <= rel * abs(want), (name, got, want)
 
 
 def test_train_config_fields_match_jax():

@@ -138,7 +138,14 @@ def test_resume_refuses_another_layout(config_json, tmp_path):
                                   ["--pipeline_parallel", "2"], ["--sequence_parallel"],
                                   ["--tp_head_major"]])
 def test_parallel_flags_exit_not_ported(flag):
-    with pytest.raises(SystemExit, match="not ported"):
+    """Context and pipeline parallelism are not ported. In one process
+    ``--mesh 2,2`` is not the world size (``make_mesh``'s check), and
+    ``--sequence_parallel`` and ``--tp_head_major`` alone need a model axis
+    (the JAX CLI's checks, ``tools/train_vtp.py`` :303-315); the mesh flags
+    run under torchrun (tests/test_torch_parallel_serve.py)."""
+    match = {"--mesh": r"mesh 2x2 != 1 ranks", "--sequence_parallel": "needs a model axis > 1",
+             "--tp_head_major": "needs a model axis > 1"}.get(flag[0], "not ported")
+    with pytest.raises(SystemExit, match=match):
         train_vtp.main(["--synthetic", "--steps", "1"] + flag)
 
 

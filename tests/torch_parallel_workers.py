@@ -1,0 +1,335 @@
+"""Rank functions of the port's parallel tests (``tests/test_torch_parallel_*.py``),
+run by ``tests/torch_dist.run_ranks`` on CPU gloo ranks. Imports no JAX:
+the JAX references are computed in the test process and come in as numpy
+arrays. Each function returns numpy arrays (rank 0's results, or every
+rank's where the test compares ranks)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from vtp_tpu_torch import VTPConfig, VTPModel
+from vtp_tpu_torch.parallel import fsdp as fsdp_mod
+from vtp_tpu_torch.parallel import sharding
+from vtp_tpu_torch.parallel.mesh import make_mesh
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _sd_np(sd) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in sd.items()}
+
+
+def _tensors(tree):
+    """Nested dicts and lists of numpy arrays -> tensors (integers as int64)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tensors(v) for v in tree]
+    if isinstance(tree, np.ndarray):
+        t = torch.from_numpy(tree)
+        return t.long() if tree.dtype.kind in "iu" else t
+    return tree
+
+
+# ------------------------------------------------------------ layouts
+
+def shard_slabs(rank, world, cfg_kw, sd):
+    """Every rank's ``shard_state_dict`` slabs on a (2, 2) mesh."""
+    mesh = make_mesh(2, 2, device="cpu")
+    cfg = VTPConfig(**cfg_kw)
+    return _sd_np(sharding.shard_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                                            mesh, cfg))
+
+
+# ------------------------------------------------------- TP forwards
+
+class _CollectiveCounter:
+    """Counts the process-group calls made while it is active."""
+
+    NAMES = ("all_reduce", "all_gather_single", "reduce_scatter_single",
+             "all_gather_into_tensor", "reduce_scatter_tensor", "all_gather", "broadcast")
+
+    def __init__(self):
+        self.calls: Dict[str, int] = {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(dist, n) for n in self.NAMES if hasattr(dist, n)}
+        for n, fn in self.saved.items():
+            def wrapped(*a, _n=n, _fn=fn, **k):
+                self.calls[_n] = self.calls.get(_n, 0) + 1
+                return _fn(*a, **k)
+            setattr(dist, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+        return False
+
+
+def _forwards(model, images, text, latents, dtype):
+    out = {}
+    with torch.no_grad():
+        model.encode_dtype = dtype
+        out["latents"] = _np(model.get_reconstruction_latents(images))
+        out["decoded"] = _np(model.get_latents_decoded_images(latents))
+        out["text"] = _np(model.get_clip_text_feature(text, normalize=False,
+                                                      compute_dtype=dtype))
+    return out
+
+
+def tp_forwards(rank, world, cfg_kw, sd, images, text, latents, meshes):
+    """For each (n_data, n_model) of ``meshes``, with sequence parallelism
+    off and on, in fp32 and bf16: the encode, the exact decode and the text
+    features of the model ``sd`` tensor-parallelized over the mesh; and the
+    collectives one block's attention and the fused attention call inside
+    it issue."""
+    from vtp_tpu_torch.ops import flash_attention as fa
+
+    cfg = VTPConfig(**cfg_kw)
+    images, text, latents = (torch.from_numpy(a) for a in (images, text, latents))
+    text = text.long()
+    results = {}
+    for shape in meshes:
+        mesh = make_mesh(*shape, device="cpu")
+        for sp in (False, True):
+            model = VTPModel(cfg, device="cpu")
+            model.load_numpy_state_dict(sd)
+            sharding.parallelize_model(model, mesh, sequence_parallel=sp)
+            for dtype in (None, torch.bfloat16):
+                key = (shape, sp, "bf16" if dtype else "fp32")
+                results[key] = _forwards(model, images, text, latents, dtype)
+            # one block's attention, its collectives counted by name
+            blk = model.trunk.blocks[0]
+            x = torch.randn(4 * 5, cfg.vision_embed_dim, generator=torch.Generator().manual_seed(0))
+            rope = model.trunk.rope_for(2, 2)
+            fused_calls = {}
+            real = fa.fused_qkv_rope_attention
+
+            def counted(*a, **k):
+                with _CollectiveCounter() as c:
+                    o = real(*a, **k)
+                for n, v in c.calls.items():
+                    fused_calls[n] = fused_calls.get(n, 0) + v
+                fused_calls["launches"] = fused_calls.get("launches", 0) + 1
+                return o
+
+            import vtp_tpu_torch.models.blocks as blocks_mod
+            blocks_mod.fused_qkv_rope_attention = counted
+            try:
+                rows = x if not sp else x.chunk(shape[1])[mesh.get_local_rank("model")]
+                sharding.CALLS.clear()
+                with torch.no_grad(), _CollectiveCounter() as c:
+                    blk.attn(rows, [(4, 5)], [rope], [5], None, "float32", sp)
+            finally:
+                blocks_mod.fused_qkv_rope_attention = real
+            results[(shape, sp, "attn_collectives")] = dict(c.calls)
+            results[(shape, sp, "attn_calls")] = dict(sharding.CALLS)
+            results[(shape, sp, "fused_collectives")] = fused_calls
+    return results
+
+
+# ------------------------------------------------------------ train steps
+
+def _train_cfgs(cfg_kw, train_kw, arm_kw):
+    from vtp_tpu_torch.train.step import TrainConfig
+
+    return VTPConfig(**cfg_kw), TrainConfig(**train_kw), TrainConfig(**dict(train_kw, **arm_kw))
+
+
+def _gathered_state(state, fsdp_on: bool):
+    layout = state.layout
+    out = {"student": _sd_np(sharding.gather_state_dict(state.model)),
+           "teacher": _sd_np(sharding.gather_state_dict(state.teacher, layout)),
+           "mu": {n: _np(layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m)
+                  for n, m in state.optimizer.mu.items()},
+           "dino_center": _np(state.dino_center), "ibot_center": _np(state.ibot_center)}
+    if fsdp_on:  # the slabs the optimizer holds gather to the module's parameters
+        out["leaves_match_modules"] = all(
+            torch.equal(layout.gather(n, p), state.fsdp.full[n])
+            for n, p in state.optimizer.leaves.items() if n in state.fsdp.dims)
+    return out
+
+
+def _held_bytes(state) -> int:
+    """Bytes of the distinct storages behind a train state's tensors (the
+    modules' trained leaves, the optimizer's leaves and moments, the teacher
+    and the centers)."""
+    opt = state.optimizer
+    tensors = [*opt.leaves.values(), *state.fsdp.full.values(), *opt.mu.values(),
+               *opt.nu.values(), *state.teacher.state_dict().values(), state.dino_center,
+               state.ibot_center]
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def vtp_step_arms(rank, world, cfg_kw, train_kw, arms, params, teacher, batch, draws):
+    """Each arm ``(name, (n_data, n_model), TrainConfig overrides, fsdp)``:
+    one VTP train step from the state ``params`` / ``teacher`` (numpy, the
+    reference names) on the global ``batch`` with the global ``draws``;
+    rank 0 returns the metrics and the gathered state."""
+    from vtp_tpu_torch.train.state import load_numpy_train_state
+    from vtp_tpu_torch.train.step import build_train_step, distribute_state, init_state
+
+    out = {}
+    batch, draws = _tensors(batch), _tensors(draws)
+    for name, shape, arm_kw, fsdp_on in arms:
+        cfg, tcfg, tcfg_arm = _train_cfgs(cfg_kw, train_kw, arm_kw)
+        mesh = make_mesh(*shape, device="cpu")
+        state = init_state(cfg, tcfg, device="cpu")
+        load_numpy_train_state(state, params, teacher=teacher)
+        distribute_state(state, tcfg_arm, mesh)
+        if fsdp_on:
+            tree = fsdp_mod.train_state_tree(state)
+            specs = fsdp_mod.fsdp_state_specs(tree, shape[0], min_elems=256)
+            fsdp_mod.shard_state(state, mesh, specs)
+            held = {"predicted": fsdp_mod.resident_bytes(tree, specs, shape[0]),
+                    "replicated": fsdp_mod.sharded_bytes(
+                        tree, fsdp_mod.fsdp_state_specs(tree, 1), {"data": 1}),
+                    "held": _held_bytes(state)}
+            del tree
+        sharding.CALLS.clear()
+        state, metrics = build_train_step(cfg, tcfg_arm, mesh)(state, batch, draws=draws)
+        res = {"metrics": {k: float(v) for k, v in metrics.items()},
+               "calls": dict(sharding.CALLS), "config_hm": state.model.config.vision_qkv_head_major}
+        res.update(_gathered_state(state, fsdp_on))
+        if fsdp_on:
+            res["bytes"] = held
+        out[name] = res
+    return out
+
+
+def dit_dp_step(rank, world, cfg_kw, tcfg_kw, params, latents, labels, draws):
+    """One DiT train step data-parallel over every rank, from ``params``."""
+    from vtp_tpu_torch.dit.model import DiTConfig
+    from vtp_tpu_torch.dit.train import DiTTrainConfig, build_dit_train_step, init_dit_state
+
+    cfg, tcfg = DiTConfig(**cfg_kw), DiTTrainConfig(**tcfg_kw)
+    mesh = make_mesh(world, 1, device="cpu")
+    state = init_dit_state(cfg, tcfg, device="cpu")
+    state.model.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    state.ema.load_state_dict(state.model.state_dict())
+    step = build_dit_train_step(cfg, tcfg, mesh)
+    state, metrics = step(state, torch.from_numpy(latents), torch.from_numpy(labels).long(), None,
+                          {k: torch.from_numpy(v) for k, v in draws.items()})
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": _sd_np(state.model.state_dict()), "ema": _sd_np(state.ema.state_dict()),
+            "mu": {k: _np(v) for k, v in state.optimizer.mu.items()}}
+
+
+def run_both(rank, world, *jobs):
+    """Several rank functions in one spawn: ``jobs`` are (fn, args) pairs."""
+    return [fn(rank, world, *args) for fn, args in jobs]
+
+
+
+# ------------------------------------------- server, tokenizer, evals, CLIs
+
+def _env_rank(rank, world):
+    import os
+
+    os.environ["RANK"], os.environ["WORLD_SIZE"] = str(rank), str(world)
+    os.environ["LOCAL_RANK"] = "0"
+
+
+def serve_and_data(rank, world, cfg_kw, sd, images, text, latents, classifier, targets,
+                   ckpt_dir, image_dir, out_dir, cli_config, cli_out):
+    """On four ranks: ``VTPServer`` over a (2, 2) mesh with
+    ``tp_head_major``; ``VTPTokenizer(data_sharding=)``; both evals with
+    ``sharding=``; ``extract_latents`` and ``train_vtp --mesh 2,2
+    --tp_head_major --sequence_parallel`` as under torchrun."""
+    import os
+
+    from vtp_tpu_torch.eval.reconstruction import evaluate_reconstruction
+    from vtp_tpu_torch.eval.zero_shot import evaluate_zero_shot
+    from vtp_tpu_torch.generation import VTPTokenizer
+    from vtp_tpu_torch.serve import VTPServer
+    from vtp_tpu_torch.tools import extract_latents, train_vtp
+
+    cfg = VTPConfig(**cfg_kw)
+    images, latents, classifier = (torch.from_numpy(a) for a in (images, latents, classifier))
+    text, targets = torch.from_numpy(text).long(), torch.from_numpy(targets).long()
+    mesh = make_mesh(2, 2, device="cpu")
+    out = {}
+
+    def fresh():
+        model = VTPModel(cfg, device="cpu", encode_dtype=None)
+        model.load_numpy_state_dict(sd)
+        return model
+
+    # the server: rank 0 submits, every rank works
+    model = fresh()
+    srv = VTPServer(model, batch_size=4, max_wait_ms=20, mesh=mesh, tp_head_major=True)
+    out["serve_hm"] = model.config.vision_qkv_head_major
+    if rank == 0:
+        futs = {"encode": srv.submit_encode(images), "decode": srv.submit_decode(latents),
+                "clip_image": srv.submit_clip_image(images),
+                "clip_text": srv.submit_clip_text(text)}
+        out["serve"] = {k: _np(f.result(timeout=120)) for k, f in futs.items()}
+        out["serve_calls"] = dict(srv.calls)
+    srv.shutdown()
+
+    # the tokenizer and the evals: every rank passes the global batch
+    model = fresh()
+    tok = VTPTokenizer(model, img_size=cfg.image_size, data_sharding=mesh)
+    out["tok_encode"] = _np(tok.encode_images(images))
+    out["tok_decode"] = _np(tok.decode_to_images(latents))
+    batches = [(images[:3], None), (images[3:], None)]
+    out["recon"] = evaluate_reconstruction(model, batches, sharding=mesh)
+    zs_batches = [(images[:3], targets[:3]), (images[3:], targets[3:])]
+    out["zero_shot"] = evaluate_zero_shot(model, classifier, zs_batches, compute_dtype=None,
+                                          sharding=mesh)
+
+    # the CLIs as under torchrun
+    _env_rank(rank, world)
+    extract_latents.main(["--model_path", ckpt_dir, "--data_path", image_dir,
+                          "--output_dir", out_dir, "--image_size", str(cfg.image_size),
+                          "--batch_size", "2", "--num_workers", "0", "--device", "cpu"])
+    base = ["--synthetic", "--config", cli_config, "--batch_size", "4", "--mesh", "2,2",
+            "--tp_head_major", "--sequence_parallel", "--local_crops", "2", "--local_size", "16",
+            "--dino_out_dim", "256", "--dino_hidden_dim", "32", "--dino_bottleneck_dim", "16",
+            "--device", "cpu", "--log_every", "1", "--warmup_steps", "1", "--total_steps", "2",
+            "--ckpt_every", "1"]
+    straight = train_vtp.main(base + ["--out", os.path.join(cli_out, "straight"), "--steps", "2"])
+    first = train_vtp.main(base + ["--out", os.path.join(cli_out, "resumed"), "--steps", "1"])
+    resumed = train_vtp.main(base + ["--out", os.path.join(cli_out, "resumed"), "--steps", "2",
+                                     "--resume"])
+    out["cli"] = {"straight": straight["metrics"], "first": first["metrics"],
+                  "resumed": resumed["metrics"], "start": resumed["start_step"],
+                  "hm": straight["state"].model.config.vision_qkv_head_major}
+    return out
+
+
+def serve_worker_failure(rank, world, cfg_kw, sd, images):
+    """``VTPServer`` over a (2, 1) mesh whose rank-1 encode raises before its
+    collectives: rank 0 returns what its futures and a later submit got,
+    rank 1 what its ``shutdown()`` raised."""
+    from vtp_tpu_torch.serve import VTPServer
+
+    model = VTPModel(VTPConfig(**cfg_kw), device="cpu", encode_dtype=None)
+    model.load_numpy_state_dict(sd)
+    if rank == 1:
+        def broken(x):
+            raise ValueError("rank 1 encode failed")
+
+        model.get_reconstruction_latents = broken
+    srv = VTPServer(model, batch_size=4, max_wait_ms=20, warmup=False,
+                    mesh=make_mesh(2, 1, device="cpu"))
+    if rank == 1:
+        try:
+            srv.shutdown()
+        except ValueError as e:
+            return {"raised": str(e)}
+        return {"raised": None}
+    first = srv.submit_encode(torch.from_numpy(images)).exception(timeout=200)
+    later = srv.submit_encode(torch.from_numpy(images)).exception(timeout=10)
+    srv.shutdown()
+    return {"first": type(first).__name__ if first is not None else None,
+            "later": str(later) if later is not None else None}

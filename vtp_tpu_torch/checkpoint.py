@@ -93,13 +93,18 @@ def save_pretrained(path: str, model) -> None:
     """Write ``model`` (a ``VTPModel``) as a native checkpoint to the
     directory ``path``: the JAX-layout tree of its weights in the config's
     qkv layout, fp32 leaves, the rope periods in BF16 when the rope dtype is
-    bf16."""
+    bf16. A tensor-parallelized model is gathered on every rank and written
+    by rank 0."""
     from vtp_tpu_torch.convert.from_torch import convert_state_dict
     from vtp_tpu_torch.convert.to_torch import export_state_dict
+    from vtp_tpu_torch.parallel.multihost import is_main_process
     from vtp_tpu_torch.parallel.sharding import permute_trunk_qkv
 
     cfg = model.config
-    params = convert_state_dict(export_state_dict(model), cfg)
+    sd = export_state_dict(model)
+    if not is_main_process():
+        return
+    params = convert_state_dict(sd, cfg)
     params["trunk"] = permute_trunk_qkv(params["trunk"], cfg.vision_num_heads,
                                         cfg.vision_qkv_head_major)
     flat = flatten_params(params)
@@ -152,6 +157,24 @@ def train_state_tensors(state: Any) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _leaf_of(name: str) -> Tuple[Optional[str], bool]:
+    """A train-state tensor's model leaf name and whether it is an optimizer
+    moment (which FSDP shards too); (None, False) for the others."""
+    head, _, rest = name.partition("/")
+    if head in ("model", "teacher"):
+        return rest, False
+    if head == "optimizer":
+        return rest.partition("/")[2], True
+    return None, False
+
+
+def _sharded(layout, name: str, t: torch.Tensor) -> Tuple[Optional[str], bool]:
+    leaf, fsdp = _leaf_of(name)
+    if layout is None or leaf is None or not layout.is_sharded(leaf, t.ndim, fsdp):
+        return None, False
+    return leaf, fsdp
+
+
 def _counters(state: Any) -> Dict[str, int]:
     """The state's integer counters: its step and each optimizer's count."""
     out = {"step": int(state.step)}
@@ -186,16 +209,26 @@ def save_train_state(directory: str, state: Any, step: Optional[int] = None,
     background thread: call :func:`wait_for_checkpoints` before the
     process exits or the checkpoint is read back."""
     global _writer
+    from vtp_tpu_torch.parallel.multihost import is_main_process
+
     step = int(state.step) if step is None else step
+    path = os.path.join(os.path.abspath(directory), f"step_{step:08d}")
+    layout = getattr(state, "layout", None)
     arrays, bf16 = {}, []
     for name, t in train_state_tensors(state).items():
+        leaf, fsdp = _sharded(layout, name, t)
+        if leaf is not None:  # a collective: every rank gathers, rank 0 writes
+            t = layout.gather(leaf, t, fsdp)
+        if not is_main_process():
+            continue
         t = t.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.float()  # written back as BF16, exactly
             bf16.append(name)
         arrays[name] = t.numpy()
+    if not is_main_process():
+        return path
     arrays.update((k, np.array(v, np.int32)) for k, v in _counters(state).items())
-    path = os.path.join(os.path.abspath(directory), f"step_{step:08d}")
     with _pending_lock:
         if _writer is None:
             _writer = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="train-state")
@@ -239,6 +272,7 @@ def restore_train_state(directory: str, template: Any, step: Optional[int] = Non
     _, header = read_safetensors_header(path)
     header.pop("__metadata__", None)
     tensors = train_state_tensors(template)
+    layout = getattr(template, "layout", None)
     counters = _counters(template)
     want = set(tensors) | set(counters)
     if set(header) != want:
@@ -247,9 +281,11 @@ def restore_train_state(directory: str, template: Any, step: Optional[int] = Non
                          f"{missing[:10]}, unexpected {extra[:10]}")
     bad = []
     for name, t in tensors.items():
-        if tuple(header[name]["shape"]) != tuple(t.shape):
+        leaf, fsdp = _sharded(layout, name, t)
+        shape = tuple(t.shape) if leaf is None else layout.full_shape(leaf, t.shape, fsdp)
+        if tuple(header[name]["shape"]) != shape:
             raise ValueError(f"checkpoint {path}: {name} has shape {header[name]['shape']}, "
-                             f"the template {tuple(t.shape)}")
+                             f"the template {shape}")
         if header[name]["dtype"] != _TAGS.get(t.dtype):
             bad.append(f"  {name}: checkpoint {header[name]['dtype']} vs template {t.dtype}")
     if bad and not allow_dtype_mismatch:
@@ -260,6 +296,10 @@ def restore_train_state(directory: str, template: Any, step: Optional[int] = Non
     arrays = load_safetensors(path)
     with torch.no_grad():
         for name, t in tensors.items():
-            t.copy_(torch.from_numpy(arrays[name]))
+            full = torch.from_numpy(arrays[name])
+            leaf, fsdp = _sharded(layout, name, t)
+            t.copy_(full if leaf is None else layout.slab(leaf, full, fsdp))
     _set_counters(template, {k: int(arrays[k]) for k in counters})
+    if getattr(template, "fsdp", None) is not None:
+        template.fsdp.refresh(template)
     return template

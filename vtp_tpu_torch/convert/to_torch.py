@@ -34,12 +34,14 @@ Array = np.ndarray
 
 def export_state_dict(model) -> Dict[str, np.ndarray]:
     """The model's state as fp32 numpy arrays under the reference names,
-    with canonical [Q|K|V] qkv columns."""
+    with canonical [Q|K|V] qkv columns. A tensor-parallelized model's slabs
+    are gathered first (every rank of its mesh calls this)."""
     from vtp_tpu_torch.models.vtp_model import checkpoint_name
+    from vtp_tpu_torch.parallel.sharding import gather_state_dict
 
     cfg = model.config
     sd = {checkpoint_name(k): v.detach().float().cpu().numpy()
-          for k, v in model.state_dict().items()}
+          for k, v in gather_state_dict(model).items()}
     return permute_qkv_state_dict(sd, cfg.vision_num_heads, cfg.vision_qkv_head_major,
                                   inverse=True)
 
@@ -189,11 +191,17 @@ def export_params_state_dict(params: dict, cfg: VTPConfig) -> Dict[str, Array]:
 
 
 def save_hf_checkpoint(path: str, model) -> None:
-    """Write ``model`` (a ``VTPModel``) to the directory ``path``."""
+    """Write ``model`` (a ``VTPModel``) to the directory ``path``; a
+    tensor-parallelized one is gathered on every rank and written by rank 0."""
+    from vtp_tpu_torch.parallel.multihost import is_main_process
+
+    sd = export_state_dict(model)
+    if not is_main_process():
+        return
     os.makedirs(path, exist_ok=True)
     # export_state_dict writes canonical [Q|K|V] columns, so the config must
     # not claim a head-major layout
     hf_cfg = {"model_type": "vtp", **model.config.to_dict(), "vision_qkv_head_major": 1}
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
-    save_safetensors(os.path.join(path, "model.safetensors"), export_state_dict(model))
+    save_safetensors(os.path.join(path, "model.safetensors"), sd)

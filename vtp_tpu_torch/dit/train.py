@@ -22,6 +22,14 @@ averaged. The JAX package's in-jit scan (``build_dit_train_step``,
 :142-168) accumulates in fp32 always, from the first microbatch's
 gradients; in fp32 the two agree bit for bit (0 + g = g).
 ``unroll_layers`` changes nothing here (the depth loop is a Python loop).
+
+Over a mesh (``build_dit_train_step(cfg, tcfg, mesh)``, the JAX CLI's data
+parallelism, ``tools/train_dit.py`` :118-145) the state is replicated and
+every rank passes the same global batch and generator (or draws): the
+label-dropout mask, ``t`` and ``x0`` are drawn for the global batch, each
+rank runs its rows, its losses are its share of the global means, and the
+gradients and metrics are summed over the ranks in one explicit collective
+before the update.
 """
 
 from __future__ import annotations
@@ -36,9 +44,17 @@ from torch import nn
 
 from vtp_tpu_torch.convert.safetensors_io import load_safetensors, read_safetensors_header
 from vtp_tpu_torch.dit.model import DiT, DiTConfig
-from vtp_tpu_torch.dit.transport import metric_keys, training_losses
+from vtp_tpu_torch.dit.transport import metric_keys, sample_timesteps, training_losses
 from vtp_tpu_torch.generation.latents import list_latent_shards, load_latent_stats
-from vtp_tpu_torch.train.optim import ACCUM_DTYPES, AdamW, accumulate_grads, resolve_moment_dtype
+from vtp_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
+from vtp_tpu_torch.parallel.sharding import shard_batch
+from vtp_tpu_torch.train.optim import (
+    ACCUM_DTYPES,
+    AdamW,
+    accumulate_grads,
+    all_reduce_flat,
+    resolve_moment_dtype,
+)
 from vtp_tpu_torch.train.state import ema_update
 
 
@@ -128,17 +144,37 @@ def zero_grad_accumulators(leaves: List[torch.Tensor], tcfg: DiTTrainConfig,
     return g_sum, m_sum
 
 
-def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
+def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig, mesh=None):
     """Returns ``train_step(state, latents, labels, generator, draws=None)
     -> (state, metrics)``. ``draws`` may give, per microbatch, the label
     dropout mask ``drop`` (B,) bool and the transport's ``t`` and ``x0``,
     with the latents' leading microbatch axis when ``accum_steps > 1``;
-    what it lacks is drawn from ``generator`` (drop, then t, then x0)."""
+    what it lacks is drawn from ``generator`` (drop, then t, then x0).
+    Over ``mesh``, data-parallel on the global batch every rank passes."""
     check_config(tcfg)
     cdt = tcfg.torch_compute_dtype
     accum = max(1, int(tcfg.accum_steps))
+    data = axis_group(mesh, DATA_AXIS)
+
+    def shard(latents, labels, generator, draws):
+        """The global microbatch's draws completed, then this rank's rows."""
+        draws = dict(draws)
+        if "drop" not in draws:
+            draws["drop"] = torch.rand(labels.shape, generator=generator,
+                                       device=labels.device) < tcfg.class_dropout_prob
+        if "t" not in draws:
+            draws["t"] = sample_timesteps(generator, latents.shape[0],
+                                          use_lognorm=tcfg.use_lognorm, mu=tcfg.lognorm_mu,
+                                          sigma=tcfg.lognorm_sigma, device=latents.device)
+        if "x0" not in draws:
+            draws["x0"] = torch.randn(latents.shape, generator=generator,
+                                      device=latents.device, dtype=latents.dtype)
+        rows = lambda t: shard_batch(t, mesh)
+        return rows(latents), rows(labels), {k: rows(v) for k, v in draws.items()}
 
     def loss_and_grads(state: DiTState, names, latents, labels, generator, draws):
+        if data is not None:
+            latents, labels, draws = shard(latents, labels, generator, draws)
         drop = draws.get("drop")
         if drop is None:
             drop = torch.rand(labels.shape, generator=generator,
@@ -150,7 +186,12 @@ def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
             use_lognorm=tcfg.use_lognorm, mu=tcfg.lognorm_mu, sigma=tcfg.lognorm_sigma,
             use_cosine_loss=tcfg.use_cosine_loss)
         leaves = state.optimizer.leaves
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        if data is not None:
+            loss = loss / data.size
+            metrics = dict(zip(metrics, all_reduce_flat(
+                [v.detach() / data.size for v in metrics.values()], data)))
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(leaves[n]) for g, n in zip(grads, names)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: DiTState, latents: torch.Tensor, labels: torch.Tensor,
@@ -173,6 +214,8 @@ def build_dit_train_step(cfg: DiTConfig, tcfg: DiTTrainConfig):
             grads = [x.float() / accum for x in g_sum]
             del g_sum
             metrics = {k: v / accum for k, v in m_sum.items()}
+        if data is not None:
+            grads = all_reduce_flat(grads, data)
         metrics["grad_norm"] = state.optimizer.step(dict(zip(names, grads)))
         del grads
         ema_update(nn.ModuleDict({"dit": state.ema}), {"dit": state.model}, tcfg.ema_decay)

@@ -12,6 +12,11 @@ reduced to streaming moments (``FrechetStats``) when a feature function is
 given, so rFID needs no second pass over PNGs; ``save_dir`` also writes
 the ref/rec PNG pairs (PIL), for the reference's folder protocol
 (``fid_from_folders``).
+
+``sharding`` (a DeviceMesh; JAX :94): every rank passes the same batches,
+each roundtrips its rows (a batch that does not divide is padded) and the
+reconstructions are all-gathered, so the metrics are the global batch's on
+every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from vtp_tpu_torch.metrics.fid import FrechetStats, fid_from_stats
 from vtp_tpu_torch.metrics.lpips import LPIPS
 from vtp_tpu_torch.metrics.psnr import psnr
 from vtp_tpu_torch.metrics.ssim import ssim
+from vtp_tpu_torch.parallel.mesh import check_mesh
+from vtp_tpu_torch.parallel.sharding import data_parallel_apply
 from vtp_tpu_torch.utils.image import denormalize_nchw
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".tiff")
@@ -87,14 +94,23 @@ def evaluate_reconstruction(
     lpips_metric: Optional[LPIPS] = None,
     inception_feature_fn: Optional[Callable] = None,
     progress: bool = False,
+    sharding=None,
 ) -> Dict[str, Optional[float]]:
     """Run the roundtrip eval over ``dataloader`` (batches of (images,
     labels); images numpy or tensors, moved to the model's device) on a
     ``VTPModel``. Returns {psnr, ssim, lpips, rfid, num_samples}; lpips and
     rfid are None without their weights. Stops after the batch that
-    reaches ``max_samples``."""
+    reaches ``max_samples``. ``sharding``: the roundtrips spread over a
+    DeviceMesh's data axis."""
     device = next(model.parameters()).device
     roundtrip = make_roundtrip_fn(model)
+    if sharding is not None:
+        check_mesh(sharding, "sharding")
+        one_rank = roundtrip
+
+        def roundtrip(images):
+            recon = data_parallel_apply(lambda x: one_rank(x)[1], images, sharding)
+            return denormalize_nchw(images.float()).clamp(0.0, 1.0), recon
     lpips_metric = lpips_metric if lpips_metric is not None else LPIPS(device=device)
 
     ref_dir = rec_dir = None

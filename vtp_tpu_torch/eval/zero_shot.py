@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from vtp_tpu_torch.models.vtp_model import l2_normalize
+from vtp_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, check_mesh
+from vtp_tpu_torch.parallel.sharding import all_reduce_, pad_rows
 
 _DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 CACHE_ENV = "VTP_CACHE_DIR"
@@ -101,11 +103,18 @@ def topk_counts(logits: torch.Tensor, targets: torch.Tensor,
 @torch.no_grad()
 def evaluate_zero_shot(model, classifier: torch.Tensor, dataloader,
                        compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                       progress: bool = False) -> Tuple[float, float]:
+                       progress: bool = False, sharding=None) -> Tuple[float, float]:
     """(top-1 %, top-5 %) over ``dataloader``'s (images, targets) batches,
     images (B, 3, S, S) fp32 NCHW already resized and ImageNet-normalised
-    (test_zero_shot_hf.py:401-441)."""
+    (test_zero_shot_hf.py:401-441). ``sharding`` (a DeviceMesh; JAX :134):
+    every rank passes the same batches and scores its rows of each, a batch
+    that does not divide padded with target -1 (never a hit, JAX :172-178),
+    and the hit counts are summed over the data axis."""
     device = classifier.device
+    data = None
+    if sharding is not None:
+        check_mesh(sharding, "sharding")
+        data = axis_group(sharding, DATA_AXIS)
     it = dataloader
     if progress:
         from tqdm import tqdm  # type: ignore
@@ -116,10 +125,18 @@ def evaluate_zero_shot(model, classifier: torch.Tensor, dataloader,
         images = torch.as_tensor(images).to(device)
         targets = torch.as_tensor(np.asarray(targets) if not isinstance(targets, torch.Tensor)
                                   else targets).to(device)
+        b = images.shape[0]
+        if data is not None:
+            pad = (-b) % data.size
+            images = pad_rows(images, data.size).chunk(data.size)[data.rank]
+            targets = torch.cat([targets, targets.new_full((pad,), -1)]).chunk(data.size)[
+                data.rank]
         feats = model.get_clip_image_feature(images, True, compute_dtype)
         logits = 100.0 * feats @ classifier.to(feats.dtype)
         c1, c5 = topk_counts(logits, targets)
+        if data is not None:
+            c1, c5 = all_reduce_(torch.stack([c1, c5]), data)
         top1 += c1.item()
         top5 += c5.item()
-        n += images.shape[0]
+        n += b
     return top1 / n * 100.0, top5 / n * 100.0

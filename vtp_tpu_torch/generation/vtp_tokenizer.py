@@ -11,9 +11,11 @@ images (an exact-fp32 decode), and the ``patch_size``, ``embed_dim``,
 ``from_checkpoint`` loads the model through ``VTPModel.from_checkpoint``.
 ``quantize_int8`` encodes with an int8 W8A8 trunk
 (``VTPModel.quantize_for_serving``, the trunk only) for bulk extraction;
-the decode stays the exact fp32 one. Not ported, and raising
-``NotImplementedError``: batch sharding over a device mesh
-(``data_sharding``).
+the decode stays the exact fp32 one. ``data_sharding`` (a DeviceMesh, the
+JAX package's batch ``NamedSharding``): every rank passes the same global
+batch, encodes or decodes its rows and all-gathers the result
+(``parallel.sharding.data_parallel_apply``), so callers see the global
+batch as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 
 from vtp_tpu_torch.models.vtp_model import VTPModel
+from vtp_tpu_torch.parallel.mesh import check_mesh
+from vtp_tpu_torch.parallel.sharding import data_parallel_apply
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -53,7 +57,8 @@ class VTPTokenizer:
     def __init__(self, model: VTPModel, img_size: int = 256, normalize_type: str = "imagenet",
                  data_sharding=None, quantize_int8: bool = False):
         if data_sharding is not None:
-            raise NotImplementedError("batch sharding over a device mesh is not ported")
+            check_mesh(data_sharding, "data_sharding")
+        self.data_sharding = data_sharding
         if quantize_int8:
             model = model.quantize_for_serving(("trunk",))
         if normalize_type == "half":
@@ -104,15 +109,21 @@ class VTPTokenizer:
     def _device_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.norm_mean.device)
 
+    def _apply(self, fn, x: torch.Tensor) -> torch.Tensor:
+        if self.data_sharding is None:
+            return fn(x)
+        return data_parallel_apply(fn, x, self.data_sharding)
+
     @torch.no_grad()
     def encode_images(self, images) -> torch.Tensor:
         """(B, 3, H, W) normalised -> (B, d, H/p, W/p) fp32 latents."""
-        return self.model.get_reconstruction_latents(self._device_tensor(images)).float()
+        return self._apply(self.model.get_reconstruction_latents,
+                           self._device_tensor(images)).float()
 
     @torch.no_grad()
     def decode_to_images(self, z) -> torch.Tensor:
         """(B, d, h, w) latents -> (B, H, W, 3) uint8 images."""
-        decoded = self.model.get_latents_decoded_images(self._device_tensor(z))
+        decoded = self._apply(self.model.get_latents_decoded_images, self._device_tensor(z))
         decoded = decoded * self.norm_std[None] + self.norm_mean[None]
         images = torch.clamp(decoded * 255.0, 0, 255)
         return images.permute(0, 2, 3, 1).to(torch.uint8)

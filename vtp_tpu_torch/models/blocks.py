@@ -31,6 +31,14 @@ columns are regrouped per head, then qk-norm, RoPE (``apply_rope_bnhd`` :280),
 the compute-dtype cast and ``sdpa_bnhd`` (:292), whose bf16 case runs
 ``flash_attention_bnhd``. The context-parallel arms of ``sdpa_bnhd`` are
 not ported.
+
+Under tensor parallelism (``parallel.sharding.parallelize_model``) an
+``Attention``, ``SwiGLUFFN`` or ``Mlp`` holds its rank's slabs and a
+``tp``; it enters its column-parallel GEMM through ``tp_enter`` and leaves
+its row-parallel GEMM through ``tp_exit``, adding the replicated bias after
+the reduction. ``run_blocks`` splits the packed rows over the model group
+for the depth loop when the model runs sequence-parallel and drop-path is
+off (the JAX package pins the drop-path subsets to the data-only layout).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -61,6 +70,7 @@ from vtp_tpu_torch.ops.flash_attention import (
 )
 from vtp_tpu_torch.ops.norms import apply_norm, norm_eps, rms_norm
 from vtp_tpu_torch.ops.rope import rope_apply
+from vtp_tpu_torch.parallel.sharding import sp_param, split_seq, tp_enter, tp_exit, unsplit_seq
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 Shapes = List[Tuple[int, int]]
@@ -136,6 +146,8 @@ class Attention(nn.Module):
     Head dims 32 and 128 pass the gate, and on a CUDA tensor the fused
     kernel, which takes 64 alone, raises for them."""
 
+    tp = None  # the TensorParallel of a parallelized model
+
     def __init__(self, cfg: BlockConfig):
         super().__init__()
         self.cfg = cfg
@@ -177,11 +189,13 @@ class Attention(nn.Module):
 
     def forward(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
                 n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
-                precision: str = "float32") -> torch.Tensor:
+                precision: str = "float32", sp: bool = False) -> torch.Tensor:
         """flat: the packed (sum B_i*N_i, D) normed tokens of the crops
-        whose (B_i, N_i) are ``shapes``; one qkv GEMM, one fused attention
-        per crop, one out-projection."""
+        whose (B_i, N_i) are ``shapes`` (under ``sp``, this rank's rows of
+        them); one qkv GEMM, one fused attention per crop, one
+        out-projection."""
         cfg = self.cfg
+        flat = tp_enter(flat, self.tp, sp)
         qkv_flat = linear(flat, self.qkv.weight, self.qkv_bias(), compute_dtype, precision)
         outs, off = [], 0
         for (b, n), rope, n_valid in zip(shapes, ropes, n_valids):
@@ -204,7 +218,18 @@ class Attention(nn.Module):
             )
             outs.append(o.reshape(b * n, cfg.dim))
         o = outs[0] if len(outs) == 1 else torch.cat(outs)
-        return linear(o, self.proj.weight, self.proj.bias, compute_dtype, precision)
+        return _row_parallel(o, self.proj, self.tp, sp, compute_dtype, precision)
+
+
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, tp, sp: bool,
+                  compute_dtype: Optional[torch.dtype], precision: str) -> torch.Tensor:
+    """A row-parallel linear: the local product reduced over the model group
+    (``tp_exit``), then the replicated bias; ``linear`` without a ``tp``."""
+    if tp is None:
+        return linear(x, lin.weight, lin.bias, compute_dtype, precision)
+    y = tp_exit(linear(x, lin.weight, None, compute_dtype, precision), tp, sp)
+    bias = sp_param(lin.bias, tp, sp)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def apply_rope_bnhd(q: torch.Tensor, k: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
@@ -232,6 +257,8 @@ class SwiGLUFFN(nn.Module):
     """``w1``, ``w2``, ``w3``; after ``utils.params.fuse_ffn_params``, ``w12``
     (``[w1; w2]``) and ``w3``, with ``w1`` and ``w2`` None."""
 
+    tp = None  # the TensorParallel of a parallelized model
+
     def __init__(self, dim: int, hidden: int, bias: bool):
         super().__init__()
         self.w1 = nn.Linear(dim, hidden, bias=bias)
@@ -240,11 +267,18 @@ class SwiGLUFFN(nn.Module):
         self.w12 = None
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                precision: str = "float32") -> torch.Tensor:
-        return swiglu(x, self.w1, self.w2, self.w3, compute_dtype, precision, self.w12)
+                precision: str = "float32", sp: bool = False) -> torch.Tensor:
+        if self.tp is None:
+            return swiglu(x, self.w1, self.w2, self.w3, compute_dtype, precision, self.w12)
+        x = tp_enter(x, self.tp, sp)
+        h = (F.silu(linear(x, self.w1.weight, self.w1.bias, compute_dtype, precision))
+             * linear(x, self.w2.weight, self.w2.bias, compute_dtype, precision))
+        return _row_parallel(h, self.w3, self.tp, sp, compute_dtype, precision)
 
 
 class Mlp(nn.Module):
+    tp = None  # the TensorParallel of a parallelized model
+
     def __init__(self, dim: int, hidden: int, bias: bool, act: str):
         super().__init__()
         self.act = act
@@ -252,8 +286,12 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim, bias=bias)
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None,
-                precision: str = "float32") -> torch.Tensor:
-        return mlp(x, self.fc1, self.fc2, ACT[self.act], compute_dtype, precision)
+                precision: str = "float32", sp: bool = False) -> torch.Tensor:
+        if self.tp is None:
+            return mlp(x, self.fc1, self.fc2, ACT[self.act], compute_dtype, precision)
+        x = tp_enter(x, self.tp, sp)
+        h = ACT[self.act](linear(x, self.fc1.weight, self.fc1.bias, compute_dtype, precision))
+        return _row_parallel(h, self.fc2, self.tp, sp, compute_dtype, precision)
 
 
 class Block(nn.Module):
@@ -286,47 +324,73 @@ class Block(nn.Module):
 
     def forward_packed(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
                        n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
-                       precision: str = "float32") -> torch.Tensor:
-        """On the packed tokens of the crops (block_apply_flat)."""
-        a = self.attn(self.norm1(flat), shapes, ropes, n_valids, compute_dtype, precision)
-        flat = flat + (self.ls1(a) if self.ls1 is not None else a)
-        f = self.mlp(self.norm2(flat), compute_dtype, precision)
-        return flat + (self.ls2(f) if self.ls2 is not None else f)
+                       precision: str = "float32", sp: bool = False) -> torch.Tensor:
+        """On the packed tokens of the crops (block_apply_flat); under
+        ``sp``, on this rank's rows of them."""
+        tp = self.attn.tp
+        a = self.attn(_norm(self.norm1, flat, tp, sp), shapes, ropes, n_valids, compute_dtype,
+                      precision, sp)
+        flat = flat + _scale(self.ls1, a, tp, sp)
+        f = self.mlp(_norm(self.norm2, flat, tp, sp), compute_dtype, precision, sp)
+        return flat + _scale(self.ls2, f, tp, sp)
 
     def forward_droppath(self, xs: Sequence[torch.Tensor], ropes: Sequence[Rope],
                          n_valids: Sequence[int], idx: Sequence[torch.Tensor],
                          compute_dtype: Optional[torch.dtype] = None,
-                         precision: str = "float32") -> List[torch.Tensor]:
+                         precision: str = "float32",
+                         scales: Optional[Sequence[float]] = None) -> List[torch.Tensor]:
         """Drop-path on (B_i, N_i, D) crops (``_block_apply_droppath``):
         ``idx`` holds the attention branch's kept rows of each crop, then the
-        FFN branch's."""
+        FFN branch's; ``scales`` (same order) their residual scales when they
+        are a data shard's part of a global subset."""
         n = len(xs)
 
-        def attn(flat, shapes):
-            a = self.attn(self.norm1(flat), shapes, ropes, n_valids, compute_dtype, precision)
+        def attn(flat, shapes, kept):
+            a = self.attn(self.norm1(flat), shapes, [ropes[i] for i in kept],
+                          [n_valids[i] for i in kept], compute_dtype, precision)
             return self.ls1(a) if self.ls1 is not None else a
 
-        def ffn(flat, shapes):
+        def ffn(flat, shapes, kept):
             f = self.mlp(self.norm2(flat), compute_dtype, precision)
             return self.ls2(f) if self.ls2 is not None else f
 
-        xs = _droppath_branch(xs, idx[:n], attn)
-        return _droppath_branch(xs, idx[n:], ffn)
+        xs = _droppath_branch(xs, idx[:n], attn, None if scales is None else scales[:n])
+        return _droppath_branch(xs, idx[n:], ffn, None if scales is None else scales[n:])
+
+
+def _norm(norm: "Norm", x: torch.Tensor, tp, sp: bool) -> torch.Tensor:
+    if not sp:
+        return norm(x)
+    return apply_norm(x, sp_param(norm.weight, tp, sp), sp_param(norm.bias, tp, sp),
+                      norm.kind, norm.eps)
+
+
+def _scale(ls: Optional["LayerScale"], x: torch.Tensor, tp, sp: bool) -> torch.Tensor:
+    return x if ls is None else x * sp_param(ls.gamma, tp, sp)
 
 
 def _droppath_branch(xs: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
-                     fn: Callable[[torch.Tensor, Shapes], torch.Tensor]) -> List[torch.Tensor]:
-    """``fn`` on the packed kept rows of every crop, each crop's output added
-    back at its rows, scaled by b / keep."""
-    sub = [x[ix] for x, ix in zip(xs, idx)]
+                     fn: Callable[[torch.Tensor, Shapes, List[int]], torch.Tensor],
+                     scales: Optional[Sequence[float]] = None) -> List[torch.Tensor]:
+    """``fn`` on the packed kept rows of every crop (its arguments: them, their
+    shapes, the indices of the crops they come from), each crop's output added
+    back at its rows, scaled by b / keep (or by ``scales``, the global batch's
+    b / keep, when ``idx`` are this data shard's part of a global subset; a
+    crop with no kept row here is left as it is)."""
+    if scales is None:
+        scales = [x.shape[0] / max(ix.numel(), 1) for x, ix in zip(xs, idx)]
+    kept = [i for i, ix in enumerate(idx) if ix.numel() > 0]
+    if not kept:
+        return list(xs)
+    sub = [xs[i][idx[i]] for i in kept]
     shapes = [(t.shape[0], t.shape[1]) for t in sub]
     d = xs[0].shape[-1]
-    out = fn(torch.cat([t.reshape(-1, d) for t in sub]), shapes)
-    res, off = [], 0
-    for x, ix, (b, n) in zip(xs, idx, shapes):
+    out = fn(torch.cat([t.reshape(-1, d) for t in sub]), shapes, kept)
+    res, off = list(xs), 0
+    for i, (b, n) in zip(kept, shapes):
         r = out[off:off + b * n].reshape(b, n, d)
         off += b * n
-        res.append(_residual_scatter(x, r, ix, x.shape[0] / b))
+        res[i] = _residual_scatter(xs[i], r, idx[i], scales[i])
     return res
 
 
@@ -344,11 +408,12 @@ def sample_drop_indices(generator: torch.Generator, batch: int, keep: int) -> to
 
 
 def draw_drop_indices(generator: torch.Generator, batches: Sequence[int], depth: int,
-                      drop_ratio: float) -> List[List[torch.Tensor]]:
+                      drop_ratio: float, shards: int = 1) -> List[List[torch.Tensor]]:
     """Every block's kept rows for crops of ``batches`` rows: per block, the
     attention branch's subset of each crop, then the FFN branch's (the
-    order of JAX's ``split(key, 2 * len(xs))``)."""
-    return [[sample_drop_indices(generator, b, drop_keep_count(b, drop_ratio))
+    order of JAX's ``split(key, 2 * len(xs))``); ``shards`` is
+    ``drop_keep_count``'s (the JAX step draws over the global batch)."""
+    return [[sample_drop_indices(generator, b, drop_keep_count(b, drop_ratio, shards))
              for b in list(batches) * 2] for _ in range(depth)]
 
 
@@ -408,34 +473,45 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
                n_valids: Optional[Sequence[int]] = None,
                compute_dtype: Optional[torch.dtype] = None,
                remat: Union[bool, str] = False, precision: str = "float32",
-               drop: Optional[Sequence[Sequence[torch.Tensor]]] = None
+               drop: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+               drop_scales: Optional[Sequence[Sequence[float]]] = None
                ) -> List[torch.Tensor]:
     """The depth loop over a list of (B_i, N_i, D) crops (scan_blocks):
     packed once, unpacked at the end. ``n_valids`` masks trailing key
     columns per crop (default: all valid). ``drop`` (per block, the kept
     rows of ``draw_drop_indices``) runs every block with drop-path on
-    unpacked crops."""
+    unpacked crops, with ``drop_scales`` (per block) as the residual scales
+    when given. A sequence-parallel model splits the packed rows over its
+    model group for the loop."""
     shapes = [(x.shape[0], x.shape[1]) for x in xs]
     n_valids = list(n_valids) if n_valids is not None else [n for _, n in shapes]
     ropes = list(ropes)
     run = checkpoint_policy(remat) if torch.is_grad_enabled() else None
     if drop is not None:
         xs = list(xs)
-        for blk, idx in zip(blocks, drop, strict=True):
+        scales = drop_scales if drop_scales is not None else [None] * len(drop)
+        for blk, idx, sc in zip(blocks, drop, scales, strict=True):
             if run is not None:
                 xs = run(blk.forward_droppath, xs, ropes, n_valids, list(idx), compute_dtype,
-                         precision)
+                         precision, sc)
             else:
                 xs = blk.forward_droppath(xs, ropes, n_valids, list(idx), compute_dtype,
-                                          precision)
+                                          precision, sc)
         return xs
     flat = pack(xs)
+    tp = blocks[0].attn.tp if len(blocks) else None
+    sp = tp is not None and tp.seq_split(flat.shape[0])
+    if sp:
+        flat = split_seq(flat, tp.axis)
     for blk in blocks:
         if run is not None:
             flat = run(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
-                       precision)
+                       precision, sp)
         else:
-            flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype, precision)
+            flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype, precision,
+                                      sp)
+    if sp:
+        flat = unsplit_seq(flat, tp.axis)
     return unpack(flat, [x.shape for x in xs])
 
 

@@ -21,6 +21,14 @@ leaves the model as it was, as the JAX function returns new params.
 Parameter names are the reference checkpoint's (``token_embedding``,
 ``positional_embedding``, ``text_transformer.resblocks.{i}``,
 ``ln_final``, ``text_projection``).
+
+Under tensor parallelism (``parallel.sharding.parallelize_model``) a block
+holds its rank's slabs of ``in_proj`` (its heads' Q, K and V), ``out_proj``,
+``c_fc`` and ``c_proj`` and runs its H/tp heads; the token embedding holds
+the rank's rows of the vocabulary (ids outside them read zeros, summed over
+the model group). With sequence parallelism the residual stream's tokens
+split over the model group when the text length divides by it
+(``constrain_residual(token_axis=1)``).
 """
 
 from __future__ import annotations
@@ -37,7 +45,16 @@ from vtp_tpu_torch.models.initializers import normal_
 from vtp_tpu_torch.ops.activations import ACT
 from vtp_tpu_torch.ops.attention import sdpa
 from vtp_tpu_torch.ops.ffn import linear
+from vtp_tpu_torch.ops.norms import apply_norm
 from vtp_tpu_torch.ops.flash_attention import fused_attention_supported, fused_qkv_rope_attention
+from vtp_tpu_torch.parallel.sharding import (
+    reduce_from_model,
+    sp_param,
+    split_seq,
+    tp_enter,
+    tp_exit,
+    unsplit_seq,
+)
 from vtp_tpu_torch.utils.quantization import gemm_weight
 
 
@@ -93,6 +110,8 @@ class TextMlp(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
+    tp = None  # the TensorParallel of a parallelized model
+
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.cfg = cfg
@@ -108,28 +127,38 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_1 = self.ls_2 = None
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor], is_causal: bool,
-                compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
-        cfg = self.cfg
-        B, L, W = x.shape
+                compute_dtype: Optional[torch.dtype], sp: bool = False) -> torch.Tensor:
+        """(B, L, W) -> (B, L, W); under ``sp``, this rank's tokens of them."""
+        cfg, tp = self.cfg, self.tp
+        heads = cfg.heads // (tp.size if tp is not None else 1)
         act = ACT["quick_gelu" if cfg.quick_gelu else "gelu"]
-        h = self.ln_1(x)
+
+        def ln(norm, t):
+            return apply_norm(t, sp_param(norm.weight, tp, sp), sp_param(norm.bias, tp, sp),
+                              norm.kind, norm.eps)
+
+        def out(t, lin, ls):
+            if tp is None:
+                t = linear(t, lin.weight, lin.bias, compute_dtype)
+            else:
+                t = tp_exit(linear(t, lin.weight, None, compute_dtype), tp, sp, dim=1)
+                t = t + sp_param(lin.bias, tp, sp).to(t.dtype)
+            return t if ls is None else t * sp_param(ls.gamma, tp, sp)
+
+        h = tp_enter(ln(self.ln_1, x), tp, sp, dim=1)
+        B, L, _ = h.shape
         qkv = linear(h, self.attn.in_proj_weight, self.attn.in_proj_bias, compute_dtype)
         if (is_causal and attn_mask is None
-                and fused_attention_supported(qkv.shape, qkv.dtype, cfg.heads)):
-            o = fused_qkv_rope_attention(qkv, None, None, cfg.heads, is_causal=True)
+                and fused_attention_supported(qkv.shape, qkv.dtype, heads)):
+            o = fused_qkv_rope_attention(qkv, None, None, heads, is_causal=True)
         else:
-            q, k, v = qkv.reshape(B, L, 3, cfg.heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv.reshape(B, L, 3, heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
             o = sdpa(q, k, v, bias=attn_mask, is_causal=is_causal and attn_mask is None)
-            o = o.transpose(1, 2).reshape(B, L, W)
-        o = linear(o, self.attn.out_proj.weight, self.attn.out_proj.bias, compute_dtype)
-        if self.ls_1 is not None:
-            o = self.ls_1(o)
-        x = x + o
-        h = act(linear(self.ln_2(x), self.mlp.c_fc.weight, self.mlp.c_fc.bias, compute_dtype))
-        h = linear(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, compute_dtype)
-        if self.ls_2 is not None:
-            h = self.ls_2(h)
-        return x + h
+            o = o.transpose(1, 2).reshape(B, L, heads * cfg.head_dim)
+        x = x + out(o, self.attn.out_proj, self.ls_1)
+        h = tp_enter(ln(self.ln_2, x), tp, sp, dim=1)
+        h = act(linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias, compute_dtype))
+        return x + out(h, self.mlp.c_proj, self.ls_2)
 
 
 class TextStack(nn.Module):
@@ -159,6 +188,7 @@ def build_cls_mask(text: torch.Tensor, pad_id: int) -> torch.Tensor:
 class TextTransformer(nn.Module):
     # a bias-free projection is a bare (width, out) matrix
     LINEAR_WEIGHTS = (("text_projection", None, "in_out"),)
+    tp = None  # the TensorParallel of a parallelized model
 
     def __init__(self, cfg: TextConfig):
         super().__init__()
@@ -209,7 +239,7 @@ class TextTransformer(nn.Module):
         mask: (x, mask, is_causal); the plain causal case carries no mask."""
         cfg = self.cfg
         B, L = text.shape
-        x = self.token_embedding.weight[text]
+        x = self.token_embedding_lookup(text)
         if cfg.embed_cls:
             seq = L + 1
             x = torch.cat([x, self.cls_emb.to(x.dtype).expand(B, 1, cfg.width)], dim=1)
@@ -219,6 +249,18 @@ class TextTransformer(nn.Module):
                         + build_cls_mask(text, cfg.pad_id)[:, :, :seq, :seq])
             return x + self.positional_embedding[:seq], mask, False
         return x + self.positional_embedding[:L], None, not cfg.no_causal_mask
+
+    def token_embedding_lookup(self, text: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``text``; under tensor parallelism each
+        rank reads the ids of its vocabulary rows and the group sums."""
+        weight = self.token_embedding.weight
+        if self.tp is None:
+            return weight[text]
+        v = weight.shape[0]
+        local = text - self.tp.axis.rank * v
+        inside = (local >= 0) & (local < v)
+        x = weight[local.clamp(0, v - 1)] * inside[..., None].to(weight.dtype)
+        return reduce_from_model(x, self.tp.axis)
 
     def pool_project(self, x: torch.Tensor, text: torch.Tensor,
                      compute_dtype: Optional[torch.dtype]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,11 +299,16 @@ class TextTransformer(nn.Module):
         same arithmetic, no launch in the recompute)."""
         x, mask, is_causal = self.embeds(text)
         run = checkpoint_policy(remat)
+        sp = self.tp is not None and self.tp.seq_split(x.shape[1])
+        if sp:
+            x = split_seq(x, self.tp.axis, dim=1)
         for blk in self.text_transformer.resblocks:
             if run is not None and torch.is_grad_enabled():
-                x = run(blk, x, mask, is_causal, compute_dtype)
+                x = run(blk, x, mask, is_causal, compute_dtype, sp)
             else:
-                x = blk(x, mask, is_causal, compute_dtype)
+                x = blk(x, mask, is_causal, compute_dtype, sp)
+        if sp:
+            x = unsplit_seq(x, self.tp.axis, dim=1)
         pooled, tokens = self.pool_project(x, text, compute_dtype)
         if normalize:
             pooled = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),

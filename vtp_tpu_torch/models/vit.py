@@ -182,16 +182,19 @@ class VisionTransformer(nn.Module):
         return pad_rope_prefix(sin, cos, 1 + cfg.n_storage_tokens)
 
     def sample_draws(self, generator: torch.Generator, batches: Sequence[int],
-                     drop_ratio: float = 0.0) -> Dict[str, list]:
+                     drop_ratio: float = 0.0, drop_shards: int = 1) -> Dict[str, list]:
         """A training forward's draws for crops of ``batches`` rows: ``rope``,
         each crop's augmentation factors (``draw_rope_coords``), and, with
         ``drop_ratio > 0``, ``drop``, each block's kept rows
-        (``draw_drop_indices``)."""
+        (``draw_drop_indices`` with ``drop_shards``). A data-parallel step
+        adds ``drop_scale``, each kept subset's residual scale, when it cuts
+        the global subsets to its shard's rows."""
         cfg = self.cfg
         out = {"rope": [draw_rope_coords(generator, cfg.rope_shift_coords, cfg.rope_jitter_coords,
                                          cfg.rope_rescale_coords) for _ in batches]}
         if drop_ratio > 0.0:
-            out["drop"] = draw_drop_indices(generator, batches, cfg.depth, drop_ratio)
+            out["drop"] = draw_drop_indices(generator, batches, cfg.depth, drop_ratio,
+                                            drop_shards)
         return out
 
     def final_norms(self, x: torch.Tensor, crop_index: int = 0, training: bool = False
@@ -251,7 +254,9 @@ class VisionTransformer(nn.Module):
             xs.append(x)
             ropes.append(self.rope_for(gh, gw, draws["rope"][i] if draws is not None else None))
         drop = draws["drop"] if draws is not None and drop_ratio > 0.0 else None
-        xs = run_blocks(self.blocks, xs, ropes, None, compute_dtype, remat, drop=drop)
+        scales = draws.get("drop_scale") if drop is not None else None
+        xs = run_blocks(self.blocks, xs, ropes, None, compute_dtype, remat, drop=drop,
+                        drop_scales=scales)
         outputs = []
         for i, (x, m) in enumerate(zip(xs, masks_list)):
             cls_reg, patch = self.final_norms(x, crop_index=i, training=training)

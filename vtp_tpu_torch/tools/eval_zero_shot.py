@@ -6,6 +6,9 @@ cosine logits, top-1 and top-5). The CLIP BPE merges file comes from
 
     python -m vtp_tpu_torch.tools.eval_zero_shot --model_path /path/to/vtp-l-hf \\
         --imagenet_val /path/to/imagenet/val [--batch_size 256] [--device cpu]
+
+Under ``torchrun`` every rank scores its rows of each batch and the counts
+are summed (the JAX CLI's batch over all devices, :76-77); rank 0 prints.
 """
 
 from __future__ import annotations
@@ -34,10 +37,13 @@ def main(argv: Optional[List[str]] = None) -> Tuple[float, float]:
     from vtp_tpu_torch import VTPModel
     from vtp_tpu_torch.data import DataLoader, ImageFolder
     from vtp_tpu_torch.eval.zero_shot import build_zero_shot_classifier, evaluate_zero_shot
+    from vtp_tpu_torch.parallel.mesh import data_mesh_from_env
+    from vtp_tpu_torch.parallel.multihost import is_main_process
     from vtp_tpu_torch.tokenizers import get_tokenizer
     from vtp_tpu_torch.utils.image import normalize_nchw, resize_naive, to_nchw_float
 
     dtype = torch.bfloat16 if args.precision == "bf16" else None
+    mesh = data_mesh_from_env(args.device)
     model = VTPModel.from_checkpoint(args.model_path, device=args.device, encode_dtype=dtype)
     tokenizer = get_tokenizer(context_length=model.config.text_context_length)
 
@@ -48,11 +54,15 @@ def main(argv: Optional[List[str]] = None) -> Tuple[float, float]:
     loader = DataLoader(dataset, args.batch_size,
                         sampler=range(min(len(dataset), args.max_samples or len(dataset))),
                         num_workers=args.num_workers)
-    print("Building zero-shot classifier (1000 classes x 80 templates)...")
+    main_rank = is_main_process()
+    if main_rank:
+        print("Building zero-shot classifier (1000 classes x 80 templates)...")
     classifier = build_zero_shot_classifier(model, tokenizer, compute_dtype=dtype)
-    top1, top5 = evaluate_zero_shot(model, classifier, loader, compute_dtype=dtype)
-    print(f"Top-1: {top1:.2f}%  Top-5: {top5:.2f}%")
-    if args.output:
+    top1, top5 = evaluate_zero_shot(model, classifier, loader, compute_dtype=dtype,
+                                    sharding=mesh)
+    if main_rank:
+        print(f"Top-1: {top1:.2f}%  Top-5: {top5:.2f}%")
+    if args.output and main_rank:
         with open(args.output, "w") as f:
             json.dump({"top1": top1, "top5": top5}, f, indent=2)
     return top1, top5

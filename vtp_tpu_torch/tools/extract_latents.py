@@ -4,9 +4,12 @@
 unflipped and flipped, writes shards of ``--shard_size`` images holding
 {latents, latents_flip, labels}, then the per-channel latent statistics.
 
-One GPU; a multi-process run passes ``--shard``/``--num_shards`` to each
-process (``ShardedSampler``), and shard 0 writes the statistics over the
-shards present when it ends.
+One GPU a process. Under ``torchrun`` each rank takes its ``ShardedSampler``
+slice (``--shard`` / ``--num_shards`` become the rank and the world size)
+and writes its own ``latents_rank{r}_shard{s}`` files; rank 0 writes the
+statistics after every rank is done. Without ``torchrun`` a multi-process
+run passes ``--shard``/``--num_shards`` to each process, and shard 0 writes
+the statistics over the shards present when it ends.
 
     python -m vtp_tpu_torch.tools.extract_latents --model_path /path/to/vtp-l-hf \\
         --data_path /path/to/imagenet/train --output_dir ./latents_out [--device cpu]
@@ -77,6 +80,13 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     from vtp_tpu_torch.data import DataLoader, ImageFolder, ShardedSampler
     from vtp_tpu_torch.generation import VTPTokenizer, compute_latent_stats
+    from vtp_tpu_torch.parallel.mesh import data_mesh_from_env
+
+    mesh = data_mesh_from_env(args.device)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        args.shard, args.num_shards = dist.get_rank(), dist.get_world_size()
 
     tokenizer = VTPTokenizer.from_checkpoint(
         args.model_path, device=args.device, img_size=args.image_size,
@@ -100,6 +110,10 @@ def main(argv: Optional[List[str]] = None) -> str:
     extract_latent_shards(tokenizer, batches, output_dir, rank=args.shard,
                           shard_size=args.shard_size, total=len(sampler))
 
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
     if args.shard == 0:
         mean, _ = compute_latent_stats(output_dir)
         print(f"Latent stats saved to {output_dir} "

@@ -14,6 +14,11 @@ from the latest, and, unlike the JAX CLI, which restarts the data stream,
 skips the batches the saved steps took (``LatentShardDataset.batches``'
 ``skip``), so a resumed step equals the uninterrupted run's.
 
+Under ``torchrun`` the step is data-parallel over every rank (the JAX CLI's
+mesh over all devices, :118-145): a replicated state, each rank reading the
+same global batch and running its rows, the gradients summed in one
+collective; rank 0 logs and writes the checkpoints.
+
     python -m vtp_tpu_torch.tools.train_dit --latent_dir ./latents_out/latents/vtp-l/... \\
         --preset DiT-XL/1 --batch_size 1024 --steps 100000 --out ./dit_ckpt [--device cpu]
 """
@@ -96,8 +101,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         accum_steps=args.accum_steps, accum_dtype=args.accum_dtype,
         moment_dtype=args.moment_dtype,
     )
-    if args.batch_size % args.accum_steps:
-        raise SystemExit("batch_size must divide by accum_steps")
+    from vtp_tpu_torch.parallel.mesh import data_mesh_from_env
+    from vtp_tpu_torch.parallel.multihost import host_shard_info
+
+    mesh = data_mesh_from_env(args.device)
+    world = host_shard_info()[1]
+    if args.batch_size % (args.accum_steps * world):
+        raise SystemExit(f"batch_size must divide by accum_steps x ranks "
+                         f"({args.accum_steps} x {world})")
+    main_rank = host_shard_info()[0] == 0
 
     state = init_dit_state(cfg, tcfg, torch.Generator(device=args.device).manual_seed(args.seed),
                            device=args.device)
@@ -105,8 +117,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.resume and latest_train_state_step(args.out) is not None:
         state = restore_train_state(args.out, state)
         start_step = state.step
-        print(f"resumed from step {start_step}")
-    step_fn = build_dit_train_step(cfg, tcfg)
+        if main_rank:
+            print(f"resumed from step {start_step}")
+    step_fn = build_dit_train_step(cfg, tcfg, mesh)
 
     ds = LatentShardDataset(args.latent_dir, latent_norm=True, seed=args.seed,
                             device=args.device)
@@ -123,14 +136,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             y = y.reshape(accum, -1)
         state, metrics = step_fn(state, z, y, step_generator(args.seed, step, args.device))
         history.append(metrics)  # device scalars: read at a log step or at the end
-        if (step + 1) % args.log_every == 0:
+        if main_rank and (step + 1) % args.log_every == 0:
             rate = args.log_every * args.batch_size / (time.time() - t0)
             print(f"step {step + 1}: loss {float(metrics['loss/transport']):.4f} "
                   f"(mse {float(metrics['loss/mse']):.4f}) {rate:.0f} img/s", flush=True)
             t0 = time.time()
         if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
             save_train_state(args.out, state, block=False)
-            print(f"saved checkpoint at step {step + 1}", flush=True)
+            if main_rank:
+                print(f"saved checkpoint at step {step + 1}", flush=True)
 
     wait_for_checkpoints()
     return {"state": state, "start_step": start_step,

@@ -9,9 +9,20 @@ given, so that a run may stop short of its schedule and be resumed to it)
 and the cuts for small runs ``--depth`` (every tower's depth) and
 ``--dino_out_dim`` / ``--dino_hidden_dim`` / ``--dino_bottleneck_dim``. ``--unroll_layers``,
 ``--unroll_chunk`` and ``--num_workers`` with ``--synthetic`` change nothing
-(the depth loop is a Python loop). ``--mesh``, ``--context_parallel``,
-``--pipeline_parallel``, ``--sequence_parallel`` and ``--tp_head_major``
-exit: the parallel layouts are not ported.
+(the depth loop is a Python loop).
+
+Under ``torchrun`` the run spreads over every rank (NCCL on the card, gloo
+with ``--device cpu``): ``--mesh DATA,MODEL`` (default: every rank on the
+data axis) with ``--tp_head_major`` (the trunk stored head-major for the
+model axis) and ``--sequence_parallel``, checked as the JAX CLI checks them
+(:274-315); ``drop_shards`` is the data axis. Every rank builds the same
+global batch and takes its rows; rank 0 logs and writes the checkpoints,
+which hold the gathered state in its stored layout.
+``--context_parallel`` and ``--pipeline_parallel`` above 1 exit: they are
+not ported.
+
+    torchrun --nproc_per_node 4 -m vtp_tpu_torch.tools.train_vtp --synthetic \
+        --mesh 2,2 --tp_head_major --sequence_parallel --steps 20
 
 CLIP captions are "a photo of a {class}", tokenized once per class; when
 the BPE vocab is absent they are deterministic pseudo-captions, as in the
@@ -41,9 +52,8 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-# each parallel flag with its default: any other value exits
-NOT_PORTED = {"mesh": None, "context_parallel": 1, "pipeline_parallel": 1,
-              "sequence_parallel": False, "tp_head_major": False}
+# each unported parallel flag with its default: any other value exits
+NOT_PORTED = {"context_parallel": 1, "pipeline_parallel": 1}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -79,9 +89,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--unroll_layers", action="store_true", help="accepted; changes nothing")
     p.add_argument("--unroll_chunk", type=int, default=0, help="accepted; changes nothing")
     p.add_argument("--num_workers", type=int, default=8)
-    p.add_argument("--sequence_parallel", action="store_true", help="not ported")
-    p.add_argument("--mesh", default=None, help="not ported")
-    p.add_argument("--tp_head_major", action="store_true", help="not ported")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="Megatron sequence parallelism over the model axis")
+    p.add_argument("--mesh", default=None,
+                   help="DATA,MODEL: the (data, model) mesh over the torchrun ranks")
+    p.add_argument("--tp_head_major", action="store_true",
+                   help="store the trunk's qkv head-major for the model axis")
     p.add_argument("--context_parallel", type=int, default=1, help="not ported")
     p.add_argument("--cp_mode", default="auto", choices=["auto", "ring", "ulysses"])
     p.add_argument("--pipeline_parallel", type=int, default=1, help="not ported")
@@ -243,9 +256,22 @@ def main(argv: Optional[List[str]] = None) -> Dict:
              and getattr(args, n) != default]
     if asked:
         raise SystemExit(f"{', '.join(asked)}: not ported (the parallel layouts)")
-    if args.batch_size % args.accum_steps:
-        raise SystemExit(f"global batch {args.batch_size} must divide by accum_steps "
-                         f"{args.accum_steps}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.mesh:
+        n_data, n_model = (int(x) for x in args.mesh.split(","))
+    else:
+        n_data, n_model = world, 1
+    if args.sequence_parallel and n_model <= 1:
+        raise SystemExit("--sequence_parallel needs a model axis > 1 (--mesh DATA,MODEL); it "
+                         "would silently no-op on this mesh")
+    if args.tp_head_major and n_model <= 1:
+        raise SystemExit("--tp_head_major needs a model axis > 1 (--mesh DATA,MODEL); the "
+                         "canonical layout is already optimal single-rank")
+    if args.batch_size % (args.accum_steps * n_data):
+        raise SystemExit(f"global batch {args.batch_size} must divide by accum_steps x data "
+                         f"axis ({args.accum_steps} x {n_data})")
+    if (args.mesh or world > 1) and n_data * n_model != world:
+        raise SystemExit(f"mesh {n_data}x{n_model} != {world} ranks")
 
     import torch
 
@@ -256,10 +282,22 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         wait_for_checkpoints,
     )
     from vtp_tpu_torch.convert import save_hf_checkpoint
+    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.parallel.multihost import init_distributed, is_main_process
     from vtp_tpu_torch.tools.train_dit import step_generator
     from vtp_tpu_torch.train.step import TrainConfig, build_train_step, init_state
 
     cfg = load_config(args)
+    if args.tp_head_major and cfg.vision_num_heads % n_model:
+        raise SystemExit(f"--tp_head_major: vision_num_heads {cfg.vision_num_heads} % model "
+                         f"{n_model} != 0")
+    mesh = None
+    if args.mesh or world > 1:
+        if "RANK" not in os.environ:
+            raise SystemExit("--mesh runs under torchrun (RANK and WORLD_SIZE unset)")
+        init_distributed(args.device)
+        mesh = make_mesh(n_data, n_model, device=args.device)
+    main_rank = is_main_process()
     objectives = set(args.objectives.split(","))
     tcfg = TrainConfig(
         train_clip="clip" in objectives, train_ssl="ssl" in objectives,
@@ -272,15 +310,17 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         unroll_layers=(args.unroll_chunk or args.unroll_layers),
         accum_steps=args.accum_steps, moment_dtype=args.moment_dtype,
         dino_out_dim=args.dino_out_dim, dino_hidden_dim=args.dino_hidden_dim,
-        dino_bottleneck_dim=args.dino_bottleneck_dim,
+        dino_bottleneck_dim=args.dino_bottleneck_dim, drop_shards=n_data,
+        sequence_parallel=args.sequence_parallel,
+        tp_head_major=n_model if args.tp_head_major else 1,
     )
     state = init_state(cfg, tcfg, torch.Generator(device=args.device).manual_seed(args.seed),
-                       device=args.device)
+                       device=args.device, mesh=mesh)
     start_step = 0
     # the head-major qkv layout is shape-identical to the canonical one, so
     # a sidecar records the layout a run was started with
     meta_path = os.path.join(args.out, "train_meta.json")
-    want_hm = cfg.vision_qkv_head_major
+    want_hm = state.model.config.vision_qkv_head_major
     if args.resume and latest_train_state_step(args.out) is not None:
         if os.path.exists(meta_path):
             with open(meta_path) as f:
@@ -290,9 +330,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                  f"qkv_head_major={saved_hm}, this run has {want_hm}")
         state = restore_train_state(args.out, state)
         start_step = state.step
-        print(f"[train_vtp] resumed from step {start_step}")
+        if main_rank:
+            print(f"[train_vtp] resumed from step {start_step}")
 
-    step_fn = build_train_step(cfg, tcfg)
+    step_fn = build_train_step(cfg, tcfg, mesh)
     n_patches = (cfg.image_size // cfg.vision_patch_size) ** 2
     batches = (synthetic_batches if args.synthetic else folder_batches)(
         args, cfg, n_patches, start_step=start_step)
@@ -300,9 +341,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                             ("rec_image", not tcfg.train_reconstruction),
                             ("ssl", not tcfg.train_ssl)) if on]
 
-    os.makedirs(args.out, exist_ok=True)
-    with open(meta_path, "w") as f:
-        json.dump({"qkv_head_major": want_hm}, f)
+    if main_rank:
+        os.makedirs(args.out, exist_ok=True)
+        with open(meta_path, "w") as f:
+            json.dump({"qkv_head_major": want_hm}, f)
     history = []
     t0, imgs = time.time(), 0
     for step in range(start_step, args.steps):
@@ -312,7 +354,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         state, metrics = step_fn(state, batch, step_generator(args.seed, step, args.device))
         history.append(metrics)  # device scalars: read at a log step or at the end
         imgs += args.batch_size
-        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+        if main_rank and ((step + 1) % args.log_every == 0 or step + 1 == args.steps):
             m = {k: float(v) for k, v in metrics.items()}
             losses = " ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in m.items())
             print(f"[train_vtp] step {step + 1}/{args.steps} {imgs / (time.time() - t0):.1f} "
@@ -322,13 +364,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             t0, imgs = time.time(), 0
         if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
             save_train_state(args.out, state, block=False)
-            print(f"[train_vtp] checkpoint @ step {step + 1} -> {args.out}", flush=True)
+            if main_rank:
+                print(f"[train_vtp] checkpoint @ step {step + 1} -> {args.out}", flush=True)
 
     wait_for_checkpoints()
     if args.export_hf:
         export_dir = os.path.join(args.out, "hf_export")
         save_hf_checkpoint(export_dir, state.model)
-        print(f"[train_vtp] HF-layout export -> {export_dir}")
+        if main_rank:
+            print(f"[train_vtp] HF-layout export -> {export_dir}")
     return {"state": state, "start_step": start_step,
             "metrics": [{k: float(v) for k, v in m.items()} for m in history]}
 

@@ -22,15 +22,23 @@ Every leaf of the JAX package's parameter tree is a leaf here, RoPE
 hands them to this optimizer as leaves so they are treated alike; in
 bf16 the decay step (lr*wd <= 4e-5 relative) is below half an ulp and
 leaves them unchanged, as in the JAX package.
+
+Under a mesh the leaves may be rank-local slabs (tensor-parallel weights,
+FSDP shards); AdamW is elementwise, and the clip's global norm sums the
+squares of each sharded leaf over the axes it is sharded on and counts
+each replicated leaf once (``global_norm_sq``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from vtp_tpu_torch.parallel.mesh import AxisGroup
 
 # The host-driven gradient accumulators' storage dtypes (``accum_dtype``)
 ACCUM_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -76,6 +84,41 @@ def accumulate_grads(g_sum: Sequence[torch.Tensor],
             a.copy_(a.float() + b.float())
 
 
+def all_reduce_flat(tensors: Sequence[torch.Tensor], axis: AxisGroup) -> List[torch.Tensor]:
+    """Each tensor summed over ``axis``, in one all-reduce a dtype (the
+    tensors flattened into one buffer); new tensors, in order."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=axis.group)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+    return out
+
+
+def global_norm_sq(grads: Dict[str, torch.Tensor],
+                   sharded_over: Dict[str, Tuple[AxisGroup, ...]]) -> torch.Tensor:
+    """The squared global norm of gradients some of which are slabs: the
+    leaves sharded over the same axes sum their squares, all-reduced over
+    those axes; replicated leaves (absent from ``sharded_over``) count once."""
+    parts: Dict[Tuple, List[torch.Tensor]] = {}
+    for n, g in grads.items():
+        parts.setdefault(tuple(sharded_over.get(n, ())), []).append(g.float().square().sum())
+    total = None
+    for axes, sums in parts.items():
+        s = torch.stack(sums).sum()
+        for axis in axes:
+            dist.all_reduce(s, group=axis.group)
+        total = s if total is None else total + s
+    return total
+
+
 class AdamW:
     """clip_by_global_norm -> AdamW over named leaves. With fp32 moments the
     moment of a leaf has the leaf's dtype, as ``optax.adamw`` gives it; with
@@ -107,13 +150,20 @@ class AdamW:
         return warmup_cosine_lr(self.count if count is None else count, *self.lr_args)
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    def step(self, grads: Dict[str, Optional[torch.Tensor]],
+             norm_sq: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None
+             ) -> torch.Tensor:
         """One update from gradients by leaf name (None or missing = zero).
-        Returns the global norm of the unclipped gradients."""
+        Returns the global norm of the unclipped gradients; ``norm_sq`` (the
+        gradients by name -> their squared global norm) replaces the plain
+        sum of squares when some leaves are slabs."""
         b1, b2, wd = self.b1, self.b2, self.weight_decay
         gs = {n: (grads.get(n) if grads.get(n) is not None else torch.zeros_like(p))
               for n, p in self.leaves.items()}
-        norm = torch.sqrt(sum(g.float().square().sum() for g in gs.values()))
+        if norm_sq is None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in gs.values()))
+        else:
+            norm = torch.sqrt(norm_sq(gs))
         keep = norm < self.grad_clip
         f = np.float32
         count = self.count + 1

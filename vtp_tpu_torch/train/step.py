@@ -26,14 +26,36 @@ the gradient sums add in fp32 and are stored in ``accum_dtype``, grads and
 metrics are averaged over the microbatches before the one update, and the
 centers move by statistics pooled over them. In fp32 this equals the JAX
 package's in-jit scan bit for bit (its sums start from the first
-microbatch's gradients; 0 + g = g). Sequence and pipeline parallelism,
-``drop_shards > 1`` and the head-major TP layout raise
-``NotImplementedError``.
+microbatch's gradients; 0 + g = g).
+
+``build_train_step(cfg, tcfg, mesh)`` runs the step over a ``(data, model)``
+DeviceMesh (``parallel.mesh.make_mesh``) on a state that ``init_state(...,
+mesh=mesh)`` or ``distribute_state`` spread over it; every rank passes the
+same global batch and generator (or draws), as the JAX step takes global
+arrays. The semantics are the JAX step's under GSPMD:
+
+  * data parallelism: each rank takes its rows (``shard_train_batch``; the
+    SSL crops by image, the iBOT indices re-based), every loss is the
+    rank's share of the global-batch loss (``train/losses.py``), the
+    gradients are summed over ``data`` in one explicit collective after
+    accumulation (the step differentiates with ``torch.autograd.grad``, so
+    no DDP or FSDP2 hook would run), the center statistics and the metrics
+    are summed too; drop-path draws its subsets over the global batch with
+    ``drop_shards``' keep counts and each rank runs the kept rows in its shard;
+  * tensor (and sequence) parallelism: the towers hold their slabs
+    (``parallel.sharding.parallelize_model``), ``tp_head_major`` stores the
+    trunk head-major (it must equal the model axis);
+  * FSDP: a state that ``parallel.fsdp.shard_state`` sharded reduce-scatters
+    its sharded gradients and all-gathers the updated slabs.
+
+The grad norm is global: sharded leaves sum their squares over their axes.
+Pipeline parallelism raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -51,7 +73,15 @@ from vtp_tpu_torch.train.losses import (
     siglip_loss,
     update_center,
 )
-from vtp_tpu_torch.train.optim import ACCUM_DTYPES, AdamW, accumulate_grads
+from vtp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group, mesh_axis_size
+from vtp_tpu_torch.parallel.sharding import all_reduce_, parallelize_model, shard_batch
+from vtp_tpu_torch.train.optim import (
+    ACCUM_DTYPES,
+    AdamW,
+    accumulate_grads,
+    all_reduce_flat,
+    global_norm_sq,
+)
 from vtp_tpu_torch.train.state import (
     TrainState,
     ema_update,
@@ -67,8 +97,8 @@ BRANCH_DROP = {"clip": "clip_drop_rate", "rec": "rec_drop_rate", "ssl": "ssl_dro
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """A copy of the JAX package's ``TrainConfig`` (same fields and
-    defaults); the parallel options, which the port does not run, raise in
-    ``check_supported``."""
+    defaults); ``pipeline_stages > 1``, which the port does not run, raises
+    in ``check_supported``."""
 
     train_clip: bool = True
     train_ssl: bool = True
@@ -115,21 +145,35 @@ class TrainConfig:
         return {None: None, "bf16": torch.bfloat16, "fp32": None}[self.compute_dtype]
 
 
-def check_supported(cfg: VTPConfig, tcfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every option the port does not run
-    (the parallel layouts), ``ValueError`` for an unknown ``accum_dtype``."""
-    unported = {
-        "sequence_parallel": tcfg.sequence_parallel,
-        "pipeline_stages > 1": tcfg.pipeline_stages > 1,
-        "tp_head_major > 1": tcfg.tp_head_major > 1,
-        "vision_qkv_head_major > 1 (training a head-major model)": cfg.vision_qkv_head_major > 1,
-        "drop_shards > 1": tcfg.drop_shards > 1,
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported: {', '.join(asked)}")
+def check_supported(cfg: VTPConfig, tcfg: TrainConfig, mesh=None) -> None:
+    """Raise ``NotImplementedError`` for pipeline stages (not ported),
+    ``ValueError`` for an unknown ``accum_dtype`` and for the JAX step's
+    head-major checks (:272-282): ``tp_head_major`` must divide the trunk's
+    heads, agree with the config's declared layout and, on a mesh, equal
+    its model axis."""
+    if tcfg.pipeline_stages > 1:
+        raise NotImplementedError("not ported: pipeline_stages > 1")
     if tcfg.accum_dtype not in ACCUM_DTYPES:
         raise ValueError(f"unknown accum_dtype {tcfg.accum_dtype!r} (use 'fp32' or 'bf16')")
+    hm = tcfg.tp_head_major
+    if hm > 1:
+        if cfg.vision_num_heads % hm:
+            raise ValueError(f"tp_head_major={hm} must divide vision_num_heads="
+                             f"{cfg.vision_num_heads}")
+        if cfg.vision_qkv_head_major not in (1, hm):
+            raise ValueError(f"tp_head_major={hm} conflicts with the model config's declared "
+                             f"layout vision_qkv_head_major={cfg.vision_qkv_head_major}")
+        if mesh is not None and mesh_axis_size(mesh, MODEL_AXIS) != hm:
+            raise ValueError(f"tp_head_major={hm} must equal the mesh's model axis "
+                             f"({mesh_axis_size(mesh, MODEL_AXIS)})")
+
+
+def train_model_config(cfg: VTPConfig, tcfg: TrainConfig) -> VTPConfig:
+    """The config of the trained model: ``tp_head_major`` stores a canonical
+    trunk head-major (JAX ``init_train_params`` :182-189)."""
+    if tcfg.tp_head_major > 1 and cfg.vision_qkv_head_major == 1:
+        return cfg.replace(vision_qkv_head_major=tcfg.tp_head_major)
+    return cfg
 
 
 def dino_head_config(cfg: VTPConfig, tcfg: TrainConfig) -> DinoHeadConfig:
@@ -163,17 +207,114 @@ def init_train_modules(cfg: VTPConfig, tcfg: TrainConfig,
 
 
 def init_state(cfg: VTPConfig, tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
-               device="cuda") -> TrainState:
-    """``init_train_modules``' student, a teacher copied from it, zero
-    moments and zero centers."""
-    check_supported(cfg, tcfg)
-    model, head = init_train_modules(cfg, tcfg, generator, device)
+               device="cuda", mesh=None) -> TrainState:
+    """``init_train_modules``' student (its trunk head-major under
+    ``tp_head_major``, permuted from the same canonical init), a teacher
+    copied from it, zero moments and zero centers; spread over ``mesh``
+    (``distribute_state``) when one is given. Every rank draws the same
+    weights from the same seed."""
+    check_supported(cfg, tcfg, mesh)
+    model, head = init_train_modules(train_model_config(cfg, tcfg), tcfg, generator, device)
     optimizer = make_optimizer(train_leaves(model, head), tcfg)
     teacher = centers = None
     if head is not None:
         teacher = make_teacher(model, head)
         centers = [torch.zeros(tcfg.dino_out_dim, device=device) for _ in range(2)]
-    return TrainState(model, head, optimizer, teacher, *(centers or (None, None)))
+    state = TrainState(model, head, optimizer, teacher, *(centers or (None, None)))
+    return state if mesh is None else distribute_state(state, tcfg, mesh)
+
+
+def distribute_state(state: TrainState, tcfg: TrainConfig, mesh) -> TrainState:
+    """Spread a whole (one-process) train state over ``mesh`` in place: the
+    student and the teacher tensor-parallelized over its model axis (at any
+    size, 1 included), the optimizer rebuilt over the student's slabs with
+    its moments sliced alike. Data parallelism needs nothing of the state;
+    FSDP is ``parallel.fsdp.shard_state`` after this. Returns the state."""
+    check_supported(state.model.config, tcfg, mesh)
+    extra = [state.teacher] if state.teacher is not None else []
+    parallelize_model(state.model, mesh, head_major=tcfg.tp_head_major > 1,
+                      sequence_parallel=tcfg.sequence_parallel, also=extra)
+    layout = state.model.shard_layout
+    old = state.optimizer
+    opt = make_optimizer(train_leaves(state.model, state.dino_head), tcfg)
+    with torch.no_grad():
+        for moments, src in ((opt.mu, old.mu), (opt.nu, old.nu)):
+            for n, m in moments.items():
+                full = src[n]
+                m.copy_(layout.slab(n, full) if layout.is_sharded(n, full.ndim) else full)
+    opt.count = old.count
+    state.optimizer = opt
+    state.layout = layout
+    return state
+
+
+def _shard_rows(x: torch.Tensor, data, images: int) -> torch.Tensor:
+    """A crop tensor of ``views`` x ``images`` rows (view-major, as the SSL
+    crops are laid out) -> this data shard's images of every view."""
+    b = images // data.size
+    views = x.shape[0] // images
+    lo = data.rank * b
+    return x.reshape(views, images, *x.shape[1:])[:, lo:lo + b].reshape(views * b, *x.shape[1:])
+
+
+def _local_rows(idx: torch.Tensor, data, images: int) -> torch.Tensor:
+    """Rows ``idx`` of a view-major crop tensor of ``images`` images -> the
+    ones of this data shard's images, as rows of its ``_shard_rows``."""
+    b = images // data.size
+    view, img = idx // images, idx % images
+    keep = (img >= data.rank * b) & (img < (data.rank + 1) * b)
+    return (view * b + img - data.rank * b)[keep]
+
+
+def shard_train_batch(batch: Dict[str, Any], mesh, n_global_crops: int = 2) -> Dict[str, Any]:
+    """This data shard's part of a global batch (one microbatch): the rows
+    of ``image``, ``text`` and ``rec_image``; of ``ssl``, every crop of its
+    images (``global_crops`` / ``masks`` / ``local_crops`` are view-major)
+    and the iBOT entries that fall on them, their token indices re-based."""
+    data = axis_group(mesh, DATA_AXIS)
+    out = {}
+    for k, v in batch.items():
+        if k != "ssl":
+            out[k] = shard_batch(v, mesh)
+            continue
+        images = v["global_crops"].shape[0] // n_global_crops
+        if images % data.size:
+            raise ValueError(f"ssl: {images} images do not divide over the data axis "
+                             f"({data.size} shards)")
+        n_patches = v["masks"].shape[1]
+        row, patch = v["mask_indices"] // n_patches, v["mask_indices"] % n_patches
+        b = images // data.size
+        keep = (row % images) // b == data.rank
+        out[k] = {"global_crops": _shard_rows(v["global_crops"], data, images),
+                  "local_crops": _shard_rows(v["local_crops"], data, images),
+                  "masks": _shard_rows(v["masks"], data, images),
+                  "mask_indices": _local_rows(row, data, images) * n_patches + patch[keep],
+                  "mask_weight": v["mask_weight"][keep]}
+    return out
+
+
+def shard_draws(draws: Dict[str, Dict[str, list]], batch: Dict[str, Any], data,
+                n_global_crops: int = 2) -> Dict[str, Dict[str, list]]:
+    """A global batch's draws (one microbatch) -> this data shard's: the
+    RoPE factors as they are; each drop-path subset cut to the shard's rows
+    (``_local_rows``), with ``drop_scale``, the global subset's b / keep."""
+    out = {}
+    for name, d in draws.items():
+        if "drop" not in d:
+            out[name] = d
+            continue
+        if name == "ssl":
+            crops = [batch["ssl"]["global_crops"], batch["ssl"]["local_crops"]]
+            images = crops[0].shape[0] // n_global_crops
+        else:
+            crops = [batch["image" if name == "clip" else "rec_image"]]
+            images = crops[0].shape[0]
+        rows = [c.shape[0] for c in crops] * 2
+        out[name] = dict(d, drop=[[_local_rows(ix, data, images) for ix in layer]
+                                  for layer in d["drop"]],
+                         drop_scale=[[r / ix.numel() for r, ix in zip(rows, layer)]
+                                     for layer in d["drop"]])
+    return out
 
 
 def make_ssl_batch(generator: torch.Generator, batch: int, *, global_size: int = 256,
@@ -217,9 +358,10 @@ def _micro(batch: Dict[str, Any], i: int) -> Dict[str, Any]:
     return {k: _micro(v, i) if isinstance(v, dict) else v[i] for k, v in batch.items()}
 
 
-def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
+def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
     """Returns ``train_step(state, batch, generator=None, draws=None) ->
-    (state, metrics)``, which updates ``state`` in place.
+    (state, metrics)``, which updates ``state`` in place; over ``mesh``
+    (every rank passing the same global batch) when one is given.
 
     batch keys (each objective runs when its keys are present), with a
     leading (accum_steps,) axis on every leaf when ``accum_steps > 1``:
@@ -234,7 +376,9 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
 
     Attributes: ``sample_draws(generator, batch)``, ``micro_step``,
     ``zero_accumulators``, ``apply_accum`` and ``objective_grad_norms``."""
-    check_supported(cfg, tcfg)
+    check_supported(cfg, tcfg, mesh)
+    data = axis_group(mesh, DATA_AXIS)
+    model_axis = axis_group(mesh, MODEL_AXIS)
     cdt = tcfg.torch_compute_dtype
     remat = tcfg.remat
     use_bn_for_ssl = not cfg.vision_bottleneck_ae_only
@@ -271,7 +415,7 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
             else:
                 crops = [batch["image" if name == "clip" else "rec_image"]]
             out[name] = trunk.sample_draws(generator, [c.shape[0] for c in crops],
-                                           getattr(tcfg, BRANCH_DROP[name]))
+                                           getattr(tcfg, BRANCH_DROP[name]), tcfg.drop_shards)
         return out
 
     def resolve_draws(state, batch, generator, draws):
@@ -282,13 +426,17 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
                              "pass a generator or draws")
         return sample_draws(state, generator, batch)
 
+    def share(loss):
+        """A data shard's mean -> its share of the global-batch mean."""
+        return loss if data is None else loss / data.size
+
     def clip_branch(model: VTPModel, image, text, draws):
         img = l2_normalize(model.clip_image_embedding(image, cdt, **trunk_kw("clip", draws)))
         t_out = model.text(text, compute_dtype=cdt, remat=remat)
         txt = l2_normalize(t_out[0] if isinstance(t_out, tuple) else t_out)
         if model.logit_bias is not None:
-            return siglip_loss(img, txt, model.logit_scale, model.logit_bias)
-        return clip_loss(img, txt, model.logit_scale)
+            return siglip_loss(img, txt, model.logit_scale, model.logit_bias, data=data)
+        return clip_loss(img, txt, model.logit_scale, data=data)
 
     def rec_branch(model: VTPModel, image, draws):
         _, _, H, W = image.shape
@@ -296,7 +444,7 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
                                            **trunk_kw("rec", draws))
         latents = patch_tokens_to_4d(out["x_norm_patchtokens"], H // p, W // p)
         rec = model.pixel_decoder(latents, compute_dtype=cdt, remat=remat)
-        return reconstruction_loss(rec, image, loss_type=tcfg.rec_loss_type)
+        return share(reconstruction_loss(rec, image, loss_type=tcfg.rec_loss_type))
 
     def ssl_branch(state: TrainState, ssl, draws):
         teacher = state.teacher
@@ -329,23 +477,42 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         s_patch = s_global["x_norm_patchtokens"].reshape(-1, s_g_cls.shape[-1])
         s_masked_head = head(s_patch[ssl["mask_indices"]])
         temps = dict(student_temp=tcfg.student_temp, teacher_temp=tcfg.teacher_temp)
-        l_dino_g = dino_loss(s_g_head, t_cls_head, state.dino_center, **temps)
+        l_dino_g = share(dino_loss(s_g_head, t_cls_head, state.dino_center, **temps))
         # the locals target t_cls_head[:bc], tiled: after the crop swap that is
         # the teacher on the second global crop (as the JAX step computes it)
         n_local = s_l_head.shape[0] // bc
-        l_dino_l = dino_loss(s_l_head, t_cls_head[:bc].repeat(n_local, 1), state.dino_center,
-                             **temps)
+        l_dino_l = share(dino_loss(s_l_head, t_cls_head[:bc].repeat(n_local, 1),
+                                   state.dino_center, **temps))
+        weight_sum = None
+        if data is not None:
+            weight_sum = all_reduce_(ssl["mask_weight"].float().sum(), data)
         l_ibot = ibot_loss(s_masked_head, t_masked_head, state.ibot_center, ssl["mask_weight"],
-                           **temps)
-        l_koleo = koleo_loss(s_g_cls)
+                           weight_sum=weight_sum, **temps)
+        l_koleo = koleo_loss(s_g_cls, data=data)
         return l_dino_g + l_dino_l, l_ibot, l_koleo, (t_cls_head, t_masked_head)
 
     def trained(state: TrainState) -> List[str]:
         return [n for n, t in state.optimizer.leaves.items() if t.requires_grad]
 
+    def params(state: TrainState, names: Sequence[str]) -> List[torch.Tensor]:
+        """The tensors the forward reads for trained leaves ``names`` (an FSDP
+        state's optimizer holds slabs of them)."""
+        full = state.fsdp.full if getattr(state, "fsdp", None) is not None else {}
+        return [full.get(n, state.optimizer.leaves[n]) for n in names]
+
+    def localize(batch: Dict[str, Any], draws):
+        """This data shard's part of a global microbatch and its draws."""
+        if data is None:
+            return batch, draws
+        return (shard_train_batch(batch, mesh, tcfg.n_global_crops),
+                shard_draws(draws, batch, data, tcfg.n_global_crops))
+
     def loss_and_grads(state: TrainState, batch: Dict[str, Any], draws):
         """One microbatch's gradients (by ``trained`` leaf; None where a leaf
-        gets none), its detached metrics and the teacher heads (or None)."""
+        gets none), its detached metrics (summed over the data axis), the
+        teacher heads (or None) and the SSL batch they ran on. Over a mesh,
+        ``batch`` and ``draws`` are global and the gradients this rank's."""
+        batch, draws = localize(batch, draws)
         model = state.model
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -364,15 +531,50 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
             total = (total + tcfg.dino_weight * l_dino + tcfg.ibot_weight * l_ibot
                      + tcfg.koleo_weight * l_koleo)
         metrics["loss/total"] = total
-        leaves = state.optimizer.leaves
-        grads = torch.autograd.grad(total, [leaves[n] for n in trained(state)],
-                                    allow_unused=True)
-        return list(grads), {k: v.detach() for k, v in metrics.items()}, aux
+        names = trained(state)
+        grads = torch.autograd.grad(total, params(state, names), allow_unused=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data is not None:
+            metrics = dict(zip(metrics, all_reduce_flat(list(metrics.values()), data)))
+        return list(grads), metrics, aux, batch.get("ssl")
+
+    def sharded_over(state: TrainState) -> Dict[str, tuple]:
+        """The axes each sharded trained leaf is split over (for the norm)."""
+        layout = getattr(state, "layout", None)
+        out = {}
+        for n, t in state.optimizer.leaves.items():
+            spec = layout.spec(n, t.ndim) if layout is not None else ()
+            axes = tuple(g for a, g in ((MODEL_AXIS, model_axis), (DATA_AXIS, data)) if a in spec)
+            if axes:
+                out[n] = axes
+        return out
+
+    def reduce_grads(state: TrainState, grads: Sequence[Optional[torch.Tensor]]):
+        """The gradients summed over the data axis (an FSDP state's sharded
+        ones reduce-scattered to its slabs); a leaf without one on this rank
+        contributes zeros."""
+        names = trained(state)
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, params(state, names))]
+        if getattr(state, "fsdp", None) is not None:
+            return state.fsdp.reduce_grads(names, grads)
+        return all_reduce_flat(grads, data)
+
+    def reduce_center_stats(stats):
+        return stats if data is None else tuple(all_reduce_flat(list(stats), data))
 
     def finish(state: TrainState, grads: Sequence[Optional[torch.Tensor]],
                metrics: Dict[str, torch.Tensor], centers) -> Tuple[TrainState, Dict]:
-        """The optimizer step, the teacher EMA and ``centers(state)``."""
-        metrics["grad_norm"] = state.optimizer.step(dict(zip(trained(state), grads)))
+        """The data-axis gradient sum, the optimizer step, the teacher EMA
+        and ``centers(state)``."""
+        fsdp = getattr(state, "fsdp", None)
+        norm_sq = None
+        if mesh is not None:
+            grads = reduce_grads(state, grads)
+            norm_sq = functools.partial(global_norm_sq, sharded_over=sharded_over(state))
+        metrics["grad_norm"] = state.optimizer.step(dict(zip(trained(state), grads)), norm_sq)
+        if fsdp is not None:
+            fsdp.gather_params(state.optimizer.leaves)
         state.step += 1
         if state.teacher is not None:
             ema_update(state.teacher, student_parts(state.model, state.dino_head),
@@ -385,8 +587,7 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         axis): gradient sums, zeros in ``accum_dtype`` by ``trained`` leaf;
         fp32 zero metric sums, their keys from the same conditions as the
         loss; the center statistics' sums (None without SSL)."""
-        leaves = state.optimizer.leaves
-        g_sum = [torch.zeros_like(leaves[n], dtype=adt) for n in trained(state)]
+        g_sum = [torch.zeros_like(p, dtype=adt) for p in params(state, trained(state))]
         names = {"clip": ["loss/clip"], "rec": ["loss/rec"],
                  "ssl": ["loss/dino", "loss/ibot", "loss/koleo"]}
         device = g_sum[0].device
@@ -406,12 +607,12 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         gradients in fp32, stored in their dtype; metrics and center
         statistics in fp32. Returns (g_sum, m_sum, c_sum)."""
         draws = resolve_draws(state, micro, generator, draws)
-        g, m, aux = loss_and_grads(state, micro, draws)
+        g, m, aux, ssl = loss_and_grads(state, micro, draws)
         accumulate_grads(g_sum, g)
         del g
         m_sum = {k: m_sum[k] + m[k] for k in m_sum}
         if aux is not None:
-            c_sum = tuple(a + b for a, b in zip(c_sum, _center_stats(aux, micro["ssl"])))
+            c_sum = tuple(a + b for a, b in zip(c_sum, _center_stats(aux, ssl)))
         return g_sum, m_sum, c_sum
 
     def apply_accum(state: TrainState, g_sum, m_sum, c_sum):
@@ -424,29 +625,35 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         def centers(st):
             if c_sum is None:
                 return
-            cls_sum, cls_n, masked_sum, w_sum = c_sum
-            m_c = tcfg.center_momentum
-            st.dino_center = (m_c * st.dino_center
-                              + (1.0 - m_c) * cls_sum / torch.clamp(cls_n, min=1.0))
-            st.ibot_center = (m_c * st.ibot_center
-                              + (1.0 - m_c) * masked_sum / torch.clamp(w_sum, min=1.0))
+            pooled_centers(st, reduce_center_stats(c_sum))
 
         return finish(state, grads, metrics, centers)
+
+    def pooled_centers(st: TrainState, stats) -> None:
+        """The center EMAs from pooled statistics (JAX :513)."""
+        cls_sum, cls_n, masked_sum, w_sum = stats
+        m_c = tcfg.center_momentum
+        st.dino_center = m_c * st.dino_center + (1.0 - m_c) * cls_sum / torch.clamp(cls_n, min=1.0)
+        st.ibot_center = (m_c * st.ibot_center
+                          + (1.0 - m_c) * masked_sum / torch.clamp(w_sum, min=1.0))
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None, draws=None):
         if accum > 1:
             return run_host_accum_step(train_step, tcfg, state, batch, generator, draws)
         draws = resolve_draws(state, batch, generator, draws)
-        grads, metrics, aux = loss_and_grads(state, batch, draws)
+        grads, metrics, aux, ssl = loss_and_grads(state, batch, draws)
 
         def centers(st):
             if aux is None:
                 return
+            if data is not None:
+                pooled_centers(st, reduce_center_stats(_center_stats(aux, ssl)))
+                return
             t_cls_head, t_masked_head = aux
             st.dino_center = update_center(st.dino_center, t_cls_head, tcfg.center_momentum)
             st.ibot_center = update_center(st.ibot_center, t_masked_head, tcfg.center_momentum,
-                                           weight=batch["ssl"]["mask_weight"])
+                                           weight=ssl["mask_weight"])
 
         return finish(state, grads, metrics, centers)
 
@@ -458,12 +665,16 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig):
         diagnostic of what the summed ``grad_norm`` hides, such as the iBOT x
         drop-path zero-row spike. ``batch`` is one microbatch (no accum axis)."""
         draws = resolve_draws(state, batch, generator, draws)
-        leaves = state.optimizer.leaves
-        params = [leaves[n] for n in trained(state)]
+        batch, draws = localize(batch, draws)
+        names = trained(state)
+        leaf_params = params(state, names)
 
         def norm(loss):
-            gs = torch.autograd.grad(loss, params, allow_unused=True)
-            return torch.sqrt(sum(g.float().square().sum() for g in gs if g is not None))
+            gs = torch.autograd.grad(loss, leaf_params, allow_unused=True)
+            if mesh is None:
+                return torch.sqrt(sum(g.float().square().sum() for g in gs if g is not None))
+            gs = reduce_grads(state, gs)
+            return torch.sqrt(global_norm_sq(dict(zip(names, gs)), sharded_over(state)))
 
         model, norms = state.model, {}
         if "clip" in branches(batch):
