@@ -117,6 +117,22 @@
    one-process step at the same gates (an arm whose collectives gloo
    refuses on CUDA tensors is left out and named); launches and peak memory
    of each rank printed;
+4c. context and pipeline parallelism: two spawned ranks share the card over
+   gloo (every collective on ``all_to_all_single``, which gloo carries on
+   CUDA tensors) at VTP-L widths, every depth cut to PAR_DEPTH, global B = 8:
+   the ring (seq 2, mode "ring") and Ulysses (seq 2, mode "ulysses") on
+   ``make_cp_mesh(2, 1)``, the pipeline on ``make_pp_mesh(2, 1)`` with remat
+   off and "full"; each arm's step against the one-process step of the same
+   state, batch and draws at the parallel phase's gates (flip gate
+   included), its launches a rank exactly as ``expected_cp_pp_launches``
+   predicts (CP: the fused forward and backward in the text tower alone;
+   PP: the one-process step's), its collectives its arm's, the two ranks'
+   states equal, peak memory a rank printed; then the ring alone at VTP-L's
+   1024^2 token count (4097, padded to 4098; B = 1, 16 heads of 64, bf16
+   inputs, fp32 math), forward and backward over the two ranks against the
+   one-process plain attention (forward within 5e-2 of max|ref|, gradients
+   within 1e-2), each rank's peak beside the one-process peak. A rank that
+   fails, gloo refusing a collective included, fails the phase;
 5. runs the DiT-XL/1 train step (``init_dit_state``,
    ``build_dit_train_step``; B = 32 latents that ``VTPTokenizer.encode_images``
    makes from seeded random images on the roundtrip's VTP-L model,
@@ -285,6 +301,19 @@ VTP_CLI_DEPTH, VTP_CLI_STEPS, VTP_CLI_CKPT, VTP_CLI_TOTAL = 4, 4, 2, 6
 # the (1, 1) mesh takes PAR_SERVE_ROWS rows a kind in batches of PAR_SERVE_BATCH
 PAR_DEPTH, PAR_BATCH, PAR_DROP, PAR_TIMEOUT_S = 4, 8, 0.1, 400
 PAR_SERVE_ROWS, PAR_SERVE_BATCH = 6, 4
+# The context and pipeline parallel phase (4c): two gloo ranks on the card at
+# VTP-L widths, every depth cut to PAR_DEPTH, a global batch of PAR_BATCH,
+# remat off unless the arm says; each arm (name, mesh kind, mesh shape, cp
+# mode, TrainConfig overrides) with make_cp_mesh(n_seq, n_data) or
+# make_pp_mesh(n_pipe, n_data). Then the ring alone at RING_TOKENS (VTP-L at
+# 1024^2: 64^2 patches and the cls token), padded to the seq axis, B = 1,
+# RING_HEADS heads of RING_HEAD_DIM in bf16
+CPP_ARMS = [("ring_1x2", "cp", (2, 1), "ring", {}),
+            ("ulysses_1x2", "cp", (2, 1), "ulysses", {}),
+            ("pp_2x1", "pp", (2, 1), "auto", {"pipeline_stages": 2}),
+            ("pp_2x1_remat", "pp", (2, 1), "auto", {"pipeline_stages": 2, "remat": "full"})]
+RING_TOKENS, RING_HEADS, RING_HEAD_DIM = 4097, 16, 64
+RING_FWD_REL, RING_GRAD_REL = 5e-2, 1e-2
 # The fused attention at the tensor-parallel ranks' shapes (B, N, H a rank, d):
 # VTP-L's 16 heads at tp = 2 and 4, the forward at the encode's B = 8, the
 # backward at the train step's global crops (B = 16)
@@ -2085,7 +2114,7 @@ def _parallel_config(depth=None):
 def _parallel_train_config(**kw):
     from vtp_tpu_torch.train.step import TrainConfig
 
-    return TrainConfig(warmup_steps=0, total_steps=1000, remat=False, **kw)
+    return TrainConfig(**{"warmup_steps": 0, "total_steps": 1000, "remat": False, **kw})
 
 
 def _parallel_batch(cfg, batch):
@@ -2466,6 +2495,274 @@ def run_parallel(card):
     print(f"parallel: phase in {time.perf_counter() - t0:.1f} s (host clock) on {card}",
           flush=True)
     return totals
+
+
+def expected_cp_pp_launches(cfg, kind, remat):
+    """A rank's launches of one VTP step under CP or PP (``CPP_ARMS``): under
+    CP the trunk and the decoder take the CP arms (no kernel), so the fused
+    forward and backward run in the text tower alone (t each; the forward
+    again under a recomputing policy), the CE 3 + 3; under PP each rank runs
+    its depth / 2 layers on 2 microbatches of every crop, as many launches as
+    the one-process step (``expected_vtp_step_launches`` at one microbatch)."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME
+    from vtp_tpu_torch.ops.fused_ce import BWD_NAME as CE_BWD
+    from vtp_tpu_torch.ops.fused_ce import FWD_NAME as CE_FWD
+
+    if kind == "pp":
+        return expected_vtp_step_launches(cfg, remat, accum=1)[0]
+    t = cfg.text_depth
+    recompute = remat in (True, "full", "dots")
+    return {ARM_NAME[torch.bfloat16]: t * (2 if recompute else 1), BWD_NAME: t, CE_FWD: 3,
+            CE_BWD: 3}
+
+
+def _ring_inputs():
+    """The ring call's seeded bf16 q, k, v and cotangent, (1, N, 16, 64) with
+    N = RING_TOKENS padded to the two ranks."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    n = RING_TOKENS + RING_TOKENS % 2
+    return [torch.randn((1, n, RING_HEADS, RING_HEAD_DIM), generator=gen,
+                       device="cuda").to(torch.bfloat16) for _ in range(4)]
+
+
+def _ring_rank(rank):
+    """This rank's ring attention over its half of ``_ring_inputs``' tokens,
+    forward and backward: its output and gradients, peak memory, hops and
+    host time."""
+    import torch
+
+    from vtp_tpu_torch.ops.ring_attention import ring_attention_local
+    from vtp_tpu_torch.parallel.mesh import SEQ_AXIS, axis_group, make_cp_mesh
+    from vtp_tpu_torch.parallel.sharding import CALLS
+
+    seq = axis_group(make_cp_mesh(2, 1, device="cuda"), SEQ_AXIS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    q, k, v, cot = (t.chunk(2, 1)[rank].contiguous() for t in _ring_inputs())
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    CALLS.clear()
+    t0 = time.perf_counter()
+    o = ring_attention_local(q, k, v, seq, n_valid=RING_TOKENS)
+    (o.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "calls": dict(CALLS),
+            "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+            "out": [t.detach().cpu() for t in (o, q.grad, k.grad, v.grad)]}
+
+
+def _digests(module) -> "torch.Tensor":
+    """Each tensor of ``module``'s state: its sum and its sum of squares in
+    float64, stacked (two ranks whose states agree bit for bit agree here)."""
+    import torch
+
+    return torch.stack([torch.stack([t.double().sum(), t.double().square().sum()])
+                        for t in module.state_dict().values()])
+
+
+def _gloo_cp_pp_rank(rank, root):
+    """One of two ranks sharing the card over gloo (spawned): each arm of
+    ``CPP_ARMS``' VTP step from the seeded state and batch (rank 0 writes its
+    parameters and first moments, both ranks their metrics, launches,
+    collectives, peak memory and how far their states' digests are apart),
+    then the ring call (``_ring_rank``)."""
+    import datetime
+
+    import torch
+
+    from vtp_tpu_torch import _build
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel.mesh import AxisGroup, make_cp_mesh, make_pp_mesh
+    from vtp_tpu_torch.parallel.multihost import init_distributed
+    from vtp_tpu_torch.parallel.sharding import CALLS, _gather_dim
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    torch.cuda.set_device(0)
+    _build.load_library()  # built by the parent: loaded, not rebuilt
+    init_distributed("cuda", backend="gloo", init_method=f"file://{root}/store_cpp", rank=rank,
+                     world_size=2, timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    world = AxisGroup("world", torch.distributed.group.WORLD, 2, rank)
+    try:
+        cfg = _parallel_config(PAR_DEPTH)
+        batch = _parallel_batch(cfg, PAR_BATCH)
+        for name, kind, shape, mode, train in CPP_ARMS:
+            tcfg = _parallel_train_config(**train)
+            mesh = (make_cp_mesh if kind == "cp" else make_pp_mesh)(*shape, device="cuda")
+            state = init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 5),
+                               device="cuda", mesh=mesh, cp_mode=mode)
+            step = build_train_step(cfg, tcfg, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            CALLS.clear()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, torch.Generator(device="cuda").manual_seed(SEED + 9))
+            torch.cuda.synchronize()
+            out = {"rank": rank, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                   "calls": dict(CALLS), "metrics": {k: float(v) for k, v in metrics.items()},
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            both = _gather_dim(_digests(state.model)[None], world, 0)
+            out["digest_rel"] = ((both[0] - both[1]).abs() / both[0].abs().clamp_min(1e-300)
+                                 ).max().item()
+            if rank == 0:
+                out["params"] = {n: t.detach().cpu() for n, t in state.model.state_dict().items()}
+                out["mu"] = {n: t.detach().cpu() for n, t in state.optimizer.mu.items()}
+            torch.save(out, os.path.join(root, f"{name}_rank{rank}.pt"))
+            del state, step, out
+            torch.cuda.empty_cache()
+        torch.save(_ring_rank(rank), os.path.join(root, f"ring_call_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def cp_pp_arms(card, root):
+    """Phase 4c-1: each arm of ``CPP_ARMS`` against the one-process step of
+    the same state, batch and draws at ``_hold_step``'s gates, its launches
+    a rank exactly as ``expected_cp_pp_launches`` predicts, its collectives
+    those of its arm, the two ranks' states equal. Returns rank 0's
+    launches summed over the arms."""
+    import torch
+
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    cfg = _parallel_config(PAR_DEPTH)
+    tcfg = _parallel_train_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state = init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 5),
+                       device="cuda")
+    state, ref = build_train_step(cfg, tcfg)(state, _parallel_batch(cfg, PAR_BATCH),
+                                             torch.Generator(device="cuda").manual_seed(SEED + 9))
+    torch.cuda.synchronize()
+    print(f"context and pipeline parallel: the one-process step (depth {PAR_DEPTH}, B="
+          f"{PAR_BATCH}) peaks at {(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated above the {held / 1e9:.2f} GB the run held "
+          f"before it)", flush=True)
+    ref_sd = {n: t.detach() for n, t in state.model.state_dict().items()}
+    ref_mu = dict(state.optimizer.mu)
+    del state
+    totals = {}
+    arm_calls = {"cp": {"ring": "ppermute", "ulysses": "all_to_all"}, "pp": "ppermute"}
+    for name, kind, shape, mode, train in CPP_ARMS:
+        ranks = [torch.load(os.path.join(root, f"{name}_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        want = expected_cp_pp_launches(cfg, kind, train.get("remat", False))
+        collective = arm_calls[kind][mode] if kind == "cp" else arm_calls[kind]
+        for r in ranks:
+            print(f"context and pipeline parallel {name} rank {r['rank']} on {card}: launches "
+                  f"{r['launches']} (predicted {want}); collectives {r['calls']}; peak memory "
+                  f"{r['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated); step "
+                  f"{r['seconds']:.2f} s (host clock, two ranks on one card: a correctness run); "
+                  f"the ranks' state digests {r['digest_rel']:.3e} apart (rel)", flush=True)
+            if r["launches"] != want:
+                raise AssertionError(f"{name} rank {r['rank']}: launches {r['launches']}, "
+                                     f"predicted {want}")
+            other = {"ppermute", "all_to_all"} - {collective}
+            if not r["calls"].get(collective) or any(r["calls"].get(c) for c in other):
+                raise AssertionError(f"{name} rank {r['rank']}: collectives {r['calls']}, not "
+                                     f"the {collective} of its arm")
+            if not r["digest_rel"] <= 1e-6:
+                raise AssertionError(f"{name}: the two ranks' states differ")
+        tcfg_arm = _parallel_train_config(**train)
+        _hold_step(f"context and pipeline parallel {name}", ranks[0]["metrics"], ref,
+                   ranks[0]["params"], ref_sd, ranks[0]["mu"], ref_mu, tcfg_arm.learning_rate)
+        for k, n in ranks[0]["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        del ranks
+    return totals
+
+
+def cp_ring_call(card, root):
+    """Phase 4c-2: the ring at VTP-L's 1024^2 token count, each rank's half
+    (forward and backward) gathered and held against the one-process plain
+    attention of the same bf16 inputs (fp32 math; the forward within
+    RING_FWD_REL of max|ref|, each gradient within RING_GRAD_REL of its
+    max|ref|), the peaks beside each other."""
+    import torch
+
+    ranks = [torch.load(os.path.join(root, f"ring_call_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    q, k, v, cot = _ring_inputs()
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    qf, kf, vf = (t.transpose(1, 2) for t in leaves)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * RING_HEAD_DIM ** -0.5
+    s = s.masked_fill(torch.arange(s.shape[-1], device="cuda") >= RING_TOKENS, float("-inf"))
+    o = torch.matmul(torch.softmax(s, -1), vf).transpose(1, 2)
+    (o * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    ref_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    want = [o.detach(), *(t.grad for t in leaves)]
+    del s, qf, kf, vf
+    names = ("output", "dq", "dk", "dv")
+    n = q.shape[1]
+    print(f"ring call (1, {n} = {RING_TOKENS} padded, {RING_HEADS}, {RING_HEAD_DIM}) bf16 over "
+          f"two gloo ranks on {card}: peak memory a rank "
+          f"{', '.join(f'{r['peak_gb']:.3f}' for r in ranks)} GB against {ref_peak:.3f} GB for "
+          f"the one-process plain attention (torch.cuda.max_memory_allocated above what each "
+          f"process held before the call, the inputs included); hops a rank "
+          f"{ranks[0]['calls']}; {', '.join(f'{r['seconds']:.2f}' for r in ranks)} s a rank "
+          f"(host clock, forward and backward, two ranks on one card)", flush=True)
+    for i, (name, w) in enumerate(zip(names, want)):
+        got = torch.cat([r["out"][i] for r in ranks], dim=1).to("cuda").float()
+        err = ((got - w).abs().max() / w.abs().max()).item()
+        limit = RING_FWD_REL if i == 0 else RING_GRAD_REL
+        print(f"ring call {name}: {err:.3e} of max|ref| (limit {limit:g}) "
+              f"{'ok' if err <= limit else 'FAIL'}", flush=True)
+        if not err <= limit:
+            raise AssertionError(f"ring call {name} disagrees with the plain attention")
+    if any(r["calls"] != {"ppermute": 4} for r in ranks):
+        raise AssertionError(f"ring call hops {ranks[0]['calls']}: expected 1 forward K/V hop, "
+                             f"1 backward K/V hop and 2 dK/dV hops")
+
+
+def run_cp_pp(card):
+    """Phase 4c: context and pipeline parallelism (see the module
+    docstring). Two spawned ranks run every arm and the ring call; a failure
+    of either rank (gloo refusing a collective included) fails the phase.
+    Returns rank 0's launch counts."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    cfg = _parallel_config(PAR_DEPTH)
+    print(f"context and pipeline parallel: VTP-L widths, every depth cut to {PAR_DEPTH} (of "
+          f"{_parallel_config().vision_depth}), global B={PAR_BATCH}; two ranks share one card "
+          f"over gloo, so their times are correctness runs, not speed figures; arms "
+          f"{[a[0] for a in CPP_ARMS]}; predicted launches a rank: CP "
+          f"{expected_cp_pp_launches(cfg, 'cp', False)}, PP "
+          f"{expected_cp_pp_launches(cfg, 'pp', False)}, PP remat full "
+          f"{expected_cp_pp_launches(cfg, 'pp', 'full')}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="vtp_cpp_") as root:
+        ctx = mp.start_processes(_gloo_cp_pp_rank, args=(root,), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + PAR_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                if time.monotonic() >= deadline:
+                    raise AssertionError(f"the two ranks ran past {PAR_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        print(f"context and pipeline parallel: ranks done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        counts = cp_pp_arms(card, root)
+        torch.cuda.empty_cache()
+        cp_ring_call(card, root)
+    torch.cuda.empty_cache()
+    print(f"context and pipeline parallel: phase in {time.perf_counter() - t0:.1f} s (host "
+          f"clock) on {card}", flush=True)
+    return counts
 
 
 def time_tp_kernels(gen, card):
@@ -4136,6 +4433,9 @@ def main() -> int:
     _set_phase("parallel")
     parallel_counts = run_parallel(card_line)
     torch.cuda.empty_cache()
+    _set_phase("context and pipeline parallel")
+    cp_pp_counts = run_cp_pp(card_line)
+    torch.cuda.empty_cache()
 
     _set_phase("dit train step")
     dit_counts, samples, peak_gb, state, labels, draws, step = run_dit_train(gen, latents)
@@ -4187,14 +4487,15 @@ def main() -> int:
     # counted runs, the int8 sampling phase's, one head-major roundtrip,
     # one non-causal text call, the reconstruction and zero-shot evals, the
     # linear probe, the text intermediates, the extras, one train step, the
-    # VTP training phase's counted runs, one DiT train step, one 250-step
+    # VTP training phase's counted runs, the parallel phases' counted runs (rank
+    # 0 of the two-rank arms), one DiT train step, one 250-step
     # sample, the generation pipeline's counted runs, and at head dims 32
     # and 128 one roundtrip, high decode, train step, DiT train step and
     # 4-step sample each)
     for run in (high_counts, serve_counts, int8_counts, int8_sample_counts, hm_counts,
                 text_counts, eval_counts, zs_counts,
                 probe_counts, ti_counts, extras_counts, train_counts, vtp_counts, parallel_counts,
-                dit_counts, sample_counts, gen_counts, *head_dim_counts):
+                cp_pp_counts, dit_counts, sample_counts, gen_counts, *head_dim_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     _set_phase("timing")

@@ -73,7 +73,8 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.models.vtp_train_arch", "vtp_tpu_torch.tools.train_vtp",
                 "vtp_tpu_torch.utils", "vtp_tpu_torch.utils.quantization",
                 "vtp_tpu_torch.utils.params", "vtp_tpu_torch.utils.buckets",
-                "vtp_tpu_torch.utils.misc", "vtp_tpu_torch.tools.bench_serve"):
+                "vtp_tpu_torch.utils.misc", "vtp_tpu_torch.tools.bench_serve",
+                "vtp_tpu_torch.ops.ring_attention", "vtp_tpu_torch.parallel.pipeline"):
         assert mod in imported
 
 

@@ -212,21 +212,16 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise(option, kernels):
-    """Pipeline stages raise. The other options run in one process without
-    a mesh and match the JAX step with the same option on one device, in
-    fp32: ``drop_shards`` splits drop-path's keep counts (no drop rate here;
-    with one, against JAX: tests/test_torch_parallel_step.py), sequence
-    parallelism without a model axis changes nothing, and ``tp_head_major``
-    trains the trunk head-major (the split attention path) from the
-    permuted canonical init."""
+    """Each option runs in one process without a mesh and matches the JAX
+    step with the same option on one device, in fp32: ``drop_shards``
+    splits drop-path's keep counts (no drop rate here; with one, against
+    JAX: tests/test_torch_parallel_step.py), pipeline stages and sequence
+    parallelism without their mesh axes change nothing (the stacks run
+    their sequential loop; on a pipe axis: tests/test_torch_cp_train.py),
+    and ``tp_head_major`` trains the trunk head-major (the split attention
+    path) from the permuted canonical init."""
     cfg_kw, train_kw = UNPORTED[option]
     cfg = VTPConfig(**dict(TINY, **cfg_kw))
-    tcfg = TrainConfig(**dict(TRAIN, **train_kw))
-    if option == "pipeline_stages":
-        with pytest.raises(NotImplementedError):
-            state = init_state(cfg, tcfg, device="cpu")
-            build_train_step(cfg, tcfg)(state, _port_batch(_batch()))
-        return
     kernels(interpret=True)
     batch = _batch()
     jcfg, jstate, _, jmetrics = _jax_step("fp32", batch, **train_kw)

@@ -25,6 +25,8 @@ from vtp_tpu_torch.checkpoint import (
     restore_train_state,
     train_state_tensors,
 )
+from tests.torch_dist import run_ranks
+from tests.torch_parallel_workers import train_vtp_ranks
 from vtp_tpu_torch.tools import train_vtp
 from vtp_tpu_torch.train.step import TrainConfig, init_state
 
@@ -134,19 +136,50 @@ def test_resume_refuses_another_layout(config_json, tmp_path):
         train_vtp.main(argv + ["--steps", "2", "--resume"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2,2"], ["--context_parallel", "2"],
-                                  ["--pipeline_parallel", "2"], ["--sequence_parallel"],
-                                  ["--tp_head_major"]])
-def test_parallel_flags_exit_not_ported(flag):
-    """Context and pipeline parallelism are not ported. In one process
-    ``--mesh 2,2`` is not the world size (``make_mesh``'s check), and
-    ``--sequence_parallel`` and ``--tp_head_major`` alone need a model axis
-    (the JAX CLI's checks, ``tools/train_vtp.py`` :303-315); the mesh flags
-    run under torchrun (tests/test_torch_parallel_serve.py)."""
-    match = {"--mesh": r"mesh 2x2 != 1 ranks", "--sequence_parallel": "needs a model axis > 1",
-             "--tp_head_major": "needs a model axis > 1"}.get(flag[0], "not ported")
+PARALLEL_REFUSALS = [
+    (["--mesh", "2,2"], r"mesh 2x2 != 1 ranks"),
+    (["--context_parallel", "2"], r"--context_parallel 2 x data 0 x model 1 != 1 ranks"),
+    (["--pipeline_parallel", "2"], r"--pipeline_parallel 2 x data 0 != 1 ranks"),
+    (["--context_parallel", "2", "--mesh", "1,3"],
+     r"needs vision_num_heads \(2\) % model \(3\) == 0"),
+    (["--pipeline_parallel", "2", "--mesh", "1,2"], "composes with the data axis only"),
+    (["--sequence_parallel"], "needs a model axis > 1"),
+    (["--tp_head_major"], "needs a model axis > 1")]
+
+
+@pytest.mark.parametrize("flag,match", PARALLEL_REFUSALS)
+def test_parallel_flags_exit_not_ported(config_json, flag, match):
+    """In one process each parallel layout is refused with the JAX CLI's
+    message (``tools/train_vtp.py`` :272-315): ``--mesh 2,2``,
+    ``--context_parallel 2`` and ``--pipeline_parallel 2`` are not the world
+    size, CP x TP needs the trunk's heads to divide the model axis, the pipe
+    axis composes with the data axis only, and ``--sequence_parallel`` and
+    ``--tp_head_major`` alone need a model axis. The layouts run under
+    torchrun (``test_cp_and_pp_runs_match_one_process`` here,
+    tests/test_torch_parallel_serve.py)."""
     with pytest.raises(SystemExit, match=match):
-        train_vtp.main(["--synthetic", "--steps", "1"] + flag)
+        train_vtp.main(["--synthetic", "--steps", "1", "--config", config_json] + flag)
+
+
+def test_cp_and_pp_runs_match_one_process(config_json, tmp_path):
+    """``--context_parallel 2 --cp_mode ring`` and ``--pipeline_parallel 2``
+    (a decoder 3 deep, which the note names and which runs its sequential
+    loop) on two gloo ranks as under torchrun: each step's metrics within
+    1e-5 rel (the grad norm 1e-4) of the one-process run's, in fp32."""
+    cfg = dict(TINY, decoder_depth=3)
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
+    argv = ["--synthetic", "--config", str(path), "--batch_size", "4", "--steps", "2",
+            "--compute_dtype", "fp32", "--remat", "off"] + CUT
+    want = train_vtp.main(argv + ["--out", str(tmp_path / "one")])["metrics"]
+    ranks = run_ranks(train_vtp_ranks, 2, tmp_path, argv, str(tmp_path))
+    for rank in ranks:
+        assert rank["pp_stdout"].count("decoder depth 3 % pipe 2 != 0") == (rank["rank"] == 0)
+        for arm in ("cp", "pp"):
+            for got, ref in zip(rank[arm], want, strict=True):
+                for k, w in ref.items():
+                    limit = 1e-4 if k == "grad_norm" else 1e-5
+                    assert abs(got[k] - w) <= limit * abs(w), (arm, k, got[k], w)
 
 
 def test_synthetic_stream_and_captions_are_the_jax_clis(config_json):

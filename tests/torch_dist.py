@@ -4,6 +4,7 @@ worker functions' module (``tests/torch_parallel_workers.py``), never
 JAX or ``vtp_tpu``.
 
     results = run_ranks(fn, 4, tmp_path, arg1, arg2)   # [rank 0's return, ...]
+    join = start_ranks(fn, 4, tmp_path, arg1, arg2)    # ... work meanwhile ...; join()
 
 Each child rendezvouses through a file under ``tmp_path`` (no port, so
 parallel pytest workers never race for one), runs with one thread
@@ -44,6 +45,14 @@ def run_ranks(fn: Callable, world_size: int, tmp_path, *args: Any,
               timeout: float = 300.0) -> List[Any]:
     """``fn(rank, world_size, *args)`` on ``world_size`` spawned ranks; the
     ranks' return values in rank order."""
+    return start_ranks(fn, world_size, tmp_path, *args, timeout=timeout)()
+
+
+def start_ranks(fn: Callable, world_size: int, tmp_path, *args: Any,
+                timeout: float = 300.0) -> Callable[[], List[Any]]:
+    """``run_ranks`` without the wait: the ranks start and the returned
+    function joins them (against the deadline ``timeout`` seconds from now)
+    and returns their values, so the caller can work meanwhile."""
     root = os.path.join(str(tmp_path), f"ranks_{fn.__name__}_{time.monotonic_ns()}")
     os.makedirs(root)
     saved = os.environ.get("OMP_NUM_THREADS")
@@ -57,14 +66,19 @@ def run_ranks(fn: Callable, world_size: int, tmp_path, *args: Any,
         else:
             os.environ["OMP_NUM_THREADS"] = saved
     deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{fn.__name__} on {world_size} ranks ran past {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
-            for r in range(world_size)]
+
+    def join() -> List[Any]:
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"{fn.__name__} on {world_size} ranks ran past "
+                                       f"{timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                for r in range(world_size)]
+
+    return join

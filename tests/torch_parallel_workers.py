@@ -333,3 +333,274 @@ def serve_worker_failure(rank, world, cfg_kw, sd, images):
     srv.shutdown()
     return {"first": type(first).__name__ if first is not None else None,
             "later": str(later) if later is not None else None}
+
+
+# ------------------------------------------- context and pipeline parallelism
+
+def _seq_group(mesh):
+    from vtp_tpu_torch.parallel.mesh import SEQ_AXIS, axis_group
+
+    return axis_group(mesh, SEQ_AXIS)
+
+
+def cp_attention_cases(rank, world, cases, cp_tp):
+    """The ring and Ulysses arms on this rank's token shards (and, with
+    ``cp_tp``, on a (1, 2, 2) mesh's token and head shards): for each case
+    (name, arm, q, k, v, cotangent, n_valid, dtype) the rank's output and
+    gradients, gathered to whole tensors, and the collectives (``sharding.CALLS``)
+    of its forward and of its backward; then ``sdpa_bnhd`` under each mode
+    with heads that divide the axis and heads that do not, and the eager
+    entry (and its error when N does not divide)."""
+    from vtp_tpu_torch.models.blocks import sdpa_bnhd
+    from vtp_tpu_torch.ops.ring_attention import (
+        ring_attention,
+        ring_attention_local,
+        ulysses_attention_local,
+    )
+    from vtp_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group, make_cp_mesh
+    from vtp_tpu_torch.parallel.sharding import ContextParallel
+
+    mesh = make_cp_mesh(world, 1, device="cpu")
+    seq = _seq_group(mesh)
+    arms = {"ring": ring_attention_local, "ulysses": ulysses_attention_local}
+    out = {}
+
+    def run(name, fn, q, k, v, w, n_valid, dtype, g, model=None):
+        def local(t):
+            t = torch.from_numpy(t).to(dtype).chunk(g.size, 1)[g.rank]
+            return t if model is None else t.chunk(model.size, 2)[model.rank]
+
+        leaves = [local(x).requires_grad_() for x in (q, k, v)]
+        sharding.CALLS.clear()
+        o = fn(*leaves, g, n_valid=n_valid)
+        fwd = dict(sharding.CALLS)
+        (o.float() * local(w).float()).sum().backward()
+        bwd = {n: c - fwd.get(n, 0) for n, c in sharding.CALLS.items() if c - fwd.get(n, 0)}
+        grads = [t.grad for t in leaves]
+
+        def whole(t):
+            t = t.detach().contiguous()
+            if model is not None:
+                t = sharding._gather_dim(t, model, 2)
+            return _np(sharding._gather_dim(t, g, 1))
+
+        out[name] = {"o": whole(o), "grads": [whole(t) for t in grads], "forward_calls": fwd,
+                     "backward_calls": bwd}
+
+    for name, arm, q, k, v, w, n_valid, dtype in cases:
+        run(name, arms[arm], q, k, v, w, n_valid, getattr(torch, dtype), seq)
+    # sdpa_bnhd's arm by mode: the calls name it
+    name, _, q, k, v, w, n_valid, _ = cases[0]
+    routes = {}
+    for mode in ("auto", "ring", "ulysses"):
+        def fn(q, k, v, g, n_valid, mode=mode):
+            return sdpa_bnhd(q, k, v, n_valid=n_valid, cp=ContextParallel(g, mode))
+
+        for heads in (world, world + 1):  # heads that divide the axis, and heads that do not
+            key = f"route_{mode}_{heads}"
+            run(key, fn, *(np.ascontiguousarray(t[:, :, :heads]) for t in (q, k, v, w)),
+                n_valid, torch.float32, seq)
+            routes[key] = out.pop(key)
+    out["routes"] = routes
+    # the eager entry on whole tensors
+    _, _, q, k, v, w, n_valid, _ = cases[1]
+    whole = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    o = ring_attention(*whole, group=seq, n_valid=n_valid)
+    (o * torch.from_numpy(w)).sum().backward()
+    out["eager"] = {"o": _np(o), "grads": [_np(t.grad) for t in whole]}
+    try:
+        ring_attention(*(t.detach()[:, :-1] for t in whole), group=seq)
+        out["eager_error"] = None
+    except ValueError as e:
+        out["eager_error"] = str(e)
+    if cp_tp:
+        mesh = make_cp_mesh(2, 1, 2, device="cpu")
+        seq, model = _seq_group(mesh), axis_group(mesh, MODEL_AXIS)
+        for name, arm, q, k, v, w, n_valid, dtype in cp_tp:
+            run(name, arms[arm], q, k, v, w, n_valid, getattr(torch, dtype), seq, model)
+    return out
+
+
+class _Weight(torch.nn.Module):
+    """One layer of ``pipeline_apply``'s linear test body."""
+
+    def __init__(self, w):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.from_numpy(w).clone())
+
+
+def _linear_body(layer, x):
+    return torch.tanh(x @ layer.w)
+
+
+def _param_grads(module_list, loss_fn):
+    """``loss_fn()`` and the gradients of every parameter of
+    ``module_list`` (by ``named_parameters`` name), cleared first."""
+    for p in module_list.parameters():
+        p.grad = None
+    loss_fn().backward()
+    return {n: _np(p.grad) for n, p in module_list.named_parameters()}
+
+
+def pipeline_cases(rank, world, ws, x_lin, cot_lin, block_kw, blocks_sd, x_tok, cot_tok,
+                   rope):
+    """On a (pipe,) mesh of every rank: ``pipeline_apply`` with the linear
+    body and ``pipeline_blocks`` on a block stack, each under remat off and
+    "full", their outputs and the gradients of ``sum(out * cot)`` (weights,
+    input, and the blocks' RoPE tables), beside the same through the
+    sequential loop; the collectives of one pipelined call; the depth error
+    and ``maybe_pipeline_blocks``' fallbacks."""
+    from vtp_tpu_torch.models.blocks import Block, BlockConfig, run_blocks
+    from vtp_tpu_torch.parallel.mesh import PIPE_AXIS, axis_group, make_pipeline_mesh
+    from vtp_tpu_torch.parallel.pipeline import (
+        maybe_pipeline_blocks,
+        pipeline_apply,
+        pipeline_blocks,
+    )
+    from vtp_tpu_torch.parallel.sharding import PipelineParallel
+
+    g = axis_group(make_pipeline_mesh(world, device="cpu"), PIPE_AXIS)
+    out = {}
+    layers = torch.nn.ModuleList(_Weight(w) for w in ws)
+    x_lin, cot_lin = torch.from_numpy(x_lin), torch.from_numpy(cot_lin)
+
+    def seq_linear(x):
+        for layer in layers:
+            x = _linear_body(layer, x)
+        return x
+
+    for remat in (False, "full"):
+        xg = x_lin.clone().requires_grad_()
+        res = {}
+
+        def loss():
+            res["o"] = pipeline_apply(_linear_body, layers, xg, group=g, remat=remat)
+            return (res["o"] * cot_lin).sum()
+
+        sharding.CALLS.clear()
+        grads = _param_grads(layers, loss)
+        out[f"linear_{remat}"] = {"o": _np(res["o"]), "grads": grads, "dx": _np(xg.grad),
+                                  "calls": dict(sharding.CALLS)}
+    xg = x_lin.clone().requires_grad_()
+    res = {}
+    out["linear_seq"] = {"grads": _param_grads(layers, lambda: (seq_linear(xg) * cot_lin).sum()),
+                         "dx": _np(xg.grad)}
+    with torch.no_grad():
+        out["linear_seq"]["o"] = _np(seq_linear(x_lin))
+
+    blocks = torch.nn.ModuleList(Block(BlockConfig(**block_kw)) for _ in range(len(ws)))
+    blocks.load_state_dict({k: torch.from_numpy(v) for k, v in blocks_sd.items()})
+    x_tok, cot_tok = torch.from_numpy(x_tok), torch.from_numpy(cot_tok)
+    b, n, d = x_tok.shape
+    micro = 2  # microbatches need not match the stages
+    for remat in (False, "full", "seq"):
+        xg = x_tok.clone().requires_grad_()
+        tables = [torch.from_numpy(t).clone().requires_grad_() for t in rope]
+        res = {}
+
+        def loss():
+            if remat == "seq":
+                (res["o"],) = run_blocks(blocks, [xg], [tuple(tables)])
+            else:
+                xm = xg.reshape(micro, (b // micro) * n, d)
+                o = pipeline_blocks(xm, blocks, [tuple(tables)], [(b // micro, n)], group=g,
+                                    remat=remat)
+                res["o"] = o.reshape(b, n, d)
+            return (res["o"] * cot_tok).sum()
+
+        grads = _param_grads(blocks, loss)
+        out[f"blocks_{remat}"] = {"o": _np(res["o"]), "grads": grads, "dx": _np(xg.grad),
+                                  "drope": [_np(t.grad) for t in tables]}
+    # the fallbacks of maybe_pipeline_blocks and of run_blocks under a pipe axis
+    pp = PipelineParallel(g)
+    with torch.no_grad():
+        out["fallback_rows"] = maybe_pipeline_blocks([x_tok[:b - 1]], blocks, [None], g)
+        out["fallback_depth"] = maybe_pipeline_blocks([x_tok], blocks[:world - 1], [None], g)
+        out["fallback_seq"] = _np(run_blocks(blocks, [x_tok[:b - 1]], [None], pp=pp)[0])
+        out["fallback_seq_want"] = _np(run_blocks(blocks, [x_tok[:b - 1]], [None])[0])
+    try:
+        pipeline_apply(_linear_body, layers[:world + 1], x_lin, group=g)
+        out["depth_error"] = None
+    except ValueError as e:
+        out["depth_error"] = str(e)
+    return out
+
+
+def _cp_pp_mesh(kind, shape):
+    from vtp_tpu_torch.parallel.mesh import make_cp_mesh, make_pp_mesh
+
+    return (make_cp_mesh if kind == "cp" else make_pp_mesh)(*shape, device="cpu")
+
+
+def vtp_cp_pp_arms(rank, world, cfg_kw, train_kw, arms, params, batch, enc):
+    """Each arm ``(name, kind, shape, cp_mode, TrainConfig overrides)``, kind
+    "cp" (``make_cp_mesh(*shape)``) or "pp" (``make_pp_mesh(*shape)``): one
+    VTP train step from ``params`` on the global ``batch``; every rank
+    returns the metrics, the gathered student and first moments and the
+    collectives. ``enc`` (config, state dict, images): that model's encode
+    and exact decode with its trunk and decoder split over a (1, world)
+    seq axis, beside the calls of the fused attention."""
+    from vtp_tpu_torch.models import blocks as blocks_mod
+    from vtp_tpu_torch.train.state import load_numpy_train_state
+    from vtp_tpu_torch.train.step import build_train_step, distribute_state, init_state
+
+    out = {}
+    batch = _tensors(batch)
+    for name, kind, shape, cp_mode, arm_kw in arms:
+        cfg, tcfg, tcfg_arm = _train_cfgs(cfg_kw, train_kw, arm_kw)
+        mesh = _cp_pp_mesh(kind, shape)
+        state = init_state(cfg, tcfg, device="cpu")
+        load_numpy_train_state(state, params)
+        distribute_state(state, tcfg_arm, mesh, cp_mode)
+        sharding.CALLS.clear()
+        state, metrics = build_train_step(cfg, tcfg_arm, mesh)(state, batch)
+        layout = state.layout
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "calls": dict(sharding.CALLS),
+                     "student": _sd_np(sharding.gather_state_dict(state.model)),
+                     "mu": {n: _np(layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m)
+                            for n, m in state.optimizer.mu.items()}}
+    cfg_kw, sd, images = enc
+    model = VTPModel(VTPConfig(**cfg_kw), device="cpu", encode_dtype=None)
+    model.load_numpy_state_dict(sd)
+    sharding.parallelize_model(model, _cp_pp_mesh("cp", (world, 1)))
+    fused = []
+    real = blocks_mod.fused_qkv_rope_attention
+
+    def counted(*a, **k):
+        fused.append(1)
+        return real(*a, **k)
+
+    blocks_mod.fused_qkv_rope_attention = counted
+    try:
+        with torch.no_grad():
+            x = torch.from_numpy(images)
+            feats = model.trunk.forward_features(x, use_bottleneck=False)
+            out["encode"] = {k: _np(feats[k]) for k in ("x_norm_clstoken", "x_norm_patchtokens")}
+            out["encode"]["latents"] = _np(model.get_reconstruction_latents(x))
+            out["encode"]["images"] = _np(model.get_latents_decoded_images(
+                model.get_reconstruction_latents(x)))
+    finally:
+        blocks_mod.fused_qkv_rope_attention = real
+    out["encode"]["fused_calls"] = len(fused)
+    return out
+
+
+def train_vtp_ranks(rank, world, argv, out_dir):
+    """``train_vtp.main`` as under torchrun with ``--context_parallel 2
+    --cp_mode ring`` and then ``--pipeline_parallel 2``: each run's metrics
+    and what the PP run printed."""
+    import contextlib
+    import io
+    import os
+
+    from vtp_tpu_torch.tools import train_vtp
+
+    _env_rank(rank, world)
+    cp = train_vtp.main(argv + ["--context_parallel", "2", "--cp_mode", "ring",
+                                "--out", os.path.join(out_dir, "cp")])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pp = train_vtp.main(argv + ["--pipeline_parallel", "2", "--out",
+                                    os.path.join(out_dir, "pp")])
+    return {"rank": rank, "cp": cp["metrics"], "pp": pp["metrics"], "pp_stdout": buf.getvalue()}

@@ -29,8 +29,22 @@ device-independent conditions, :206-214) takes the split path of
 head-major layout (``qkv_head_major > 1``, ``parallel/sharding.py``). The
 columns are regrouped per head, then qk-norm, RoPE (``apply_rope_bnhd`` :280),
 the compute-dtype cast and ``sdpa_bnhd`` (:292), whose bf16 case runs
-``flash_attention_bnhd``. The context-parallel arms of ``sdpa_bnhd`` are
-not ported.
+``flash_attention_bnhd``.
+
+Context parallelism (a tower's ``ContextParallel``, ``parallel.sharding``):
+``run_blocks`` pads each (B, N, D) crop with zero tokens to a multiple of
+the seq axis S (``n_valid`` masks them as keys; they are sliced off after
+the stack) and splits its tokens over the axis (``split_seq`` on dim 1,
+each rank's slice of the RoPE tables with them), so each rank holds N/S
+tokens of every crop through the blocks. Every attention of such a block
+takes the split path (the fused gate refuses it, as the JAX gate does under
+a seq axis, :111) and ``sdpa_bnhd`` takes a CP arm in the JAX package's
+order (:295-324): Ulysses when the mode is "auto" or "ulysses" and the
+rank's heads divide the axis, the ring when the mode is not "ulysses"
+(``ops/ring_attention.py``), else the rank's queries against the gathered
+keys and values. Pipeline parallelism (a ``PipelineParallel``): the
+no-drop-path depth loop runs ``parallel.pipeline.maybe_pipeline_blocks``,
+and the sequential loop where that refuses the layout (:591-611).
 
 Under tensor parallelism (``parallel.sharding.parallelize_model``) an
 ``Attention``, ``SwiGLUFFN`` or ``Mlp`` holds its rank's slabs and a
@@ -69,8 +83,24 @@ from vtp_tpu_torch.ops.flash_attention import (
     fused_qkv_rope_attention,
 )
 from vtp_tpu_torch.ops.norms import apply_norm, norm_eps, rms_norm
+from vtp_tpu_torch.ops.ring_attention import (
+    gathered_attention_local,
+    ring_attention_local,
+    ring_supported,
+    ulysses_attention_local,
+    ulysses_supported,
+)
 from vtp_tpu_torch.ops.rope import rope_apply
-from vtp_tpu_torch.parallel.sharding import sp_param, split_seq, tp_enter, tp_exit, unsplit_seq
+from vtp_tpu_torch.parallel.pipeline import maybe_pipeline_blocks
+from vtp_tpu_torch.parallel.sharding import (
+    ContextParallel,
+    PipelineParallel,
+    sp_param,
+    split_seq,
+    tp_enter,
+    tp_exit,
+    unsplit_seq,
+)
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 Shapes = List[Tuple[int, int]]
@@ -170,9 +200,11 @@ class Attention(nn.Module):
         return bias
 
     def split_attention(self, qkv: torch.Tensor, rope: Rope, n_valid: int,
-                        compute_dtype: Optional[torch.dtype], precision: str) -> torch.Tensor:
+                        compute_dtype: Optional[torch.dtype], precision: str,
+                        cp: Optional[ContextParallel] = None) -> torch.Tensor:
         """(b, n, 3D) qkv, canonical or head-major -> (b, n, D): the split
-        path of ``attention_apply`` (:233-266)."""
+        path of ``attention_apply`` (:233-266); under ``cp``, n is this
+        rank's tokens and ``n_valid`` a global count."""
         cfg = self.cfg
         b, n, _ = qkv.shape
         dg = cfg.dim // cfg.qkv_head_major
@@ -185,15 +217,17 @@ class Attention(nn.Module):
             q, k = apply_rope_bnhd(q, k, *rope)
         if compute_dtype is not None:
             q, k, v = (t.to(compute_dtype) for t in (q, k, v))
-        return sdpa_bnhd(q, k, v, n_valid, precision).reshape(b, n, cfg.dim)
+        return sdpa_bnhd(q, k, v, n_valid, precision, cp).reshape(b, n, cfg.dim)
 
     def forward(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
                 n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
-                precision: str = "float32", sp: bool = False) -> torch.Tensor:
+                precision: str = "float32", sp: bool = False,
+                cp: Optional[ContextParallel] = None) -> torch.Tensor:
         """flat: the packed (sum B_i*N_i, D) normed tokens of the crops
         whose (B_i, N_i) are ``shapes`` (under ``sp``, this rank's rows of
-        them); one qkv GEMM, one fused attention per crop, one
-        out-projection."""
+        them; under ``cp``, N_i is this rank's share of the crop's tokens);
+        one qkv GEMM, one fused attention per crop (the split path under
+        ``cp``), one out-projection."""
         cfg = self.cfg
         flat = tp_enter(flat, self.tp, sp)
         qkv_flat = linear(flat, self.qkv.weight, self.qkv_bias(), compute_dtype, precision)
@@ -202,8 +236,9 @@ class Attention(nn.Module):
             qkv = qkv_flat[off:off + b * n].reshape(b, n, 3 * cfg.dim)
             off += b * n
             if not fused_attention_supported(qkv.shape, qkv.dtype, cfg.num_heads,
-                                             cfg.qkv_head_major):
-                o = self.split_attention(qkv, rope, n_valid, compute_dtype, precision)
+                                             cfg.qkv_head_major,
+                                             context_parallel=cp is not None):
+                o = self.split_attention(qkv, rope, n_valid, compute_dtype, precision, cp)
                 outs.append(o.reshape(b * n, cfg.dim))
                 continue
             o = fused_qkv_rope_attention(
@@ -241,11 +276,20 @@ def apply_rope_bnhd(q: torch.Tensor, k: torch.Tensor, sin: torch.Tensor, cos: to
 
 
 def sdpa_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_valid: int = 0,
-              precision: str = "float32") -> torch.Tensor:
-    """Attention over (B, N, H, hd) -> (B, N, H, hd) (``sdpa_bnhd`` :292):
-    ``flash_attention_bnhd`` for bf16 with every key valid when
-    ``flash_supported_bnhd`` holds, else the written-out math with key
-    columns ``>= n_valid`` masked."""
+              precision: str = "float32", cp: Optional[ContextParallel] = None
+              ) -> torch.Tensor:
+    """Attention over (B, N, H, hd) -> (B, N, H, hd) (``sdpa_bnhd`` :292).
+    Under ``cp`` (q, k, v this rank's N/S tokens, ``n_valid`` a global
+    count): Ulysses or the ring by ``cp.mode`` and their gates, else the
+    gathered keys and values. Otherwise ``flash_attention_bnhd`` for bf16
+    with every key valid when ``flash_supported_bnhd`` holds, else the
+    written-out math with key columns ``>= n_valid`` masked."""
+    if cp is not None:
+        if cp.mode in ("auto", "ulysses") and ulysses_supported(q, cp.axis, n_valid):
+            return ulysses_attention_local(q, k, v, cp.axis, n_valid=n_valid)
+        if cp.mode != "ulysses" and ring_supported(q, cp.axis, n_valid):
+            return ring_attention_local(q, k, v, cp.axis, n_valid=n_valid)
+        return gathered_attention_local(q, k, v, cp.axis, n_valid, precision)
     if n_valid in (0, q.shape[1]) and flash_supported_bnhd(q, k, v):
         return flash_attention_bnhd(q, k, v)
     o = sdpa_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -324,12 +368,14 @@ class Block(nn.Module):
 
     def forward_packed(self, flat: torch.Tensor, shapes: Shapes, ropes: Sequence[Rope],
                        n_valids: Sequence[int], compute_dtype: Optional[torch.dtype] = None,
-                       precision: str = "float32", sp: bool = False) -> torch.Tensor:
+                       precision: str = "float32", sp: bool = False,
+                       cp: Optional[ContextParallel] = None) -> torch.Tensor:
         """On the packed tokens of the crops (block_apply_flat); under
-        ``sp``, on this rank's rows of them."""
+        ``sp``, on this rank's rows of them; under ``cp``, on this rank's
+        tokens of each crop."""
         tp = self.attn.tp
         a = self.attn(_norm(self.norm1, flat, tp, sp), shapes, ropes, n_valids, compute_dtype,
-                      precision, sp)
+                      precision, sp, cp)
         flat = flat + _scale(self.ls1, a, tp, sp)
         f = self.mlp(_norm(self.norm2, flat, tp, sp), compute_dtype, precision, sp)
         return flat + _scale(self.ls2, f, tp, sp)
@@ -338,16 +384,18 @@ class Block(nn.Module):
                          n_valids: Sequence[int], idx: Sequence[torch.Tensor],
                          compute_dtype: Optional[torch.dtype] = None,
                          precision: str = "float32",
-                         scales: Optional[Sequence[float]] = None) -> List[torch.Tensor]:
+                         scales: Optional[Sequence[float]] = None,
+                         cp: Optional[ContextParallel] = None) -> List[torch.Tensor]:
         """Drop-path on (B_i, N_i, D) crops (``_block_apply_droppath``):
         ``idx`` holds the attention branch's kept rows of each crop, then the
         FFN branch's; ``scales`` (same order) their residual scales when they
-        are a data shard's part of a global subset."""
+        are a data shard's part of a global subset; under ``cp`` the crops
+        hold this rank's tokens."""
         n = len(xs)
 
         def attn(flat, shapes, kept):
             a = self.attn(self.norm1(flat), shapes, [ropes[i] for i in kept],
-                          [n_valids[i] for i in kept], compute_dtype, precision)
+                          [n_valids[i] for i in kept], compute_dtype, precision, cp=cp)
             return self.ls1(a) if self.ls1 is not None else a
 
         def ffn(flat, shapes, kept):
@@ -474,7 +522,8 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
                compute_dtype: Optional[torch.dtype] = None,
                remat: Union[bool, str] = False, precision: str = "float32",
                drop: Optional[Sequence[Sequence[torch.Tensor]]] = None,
-               drop_scales: Optional[Sequence[Sequence[float]]] = None
+               drop_scales: Optional[Sequence[Sequence[float]]] = None,
+               cp: Optional[ContextParallel] = None, pp: Optional[PipelineParallel] = None
                ) -> List[torch.Tensor]:
     """The depth loop over a list of (B_i, N_i, D) crops (scan_blocks):
     packed once, unpacked at the end. ``n_valids`` masks trailing key
@@ -482,22 +531,60 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
     rows of ``draw_drop_indices``) runs every block with drop-path on
     unpacked crops, with ``drop_scales`` (per block) as the residual scales
     when given. A sequence-parallel model splits the packed rows over its
-    model group for the loop."""
-    shapes = [(x.shape[0], x.shape[1]) for x in xs]
-    n_valids = list(n_valids) if n_valids is not None else [n for _, n in shapes]
+    model group for the loop. Under ``cp`` each crop's tokens, padded to a
+    multiple of the seq axis, are split over it for the loop; under ``pp``
+    the no-drop-path loop is pipelined where ``pp_supported`` holds."""
+    n_valids = list(n_valids) if n_valids is not None else [x.shape[1] for x in xs]
     ropes = list(ropes)
     run = checkpoint_policy(remat) if torch.is_grad_enabled() else None
+    if cp is not None:
+        lengths = [x.shape[1] for x in xs]
+        xs, ropes = _split_tokens(xs, ropes, cp)
+        xs = _run_stack(blocks, xs, ropes, n_valids, compute_dtype, run, precision, drop,
+                        drop_scales, cp)
+        return [unsplit_seq(x, cp.axis, 1)[:, :n] for x, n in zip(xs, lengths)]
+    if drop is None and pp is not None:
+        out = maybe_pipeline_blocks(xs, blocks, ropes, pp.axis, n_valids=n_valids,
+                                    compute_dtype=compute_dtype, remat=remat,
+                                    precision=precision)
+        if out is not None:
+            return out
+    return _run_stack(blocks, xs, ropes, n_valids, compute_dtype, run, precision, drop,
+                      drop_scales, None)
+
+
+def _split_tokens(xs: Sequence[torch.Tensor], ropes: Sequence[Rope], cp: ContextParallel
+                  ) -> Tuple[List[torch.Tensor], List[Rope]]:
+    """Each (B, N, D) crop padded with zero tokens to a multiple of the seq
+    axis and this rank's slice of its tokens (``split_seq``: the backward
+    gathers the gradient), with the matching rows of its RoPE tables (the
+    padded rows 0, as ``vit._pad_tokens`` pads them)."""
+    g = cp.axis
+    out_x, out_r = [], []
+    for x, rope in zip(xs, ropes):
+        pad = (-x.shape[1]) % g.size
+        out_x.append(split_seq(F.pad(x, (0, 0, 0, pad)), g, 1))
+        out_r.append(None if rope is None else
+                     tuple(split_seq(F.pad(t, (0, 0, 0, pad)), g, 0) for t in rope))
+    return out_x, out_r
+
+
+def _run_stack(blocks, xs, ropes, n_valids, compute_dtype, run, precision, drop, drop_scales,
+               cp) -> List[torch.Tensor]:
+    """``run_blocks``' sequential depth loop (the drop-path loop on unpacked
+    crops, else the packed loop with sequence parallelism where it holds)."""
     if drop is not None:
         xs = list(xs)
         scales = drop_scales if drop_scales is not None else [None] * len(drop)
         for blk, idx, sc in zip(blocks, drop, scales, strict=True):
             if run is not None:
                 xs = run(blk.forward_droppath, xs, ropes, n_valids, list(idx), compute_dtype,
-                         precision, sc)
+                         precision, sc, cp)
             else:
                 xs = blk.forward_droppath(xs, ropes, n_valids, list(idx), compute_dtype,
-                                          precision, sc)
+                                          precision, sc, cp)
         return xs
+    shapes = [(x.shape[0], x.shape[1]) for x in xs]
     flat = pack(xs)
     tp = blocks[0].attn.tp if len(blocks) else None
     sp = tp is not None and tp.seq_split(flat.shape[0])
@@ -506,10 +593,10 @@ def run_blocks(blocks: nn.ModuleList, xs: Sequence[torch.Tensor], ropes: Sequenc
     for blk in blocks:
         if run is not None:
             flat = run(blk.forward_packed, flat, shapes, ropes, n_valids, compute_dtype,
-                       precision, sp)
+                       precision, sp, cp)
         else:
             flat = blk.forward_packed(flat, shapes, ropes, n_valids, compute_dtype, precision,
-                                      sp)
+                                      sp, cp)
     if sp:
         flat = unsplit_seq(flat, tp.axis)
     return unpack(flat, [x.shape for x in xs])

@@ -86,6 +86,9 @@ def exact_fp32():
 
 
 class PixelDecoder(nn.Module):
+    cp = None  # the ContextParallel of a parallelized model (parallel.sharding)
+    pp = None  # its PipelineParallel
+
     def __init__(self, cfg: PixelDecoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -132,7 +135,8 @@ class PixelDecoder(nn.Module):
         x = linear(x, gemm_weight(self.proj_in.weight, "conv"), self.proj_in.bias,
                    compute_dtype, precision)
         rope = rope_sincos(self.rope_embed.periods, H, W, normalize_coords=cfg.rope_normalize_coords)
-        (x,) = run_blocks(self.blocks, [x], [rope], None, compute_dtype, remat, precision)
+        (x,) = run_blocks(self.blocks, [x], [rope], None, compute_dtype, remat, precision,
+                          cp=self.cp, pp=self.pp)
         x = self.norm(x)
         x = linear(x, gemm_weight(self.proj_out.weight, "conv"), self.proj_out.bias,
                    compute_dtype, precision)

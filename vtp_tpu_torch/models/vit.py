@@ -7,7 +7,9 @@ Patchify is a reshape + GEMM and the RoPE tables are built once per
 forward and crop shape. A list of crops (the SSL multi-crop forward) runs
 through one packed block stack; ``masks`` swap masked patch tokens for
 ``mask_token``. The JAX package pads tokens to the TPU's sublane tile;
-the port does not, since the CUDA kernel masks keys by bounds.
+the port does not, since the CUDA kernel masks keys by bounds. Under
+context parallelism ``run_blocks`` pads each crop to a multiple of the seq
+axis instead, and slices the padding off after the stack.
 
 In training, ``forward_features`` takes a ``generator`` or ``draws`` where
 the JAX forward takes a key: each crop's RoPE coordinate augmentation
@@ -117,6 +119,12 @@ class PatchEmbed(nn.Module):
 
 
 class VisionTransformer(nn.Module):
+    # the ContextParallel / PipelineParallel of a parallelized model
+    # (parallel.sharding.parallelize_model): its block stack's token split
+    # over a seq axis, or its stages over a pipe axis
+    cp = None
+    pp = None
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.cfg = cfg
@@ -256,7 +264,7 @@ class VisionTransformer(nn.Module):
         drop = draws["drop"] if draws is not None and drop_ratio > 0.0 else None
         scales = draws.get("drop_scale") if drop is not None else None
         xs = run_blocks(self.blocks, xs, ropes, None, compute_dtype, remat, drop=drop,
-                        drop_scales=scales)
+                        drop_scales=scales, cp=self.cp, pp=self.pp)
         outputs = []
         for i, (x, m) in enumerate(zip(xs, masks_list)):
             cls_reg, patch = self.final_norms(x, crop_index=i, training=training)

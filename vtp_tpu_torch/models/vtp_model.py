@@ -22,7 +22,10 @@ bf16x3 split, and a ``decode_dtype`` (bf16) decodes in that dtype instead.
 With ``train_clip`` the model also holds ``visual_proj``, the text tower
 and ``logit_scale`` (``logit_bias`` for SigLIP configs), under the
 reference checkpoint's names. ``quantize_for_serving`` (:314) gives the
-int8 W8A8 serving tier.
+int8 W8A8 serving tier. ``parallel.sharding.parallelize_model`` spreads a
+model over a mesh: its towers' slabs over a model axis, and over a seq or
+pipe axis the trunk's and the decoder's token split or pipeline stages
+(their ``cp`` / ``pp``), every entry point then running on each rank.
 """
 
 from __future__ import annotations

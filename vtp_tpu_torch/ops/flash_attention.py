@@ -529,16 +529,18 @@ def _flash_shapes_ok(q, k, v) -> bool:
 
 
 def fused_attention_supported(qkv_shape, dtype: torch.dtype, num_heads: int,
-                              head_major: int = 1) -> bool:
+                              head_major: int = 1, *, context_parallel: bool = False) -> bool:
     """Whether ``fused_qkv_rope_attention`` takes a (B, N, 3*H*d) packed
     qkv: the device-independent conditions of the JAX gate
     (``fused_attention_supported``, :212-263): bf16 or fp32, d in FUSED_HEAD_DIMS,
     3*H*d the packed width, 2 <= N, canonical [Q|K|V] columns (not
-    head-major). The TPU's VMEM budget, sequence cap and mesh checks have no
-    counterpart. Callers take their split path where it fails. Every d
+    head-major), and a block that does not run context-parallel (its
+    tokens split over a seq axis; the JAX gate refuses under a seq axis,
+    :111). The TPU's VMEM budget, sequence cap and other mesh checks have
+    no counterpart. Callers take their split path where it fails. Every d
     that passes has its own instantiation of each arm of the CUDA kernels
     (forward and backward), so a CUDA tensor that passes launches one."""
-    if dtype not in _ENTRY or head_major != 1:
+    if dtype not in _ENTRY or head_major != 1 or context_parallel:
         return False
     _, n, three_d = qkv_shape
     d = three_d // (3 * num_heads)

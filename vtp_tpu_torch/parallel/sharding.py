@@ -36,20 +36,41 @@ trunk that slab is the contiguous column shard, as under GSPMD; canonical
 weights (the decoder, the text ``in_proj``, a canonical trunk) are sliced
 per head.
 
-``CALLS`` counts each collective's forward calls by name.
+Context and pipeline parallelism ride two more collectives here, each an
+autograd function over one axis: ``ppermute`` (a cyclic shift of a tensor
+to the rank ``shift`` places on; backward the inverse shift) for the ring
+attention's K/V hops and the pipeline's stage-to-stage activations, and
+``all_to_all`` (JAX's tiled ``all_to_all``; backward the inverse one) for
+Ulysses. Both run on ``all_to_all_single`` over the tensor's bytes, with
+per-peer split sizes for the shift, one op on every backend (NCCL, and
+gloo on CPU or CUDA tensors). ``parallelize_model`` sets a model's
+``ContextParallel`` (the seq axis and the arm preference) and
+``PipelineParallel`` (the pipe axis) on its trunk and pixel decoder.
+
+``CALLS`` counts each collective's forward calls by name (``ppermute`` and
+``all_to_all`` each call, forward or backward, since the ring and the
+pipeline call them inside their own backward).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from vtp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, AxisGroup, axis_group
+from vtp_tpu_torch.parallel.mesh import (
+    CP_MODES,
+    DATA_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    AxisGroup,
+    axis_group,
+)
 
 # kernels whose *output* features are model-sharded (JAX :27)
 _COLUMN = {"qkv", "w1", "w2", "fc1", "c_fc", "in_proj"}
@@ -424,6 +445,77 @@ class _GatherWithGrad(torch.autograd.Function):
         return grad.chunk(ctx.g.size, ctx.dim)[ctx.g.rank].contiguous(), None, None
 
 
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as a flat uint8 tensor (a view): the
+    shift and the all-to-all move bytes, so every dtype takes one path."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+def _shift(x: torch.Tensor, g: AxisGroup, shift: int) -> torch.Tensor:
+    """``x`` sent to the rank ``shift`` places on along the axis (cyclic),
+    the tensor of the rank ``shift`` places back received: one
+    ``all_to_all_single`` whose split sizes send every byte to one peer."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    n = x.numel() * x.element_size()
+    dst, src = (g.rank + shift) % g.size, (g.rank - shift) % g.size
+    dist.all_to_all_single(_bytes(out), _bytes(x),
+                           [n if r == src else 0 for r in range(g.size)],
+                           [n if r == dst else 0 for r in range(g.size)], group=g.group)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, g: AxisGroup, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """JAX's tiled ``all_to_all``: ``x`` cut into ``g.size`` chunks along
+    ``split_dim``, chunk j sent to rank j, the chunks received concatenated
+    along ``concat_dim`` in rank order."""
+    if x.shape[split_dim] % g.size:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not divide over "
+                         f"{g.size} ranks")
+    inp = torch.stack(x.chunk(g.size, split_dim)).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(_bytes(out), _bytes(inp), group=g.group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, shift):
+        ctx.g, ctx.shift = g, shift
+        return _shift(x, g, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ppermute(grad, ctx.g, -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, split_dim, concat_dim):
+        ctx.g, ctx.dims = g, (split_dim, concat_dim)
+        return _all_to_all(x, g, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(grad, ctx.g, concat_dim, split_dim), None, None, None
+
+
+def ppermute(x: torch.Tensor, g: AxisGroup, shift: int = 1) -> torch.Tensor:
+    """``x`` shifted ``shift`` ranks on along the axis, cyclically: rank r
+    receives rank ``(r - shift) mod size``'s tensor (``jax.lax.ppermute``
+    with the permutation ``i -> i + shift``). Every rank passes a tensor of
+    the same shape and dtype."""
+    CALLS["ppermute"] += 1
+    return _Ppermute.apply(x, g, shift)
+
+
+def all_to_all(x: torch.Tensor, g: AxisGroup, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``."""
+    CALLS["all_to_all"] += 1
+    return _AllToAll.apply(x, g, split_dim, concat_dim)
+
+
 def copy_to_model(x: torch.Tensor, g: AxisGroup) -> torch.Tensor:
     CALLS["copy_to_model"] += 1
     return _CopyToModel.apply(x, g)
@@ -482,6 +574,29 @@ class TensorParallel:
         return self.sequence_parallel and rows % self.axis.size == 0
 
 
+@dataclasses.dataclass(frozen=True)
+class ContextParallel:
+    """The seq axis a tower's block stack splits each crop's tokens over,
+    and the attention arm preference: "auto" (Ulysses when the rank's heads
+    divide the axis, else the ring), "ring" or "ulysses"."""
+
+    axis: AxisGroup
+    mode: str = "auto"
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineParallel:
+    """The pipe axis a tower's block stack is stage-sharded over."""
+
+    axis: AxisGroup
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 def tp_enter(x: torch.Tensor, tp: Optional[TensorParallel], sp: bool,
              dim: int = 0) -> torch.Tensor:
     """The input of a column-parallel GEMM: ``copy_to_model``, or under SP
@@ -519,32 +634,66 @@ def _set_leaf(root: nn.Module, name: str, value: torch.Tensor) -> None:
 
 
 def parallelize_model(model, mesh, *, head_major: bool = False,
-                      sequence_parallel: bool = False, also: Iterable[nn.Module] = ()):
-    """Tensor-parallelize a ``VTPModel`` in place over ``mesh``'s model axis
-    and return it: every column- and row-parallel weight of the trunk, the
-    pixel decoder and the text tower is replaced by this rank's slab (a
-    plain tensor), each attention gets its H/tp heads as a canonical packed
-    qkv (``qkv_head_major = 1``), and each parallel module carries the
-    ``TensorParallel`` it calls its collectives on. ``also`` are module
-    trees under the model's names (a train state's teacher), sliced alike.
+                      sequence_parallel: bool = False, also: Iterable[nn.Module] = (),
+                      cp_mode: str = "auto"):
+    """Parallelize a ``VTPModel`` in place over ``mesh`` and return it.
+    ``also`` are module trees under the model's names (a train state's
+    teacher), treated alike.
 
+    Over a model axis (tensor parallelism): every column- and row-parallel
+    weight of the trunk, the pixel decoder and the text tower is replaced by
+    this rank's slab (a plain tensor), each attention gets its H/tp heads as
+    a canonical packed qkv (``qkv_head_major = 1``), and each parallel
+    module carries the ``TensorParallel`` it calls its collectives on.
     ``head_major`` declares the trunk's stored layout head-major for the
     model axis, as the JAX ``tp_head_major`` permutes a canonical trunk:
     the slabs are the same, the config says ``vision_qkv_head_major = tp``,
     and a gathered checkpoint keeps the head-major columns.
+
+    Over a seq axis of more than one rank (context parallelism) the trunk
+    and the pixel decoder get a ``ContextParallel`` with ``cp_mode``; over a
+    pipe axis of more than one rank, a ``PipelineParallel``. Their weights
+    stay whole on every rank, as in the JAX package; the text tower, which
+    has no such arm there, runs whole on every seq or pipe rank.
     ``model.shard_layout`` records where every leaf lives."""
+    axis = axis_group(mesh, MODEL_AXIS)
+    seq, pipe = axis_group(mesh, SEQ_AXIS), axis_group(mesh, PIPE_AXIS)
+    if axis is None and seq is None and pipe is None:
+        raise ValueError("parallelize_model needs a mesh with a model, seq or pipe axis")
+    if cp_mode not in CP_MODES:
+        raise ValueError(f"cp mode {cp_mode!r} not in {CP_MODES}")
+    roots = [model, *also]
+    layout = ShardLayout.for_config(model.config, mesh)
+    if axis is not None:
+        _tensor_parallelize(model, roots, axis, layout, head_major, sequence_parallel)
+    cp = ContextParallel(seq, cp_mode) if seq is not None and seq.size > 1 else None
+    pp = PipelineParallel(pipe) if pipe is not None and pipe.size > 1 else None
+    for root in roots:
+        for tower in _block_towers(root):
+            tower.cp, tower.pp = cp, pp
+    model.shard_layout = layout
+    return model
+
+
+def _block_towers(root) -> List[nn.Module]:
+    """The trunk and the pixel decoder of a model (or of a teacher's
+    ``ModuleDict``), those it has."""
+    get = (lambda n: root[n] if n in root else None) if isinstance(root, nn.ModuleDict) \
+        else (lambda n: getattr(root, n, None))
+    return [t for t in (get("trunk"), get("pixel_decoder")) if t is not None]
+
+
+def _tensor_parallelize(model, roots, axis: AxisGroup, layout: ShardLayout, head_major: bool,
+                        sequence_parallel: bool) -> None:
+    """``parallelize_model``'s model axis: the slabs, the per-rank heads and
+    each parallel module's ``TensorParallel``."""
     from vtp_tpu_torch.models.blocks import Attention, Mlp, SwiGLUFFN
     from vtp_tpu_torch.models.text_encoder import ResidualAttentionBlock, TextTransformer
     from vtp_tpu_torch.utils.quantization import Int8Weight
 
-    axis = axis_group(mesh, MODEL_AXIS)
-    if axis is None:
-        raise ValueError("parallelize_model needs a mesh with a model axis")
-    roots = [model, *also]
     if any(isinstance(m, Int8Weight) for r in roots for m in r.modules()):
         raise NotImplementedError("tensor parallelism of int8 weights is not ported")
     tp = axis.size
-    layout = ShardLayout.for_config(model.config, mesh)
     for tower, h in layout.heads.items():
         if getattr(model, tower, None) is not None and h % tp:
             raise ValueError(f"{tower}: {h} heads do not divide over a model axis of {tp}")
@@ -572,8 +721,6 @@ def parallelize_model(model, mesh, *, head_major: bool = False,
         trunk = root["trunk"] if isinstance(root, nn.ModuleDict) else root.trunk
         trunk.cfg = dataclasses.replace(trunk.cfg,
                                         qkv_head_major=model.config.vision_qkv_head_major)
-    model.shard_layout = layout
-    return model
 
 
 def gather_state_dict(module, layout: Optional[ShardLayout] = None) -> Dict[str, torch.Tensor]:

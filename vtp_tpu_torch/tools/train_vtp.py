@@ -14,15 +14,19 @@ and the cuts for small runs ``--depth`` (every tower's depth) and
 Under ``torchrun`` the run spreads over every rank (NCCL on the card, gloo
 with ``--device cpu``): ``--mesh DATA,MODEL`` (default: every rank on the
 data axis) with ``--tp_head_major`` (the trunk stored head-major for the
-model axis) and ``--sequence_parallel``, checked as the JAX CLI checks them
-(:274-315); ``drop_shards`` is the data axis. Every rank builds the same
-global batch and takes its rows; rank 0 logs and writes the checkpoints,
-which hold the gathered state in its stored layout.
-``--context_parallel`` and ``--pipeline_parallel`` above 1 exit: they are
-not ported.
+model axis) and ``--sequence_parallel``; ``--context_parallel S`` (a
+``(data, seq[, model])`` mesh, ``--cp_mode`` the attention arm; with
+``--mesh DATA,MODEL``, CP x TP) and ``--pipeline_parallel P`` (a ``(data,
+pipe)`` mesh; a tower whose depth does not divide P runs its sequential
+loop), all checked as the JAX CLI checks them (:272-315); ``drop_shards``
+is the data axis. Every rank builds the same global batch and takes its
+rows; rank 0 logs and writes the checkpoints, which hold the gathered state
+in its stored layout.
 
     torchrun --nproc_per_node 4 -m vtp_tpu_torch.tools.train_vtp --synthetic \
         --mesh 2,2 --tp_head_major --sequence_parallel --steps 20
+    torchrun --nproc_per_node 4 -m vtp_tpu_torch.tools.train_vtp --synthetic \
+        --context_parallel 2 --cp_mode ring --steps 20        # or --pipeline_parallel 2
 
 CLIP captions are "a photo of a {class}", tokenized once per class; when
 the BPE vocab is absent they are deterministic pseudo-captions, as in the
@@ -51,10 +55,6 @@ import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
-
-# each unported parallel flag with its default: any other value exits
-NOT_PORTED = {"context_parallel": 1, "pipeline_parallel": 1}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     from vtp_tpu_torch.train.step import TrainConfig
@@ -95,9 +95,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="DATA,MODEL: the (data, model) mesh over the torchrun ranks")
     p.add_argument("--tp_head_major", action="store_true",
                    help="store the trunk's qkv head-major for the model axis")
-    p.add_argument("--context_parallel", type=int, default=1, help="not ported")
-    p.add_argument("--cp_mode", default="auto", choices=["auto", "ring", "ulysses"])
-    p.add_argument("--pipeline_parallel", type=int, default=1, help="not ported")
+    p.add_argument("--context_parallel", type=int, default=1,
+                   help="split the attention token dim over a seq axis of this size (ring / "
+                        "Ulysses context parallelism, ops/ring_attention.py); composes with "
+                        "the data axis and a model axis (CP x TP, --mesh DATA,MODEL) when "
+                        "vision_num_heads %% model == 0")
+    p.add_argument("--cp_mode", default="auto", choices=["auto", "ring", "ulysses"],
+                   help="context-parallel arm (auto: Ulysses when a rank's heads divide the "
+                        "seq axis, else the ring)")
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="stage-shard the block stacks over a pipe axis of this size (GPipe, "
+                        "parallel/pipeline.py); composes with the data axis; a tower whose "
+                        "depth or microbatch does not divide runs its sequential loop")
     p.add_argument("--out", default="./vtp_ckpt")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--ckpt_every", type=int, default=2000)
@@ -252,15 +261,31 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     if not args.synthetic and not args.data_dir:
         raise SystemExit("pass --data_dir or --synthetic")
-    asked = [f"--{n}" for n, default in NOT_PORTED.items() if getattr(args, n) is not default
-             and getattr(args, n) != default]
-    if asked:
-        raise SystemExit(f"{', '.join(asked)}: not ported (the parallel layouts)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    n_seq, n_pipe = args.context_parallel, args.pipeline_parallel
     if args.mesh:
         n_data, n_model = (int(x) for x in args.mesh.split(","))
     else:
-        n_data, n_model = world, 1
+        n_data, n_model = world // max(n_seq, 1) // max(n_pipe, 1), 1
+    cfg = load_config(args)
+    if n_seq > 1 and n_model > 1 and cfg.vision_num_heads % n_model:
+        raise SystemExit(f"--context_parallel with a model axis needs vision_num_heads "
+                         f"({cfg.vision_num_heads}) % model ({n_model}) == 0")
+    if n_seq > 1 and n_data * n_seq * n_model != world:
+        raise SystemExit(f"--context_parallel {n_seq} x data {n_data} x model {n_model} != "
+                         f"{world} ranks")
+    if n_pipe > 1:
+        if n_model > 1 or n_seq > 1:
+            raise SystemExit("--pipeline_parallel composes with the data axis only (one of "
+                             "pipe/seq/model per mesh)")
+        if n_data * n_pipe != world:
+            raise SystemExit(f"--pipeline_parallel {n_pipe} x data {n_data} != {world} ranks")
+        if int(os.environ.get("RANK", "0")) == 0:
+            for tower, depth in (("vision", cfg.vision_depth), ("text", cfg.text_depth),
+                                 ("decoder", cfg.decoder_depth)):
+                if depth % n_pipe:
+                    print(f"[train_vtp] note: {tower} depth {depth} % pipe {n_pipe} != 0: that "
+                          f"tower runs the sequential loop (data-parallel only)", flush=True)
     if args.sequence_parallel and n_model <= 1:
         raise SystemExit("--sequence_parallel needs a model axis > 1 (--mesh DATA,MODEL); it "
                          "would silently no-op on this mesh")
@@ -270,7 +295,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.batch_size % (args.accum_steps * n_data):
         raise SystemExit(f"global batch {args.batch_size} must divide by accum_steps x data "
                          f"axis ({args.accum_steps} x {n_data})")
-    if (args.mesh or world > 1) and n_data * n_model != world:
+    if n_seq <= 1 and n_pipe <= 1 and (args.mesh or world > 1) and n_data * n_model != world:
         raise SystemExit(f"mesh {n_data}x{n_model} != {world} ranks")
 
     import torch
@@ -282,12 +307,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         wait_for_checkpoints,
     )
     from vtp_tpu_torch.convert import save_hf_checkpoint
-    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.parallel.mesh import make_cp_mesh, make_mesh, make_pp_mesh
     from vtp_tpu_torch.parallel.multihost import init_distributed, is_main_process
     from vtp_tpu_torch.tools.train_dit import step_generator
     from vtp_tpu_torch.train.step import TrainConfig, build_train_step, init_state
 
-    cfg = load_config(args)
     if args.tp_head_major and cfg.vision_num_heads % n_model:
         raise SystemExit(f"--tp_head_major: vision_num_heads {cfg.vision_num_heads} % model "
                          f"{n_model} != 0")
@@ -296,7 +320,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         if "RANK" not in os.environ:
             raise SystemExit("--mesh runs under torchrun (RANK and WORLD_SIZE unset)")
         init_distributed(args.device)
-        mesh = make_mesh(n_data, n_model, device=args.device)
+        if n_seq > 1:
+            mesh = make_cp_mesh(n_seq, n_data, n_model, device=args.device)
+        elif n_pipe > 1:
+            mesh = make_pp_mesh(n_pipe, n_data, device=args.device)
+        else:
+            mesh = make_mesh(n_data, n_model, device=args.device)
     main_rank = is_main_process()
     objectives = set(args.objectives.split(","))
     tcfg = TrainConfig(
@@ -311,11 +340,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         accum_steps=args.accum_steps, moment_dtype=args.moment_dtype,
         dino_out_dim=args.dino_out_dim, dino_hidden_dim=args.dino_hidden_dim,
         dino_bottleneck_dim=args.dino_bottleneck_dim, drop_shards=n_data,
-        sequence_parallel=args.sequence_parallel,
+        sequence_parallel=args.sequence_parallel, pipeline_stages=n_pipe,
         tp_head_major=n_model if args.tp_head_major else 1,
     )
     state = init_state(cfg, tcfg, torch.Generator(device=args.device).manual_seed(args.seed),
-                       device=args.device, mesh=mesh)
+                       device=args.device, mesh=mesh, cp_mode=args.cp_mode)
     start_step = 0
     # the head-major qkv layout is shape-identical to the canonical one, so
     # a sidecar records the layout a run was started with

@@ -48,8 +48,21 @@ arrays. The semantics are the JAX step's under GSPMD:
   * FSDP: a state that ``parallel.fsdp.shard_state`` sharded reduce-scatters
     its sharded gradients and all-gathers the updated slabs.
 
+Over a ``(data, seq[, model])`` mesh (``parallel.mesh.make_cp_mesh``;
+``init_state``'s and ``distribute_state``'s ``cp_mode`` picks the arm)
+the trunk and the pixel decoder split each crop's tokens over ``seq``
+through their block stacks (context parallelism, ``models/blocks.run_blocks``).
+Their blocks' parameters get a partial gradient on each seq rank, from its
+tokens, and those are summed over ``seq``; every other gradient is already
+whole and equal on the seq ranks (``split_seq`` gathers the gradient of the
+stack's input, ``unsplit_seq`` hands each rank its rows of the output's).
+Over a ``(data, pipe)`` mesh (``make_pp_mesh``) their no-drop-path stacks
+are pipelined (``parallel/pipeline.py``), whose backward hands every rank
+every layer's gradient, so nothing more is summed. The state stays
+replicated over ``seq`` and ``pipe``, as in the JAX package, and the text
+tower runs whole on every rank.
+
 The grad norm is global: sharded leaves sum their squares over their axes.
-Pipeline parallelism raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,7 +86,14 @@ from vtp_tpu_torch.train.losses import (
     siglip_loss,
     update_center,
 )
-from vtp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group, mesh_axis_size
+from vtp_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    axis_group,
+    mesh_axis_size,
+)
 from vtp_tpu_torch.parallel.sharding import all_reduce_, parallelize_model, shard_batch
 from vtp_tpu_torch.train.optim import (
     ACCUM_DTYPES,
@@ -97,8 +117,11 @@ BRANCH_DROP = {"clip": "clip_drop_rate", "rec": "rec_drop_rate", "ssl": "ssl_dro
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """A copy of the JAX package's ``TrainConfig`` (same fields and
-    defaults); ``pipeline_stages > 1``, which the port does not run, raises
-    in ``check_supported``."""
+    defaults). ``pipeline_stages`` is the pipe axis the step is built for
+    (``tools/train_vtp.py --pipeline_parallel`` builds its mesh from it): on
+    a mesh it must be 1 or the mesh's pipe axis (``check_supported``), and
+    the mesh decides, as the JAX package's ambient mesh does; without a
+    mesh the stacks run their sequential loop."""
 
     train_clip: bool = True
     train_ssl: bool = True
@@ -146,13 +169,15 @@ class TrainConfig:
 
 
 def check_supported(cfg: VTPConfig, tcfg: TrainConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for pipeline stages (not ported),
-    ``ValueError`` for an unknown ``accum_dtype`` and for the JAX step's
-    head-major checks (:272-282): ``tp_head_major`` must divide the trunk's
-    heads, agree with the config's declared layout and, on a mesh, equal
-    its model axis."""
-    if tcfg.pipeline_stages > 1:
-        raise NotImplementedError("not ported: pipeline_stages > 1")
+    """Raise ``ValueError`` for an unknown ``accum_dtype``, for
+    ``pipeline_stages`` other than 1 or the mesh's pipe axis, and for the
+    JAX step's head-major checks (:272-282): ``tp_head_major`` must divide
+    the trunk's heads, agree with the config's declared layout and, on a
+    mesh, equal its model axis."""
+    pipe = mesh_axis_size(mesh, PIPE_AXIS)
+    if mesh is not None and tcfg.pipeline_stages not in (1, pipe):
+        raise ValueError(f"pipeline_stages={tcfg.pipeline_stages} must equal the mesh's pipe "
+                         f"axis ({pipe})")
     if tcfg.accum_dtype not in ACCUM_DTYPES:
         raise ValueError(f"unknown accum_dtype {tcfg.accum_dtype!r} (use 'fp32' or 'bf16')")
     hm = tcfg.tp_head_major
@@ -207,12 +232,12 @@ def init_train_modules(cfg: VTPConfig, tcfg: TrainConfig,
 
 
 def init_state(cfg: VTPConfig, tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
-               device="cuda", mesh=None) -> TrainState:
+               device="cuda", mesh=None, cp_mode: str = "auto") -> TrainState:
     """``init_train_modules``' student (its trunk head-major under
     ``tp_head_major``, permuted from the same canonical init), a teacher
     copied from it, zero moments and zero centers; spread over ``mesh``
-    (``distribute_state``) when one is given. Every rank draws the same
-    weights from the same seed."""
+    (``distribute_state``, with ``cp_mode``) when one is given. Every rank
+    draws the same weights from the same seed."""
     check_supported(cfg, tcfg, mesh)
     model, head = init_train_modules(train_model_config(cfg, tcfg), tcfg, generator, device)
     optimizer = make_optimizer(train_leaves(model, head), tcfg)
@@ -221,19 +246,23 @@ def init_state(cfg: VTPConfig, tcfg: TrainConfig, generator: Optional[torch.Gene
         teacher = make_teacher(model, head)
         centers = [torch.zeros(tcfg.dino_out_dim, device=device) for _ in range(2)]
     state = TrainState(model, head, optimizer, teacher, *(centers or (None, None)))
-    return state if mesh is None else distribute_state(state, tcfg, mesh)
+    return state if mesh is None else distribute_state(state, tcfg, mesh, cp_mode)
 
 
-def distribute_state(state: TrainState, tcfg: TrainConfig, mesh) -> TrainState:
+def distribute_state(state: TrainState, tcfg: TrainConfig, mesh,
+                     cp_mode: str = "auto") -> TrainState:
     """Spread a whole (one-process) train state over ``mesh`` in place: the
     student and the teacher tensor-parallelized over its model axis (at any
     size, 1 included), the optimizer rebuilt over the student's slabs with
-    its moments sliced alike. Data parallelism needs nothing of the state;
-    FSDP is ``parallel.fsdp.shard_state`` after this. Returns the state."""
+    its moments sliced alike; over a seq or pipe axis their trunks and pixel
+    decoders set to split their tokens (arm ``cp_mode``) or pipeline their
+    stacks (``parallel.sharding.parallelize_model``). Data parallelism needs
+    nothing of the state; FSDP is ``parallel.fsdp.shard_state`` after this.
+    Returns the state."""
     check_supported(state.model.config, tcfg, mesh)
     extra = [state.teacher] if state.teacher is not None else []
     parallelize_model(state.model, mesh, head_major=tcfg.tp_head_major > 1,
-                      sequence_parallel=tcfg.sequence_parallel, also=extra)
+                      sequence_parallel=tcfg.sequence_parallel, also=extra, cp_mode=cp_mode)
     layout = state.model.shard_layout
     old = state.optimizer
     opt = make_optimizer(train_leaves(state.model, state.dino_head), tcfg)
@@ -379,6 +408,7 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
     check_supported(cfg, tcfg, mesh)
     data = axis_group(mesh, DATA_AXIS)
     model_axis = axis_group(mesh, MODEL_AXIS)
+    seq = axis_group(mesh, SEQ_AXIS)
     cdt = tcfg.torch_compute_dtype
     remat = tcfg.remat
     use_bn_for_ssl = not cfg.vision_bottleneck_ae_only
@@ -549,16 +579,28 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
                 out[n] = axes
         return out
 
+    def seq_partial(state: TrainState, names: Sequence[str]) -> List[int]:
+        """The trained leaves whose gradients are partial over ``seq``: the
+        blocks of the context-parallel towers."""
+        towers = [f"{n}.blocks." for n in ("trunk", "pixel_decoder")
+                  if getattr(getattr(state.model, n, None), "cp", None) is not None]
+        return [i for i, n in enumerate(names) if n.startswith(tuple(towers))] if towers else []
+
     def reduce_grads(state: TrainState, grads: Sequence[Optional[torch.Tensor]]):
         """The gradients summed over the data axis (an FSDP state's sharded
-        ones reduce-scattered to its slabs); a leaf without one on this rank
+        ones reduce-scattered to its slabs), those of context-parallel
+        blocks over ``seq`` first; a leaf without one on this rank
         contributes zeros."""
         names = trained(state)
         grads = [g if g is not None else torch.zeros_like(p)
                  for g, p in zip(grads, params(state, names))]
+        partial = seq_partial(state, names)
+        if partial:
+            for i, g in zip(partial, all_reduce_flat([grads[i] for i in partial], seq)):
+                grads[i] = g
         if getattr(state, "fsdp", None) is not None:
             return state.fsdp.reduce_grads(names, grads)
-        return all_reduce_flat(grads, data)
+        return all_reduce_flat(grads, data) if data is not None else grads
 
     def reduce_center_stats(stats):
         return stats if data is None else tuple(all_reduce_flat(list(stats), data))
