@@ -171,6 +171,27 @@
    and the DiT-XL/1 width (1152) in 36 or 9 heads (depth 2): one train
    step at B = 32 and a 4-step sample; each counted under the arm's name
    at d and against the plain versions;
+6c. ZeRO-3 FSDP, tensor parallelism over int8 and fused-w12 weights, the
+   parity probe (phase "fsdp zero3, int8 tp, probe"): (a) a world-size-1
+   NCCL (1, 1) mesh, the full VTP-L step (B = 8, remat off) on a ZeRO-3
+   state at one shard (every parameter read whole through its all-gather,
+   re-gathered in the backward, its gradient reduce-scattered: counted in
+   ``sharding.CALLS``), its launches exactly the one-process step's, against
+   the step without a mesh at ``_hold_step``'s gates; (b) two gloo ranks
+   sharing the card, (data 2, model 1), ZeRO-3 at full VTP-L width and
+   depth, B = 8: each rank's ``torch.cuda.memory_allocated`` after
+   ``shard_state`` against ``sharded_bytes`` (JAX's rule), the step's peak
+   and time, its launches, the two ranks' gathered states bit-equal, rank
+   0's against (a)'s one-process step; (c) four gloo ranks, (data 2, model
+   2), ZeRO-3 x head-major TP at VTP-L widths, depth PAR_DEPTH, B = 8,
+   against the one-process step at that depth; (d) the int8 server (every
+   tower, ``quantize_for_serving``) and the fused-w12 server over the (1, 1)
+   NCCL mesh at full VTP-L and over two gloo ranks (1, 2) at depth
+   PAR_DEPTH, each against the same server without a mesh (int8 bit for
+   bit, fused at ``run_serve``'s gates); (e) ``python -m
+   vtp_tpu_torch.tools.parity_probe --presets vtp-small,vtp-base,vtp-large``
+   as a subprocess with a timeout, exit code 0, its deltas beside the JAX
+   package's round-5 TPU rows;
 7. times each kernel arm against its plain version, a PyTorch yardstick
    call where there is one, and its bound, each by CUDA events twice: as
    the host issues the calls (``ms``, ``plain_ms``, ``library_ms``: a short
@@ -193,7 +214,6 @@ when any phase fails. A watchdog ends the run if it outlasts WATCHDOG_S.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import json
 import math
@@ -205,7 +225,7 @@ import threading
 import time
 import traceback
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1100
 SEED = 0
 BATCH = 8
 SOURCE = "vtp_tpu_torch/csrc/fused_attention.cu"
@@ -314,6 +334,21 @@ CPP_ARMS = [("ring_1x2", "cp", (2, 1), "ring", {}),
             ("pp_2x1_remat", "pp", (2, 1), "auto", {"pipeline_stages": 2, "remat": "full"})]
 RING_TOKENS, RING_HEADS, RING_HEAD_DIM = 4097, 16, 64
 RING_FWD_REL, RING_GRAD_REL = 5e-2, 1e-2
+# The ZeRO-3, int8 tensor-parallel and probe phase (4d): ZeRO-3 at one shard
+# over NCCL (world size 1) and two gloo ranks (data 2) at full VTP-L width and
+# depth, B = ZERO3_BATCH, remat off; four gloo ranks (data 2, model 2) at
+# depth PAR_DEPTH; the int8 and fused-w12 servers over (1, 1) and, at depth
+# PAR_DEPTH, (1, 2); ZERO3_TIMEOUT_S bounds each spawn. A rank's bytes are the
+# allocator's requested bytes (its blocks round each up, by up to a block's
+# remainder): within ZERO3_BYTES_SLACK of sharded_bytes. The parity probe over
+# PROBE_PRESETS, PROBE_PRESET_TIMEOUT_S a preset
+ZERO3_BATCH, ZERO3_TIMEOUT_S, ZERO3_BYTES_SLACK = 8, 420, 1 << 20
+PROBE_PRESETS, PROBE_PRESET_TIMEOUT_S = ("vtp-small", "vtp-base", "vtp-large"), 240
+# The JAX package's round-5 parity-probe rows (PARITY.md; a TPU v5e, not this
+# card): encode, decode, loss/total and grad-norm rel deltas
+JAX_PROBE_R5 = {"vtp-small": (5.4e-3, 6.9e-5, 5.6e-6, 9.1e-4),
+                "vtp-base": (7.4e-3, 1.8e-4, 5.9e-5, 9.6e-4),
+                "vtp-large": (1.6e-2, 3.6e-4, 1.1e-5, 9.7e-4)}
 # The fused attention at the tensor-parallel ranks' shapes (B, N, H a rank, d):
 # VTP-L's 16 heads at tp = 2 and 4, the forward at the encode's B = 8, the
 # backward at the train step's global crops (B = 16)
@@ -406,30 +441,13 @@ def _fmt_times(t: dict, lib: str = "sdpa") -> str:
     return ", ".join(parts)
 
 
-@contextlib.contextmanager
-def _plain_kernels():
-    """Run the model on the kernels' plain versions (the comparison runs): the
-    differentiable attention and CE keep their autograd Functions, whose
-    forward and backward then go to the plain PyTorch versions."""
-    from vtp_tpu_torch.ops import flash_attention as fa
-    from vtp_tpu_torch.ops import fused_ce
+def plain_kernels():
+    """The package's ``ops.dispatch.plain_kernels()`` (imported when called,
+    as every import of the package here): the comparison runs on the
+    kernels' plain versions."""
+    from vtp_tpu_torch.ops.dispatch import plain_kernels as plain
 
-    saved = (fa._forward, fa.fused_qkv_rope_attention_bwd,
-             fa.fused_qkv_rope_attention_qk_norm_bwd, fa._flash_bnhd_forward, fa._flash_forward,
-             fused_ce.fused_ce_fwd, fused_ce.fused_ce_bwd)
-    fa._forward = fa.fused_qkv_rope_attention_reference
-    fa.fused_qkv_rope_attention_bwd = fa.fused_qkv_rope_attention_bwd_reference
-    fa.fused_qkv_rope_attention_qk_norm_bwd = fa.fused_qkv_rope_attention_qk_norm_bwd_reference
-    fa._flash_bnhd_forward = fa.flash_attention_bnhd_reference
-    fa._flash_forward = fa.flash_attention_reference
-    fused_ce.fused_ce_fwd = fused_ce.fused_ce_fwd_reference
-    fused_ce.fused_ce_bwd = fused_ce.fused_ce_bwd_reference
-    try:
-        yield
-    finally:
-        (fa._forward, fa.fused_qkv_rope_attention_bwd, fa.fused_qkv_rope_attention_qk_norm_bwd,
-         fa._flash_bnhd_forward, fa._flash_forward, fused_ce.fused_ce_fwd,
-         fused_ce.fused_ce_bwd) = saved
+    return plain()
 
 
 def _attention_inputs(gen, B, N, H, dtype, grid, prefix, qk_norm=False, d=64):
@@ -779,7 +797,7 @@ def run_roundtrip(gen):
     if not (torch.isfinite(latents).all().item() and torch.isfinite(recon).all().item()):
         raise AssertionError("non-finite roundtrip output")
 
-    with _plain_kernels():
+    with plain_kernels():
         ref_latents = model.get_reconstruction_latents(images)
         ref_recon = model.get_latents_decoded_images(latents)
     torch.cuda.synchronize()
@@ -828,7 +846,7 @@ def run_high_roundtrip(model, images, exact_s):
     if tuple(high.shape) != tuple(images.shape) or high.dtype != torch.float32:
         raise AssertionError(f"high images {tuple(high.shape)} {high.dtype}")
     exact = model.get_latents_decoded_images(latents, precision="float32")
-    with _plain_kernels():
+    with plain_kernels():
         plain = model.get_latents_decoded_images(latents, precision="high")
     torch.cuda.synchronize()
     scale = exact.abs().max().item()
@@ -1096,7 +1114,7 @@ def run_int8_serving(model, images, card, profiling=False):
     if counts != want:
         raise AssertionError(f"int8 encode launches {counts}, expected {want}")
     z16 = model.get_reconstruction_latents(images)
-    with _plain_kernels():
+    with plain_kernels():
         z8_plain = qmodel.get_reconstruction_latents(images)
     torch.cuda.synchronize()
     a, b = z8.float().ravel(), z16.float().ravel()
@@ -1143,7 +1161,7 @@ def run_int8_serving(model, images, card, profiling=False):
     if counts != want:
         raise AssertionError(f"int8 decoder tier launches {counts}, expected {want}")
     exact = model.get_latents_decoded_images(z8)
-    with _plain_kernels():
+    with plain_kernels():
         rec8_plain = qdec.get_latents_decoded_images(z8)
     torch.cuda.synchronize()
     rel = ((rec8.float() - exact).norm() / exact.norm()).item()
@@ -1294,7 +1312,7 @@ def run_int8_sampling(gen, state, tokenizer, stats, bf16_sample_s, card):
     want = {NORM_NAME: 4 * cfg.depth}
     if counts != want:
         raise AssertionError(f"int8 4-step sample launches {counts}, expected {want}")
-    with _plain_kernels():
+    with plain_kernels():
         z8_plain = short(q_ema, labels, noise=noise)
     z16 = short(state.ema, labels, noise=noise)
     torch.cuda.synchronize()
@@ -1621,7 +1639,7 @@ def run_head_major(model, images, exact_s):
     if counts != want:
         raise AssertionError(f"head-major encode launches {counts}, expected {want}")
     canon = model.get_reconstruction_latents(images)
-    with _plain_kernels():
+    with plain_kernels():
         plain = loaded.get_reconstruction_latents(images)
     torch.cuda.synchronize()
     if tuple(latents.shape) != tuple(canon.shape) or latents.dtype != torch.bfloat16:
@@ -1685,7 +1703,7 @@ def run_text(gen, model):
     print(f"non-causal text: kernel launches {counts} (expected {want})", flush=True)
     if counts != want:
         raise AssertionError(f"non-causal text launches {counts}, expected {want}")
-    with _plain_kernels():
+    with plain_kernels():
         ref = txt.get_clip_text_feature(tokens)
     torch.cuda.synchronize()
     if tuple(feat.shape) != (TEXT_BATCH, cfg.text_embed_dim):
@@ -1754,7 +1772,7 @@ def run_off_gate(gen):
     if (tuple(latents.shape) != (OFF_GATE_BATCH, cfg.vision_feature_bottleneck, g, g)
             or tuple(recon.shape) != tuple(images.shape) or recon.dtype != torch.float32):
         raise AssertionError(f"off-gate latents {tuple(latents.shape)}, images {tuple(recon.shape)}")
-    with _plain_kernels():
+    with plain_kernels():
         ref_latents = model.get_reconstruction_latents(images)
         ref_recon = model.get_latents_decoded_images(latents)
     torch.cuda.synchronize()
@@ -1835,7 +1853,7 @@ def run_train(gen):
     if counts != want:
         raise AssertionError(f"train step launches {counts}, expected {want}")
 
-    with _plain_kernels():
+    with plain_kernels():
         plain_state, plain = step(plain_state, batch)
     torch.cuda.synchronize()
     del plain_state
@@ -1935,7 +1953,7 @@ def vtp_train_step(gen, card):
 
     # the plain run first, from a copy freed before the counted step
     plain_state = copy.deepcopy(state)
-    with _plain_kernels():
+    with plain_kernels():
         plain_norms = step.objective_grad_norms(plain_state, micros[0], draws=draws[0])
         plain_state, plain = step(plain_state, batch, draws=draws)
     del plain_state
@@ -2317,6 +2335,24 @@ def _gloo_rank(rank, arm, root):
         torch.distributed.destroy_process_group()
 
 
+def _spawn(fn, nprocs, timeout, *args):
+    """``fn(rank, *args)`` on ``nprocs`` spawned processes, joined against
+    ``timeout`` seconds; a failing rank fails the phase, and a rank still
+    running at the deadline is killed."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{fn.__name__}: the ranks ran past {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
 def parallel_two_ranks(card):
     """Phase 4b-2: two ranks time-slicing the one card over gloo, each arm
     against the one-process step of the same global batch, state and draws:
@@ -2327,7 +2363,6 @@ def parallel_two_ranks(card):
     import tempfile
 
     import torch
-    import torch.multiprocessing as mp
 
     from vtp_tpu_torch.ops.flash_attention import ARM_NAME, BWD_NAME
     from vtp_tpu_torch.parallel.mesh import AxisGroup
@@ -2347,14 +2382,7 @@ def parallel_two_ranks(card):
     with tempfile.TemporaryDirectory(prefix="vtp_par_") as root:
         for arm in arms:
             t0 = time.perf_counter()
-            ctx = mp.start_processes(_gloo_rank, args=(arm, root), nprocs=2, join=False,
-                                     start_method="spawn")
-            deadline = time.monotonic() + PAR_TIMEOUT_S
-            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
-                if time.monotonic() >= deadline:
-                    for proc in ctx.processes:
-                        proc.kill()
-                    raise AssertionError(f"{arm['name']}: the two ranks ran past {PAR_TIMEOUT_S} s")
+            _spawn(_gloo_rank, 2, PAR_TIMEOUT_S, arm, root)
             ranks = [torch.load(os.path.join(root, f"{arm['name']}_rank{r}.pt"),
                                 weights_only=False) for r in range(2)]
             if any("refused" in r for r in ranks):
@@ -2731,7 +2759,6 @@ def run_cp_pp(card):
     import tempfile
 
     import torch
-    import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     cfg = _parallel_config(PAR_DEPTH)
@@ -2743,17 +2770,7 @@ def run_cp_pp(card):
           f"{expected_cp_pp_launches(cfg, 'pp', False)}, PP remat full "
           f"{expected_cp_pp_launches(cfg, 'pp', 'full')}", flush=True)
     with tempfile.TemporaryDirectory(prefix="vtp_cpp_") as root:
-        ctx = mp.start_processes(_gloo_cp_pp_rank, args=(root,), nprocs=2, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + PAR_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
-                if time.monotonic() >= deadline:
-                    raise AssertionError(f"the two ranks ran past {PAR_TIMEOUT_S} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
+        _spawn(_gloo_cp_pp_rank, 2, PAR_TIMEOUT_S, root)
         print(f"context and pipeline parallel: ranks done in {time.perf_counter() - t0:.1f} s",
               flush=True)
         counts = cp_pp_arms(card, root)
@@ -2763,6 +2780,498 @@ def run_cp_pp(card):
     print(f"context and pipeline parallel: phase in {time.perf_counter() - t0:.1f} s (host "
           f"clock) on {card}", flush=True)
     return counts
+
+
+def zero3_one_rank(card):
+    """Phase 4d-1 (a): a world-size-1 NCCL group and a (1, 1) mesh; the VTP-L
+    CLIP+SSL+rec step (B = BATCH, remat off) on a ZeRO-3 state at one shard
+    (every sharded parameter read whole through its all-gather, the saved
+    ones gathered again in the backward, the gradients reduce-scattered,
+    none of it short-circuited) against the same step without a mesh.
+    Returns its launch counts and the reference (metrics, parameters,
+    first moments) for phase (b)."""
+    import torch
+
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel import fsdp
+    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.parallel.sharding import CALLS, gather_state_dict
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    cfg, tcfg = _parallel_config(), _parallel_train_config()
+    batch = _parallel_batch(cfg, BATCH)
+    init = lambda **kw: init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 3),
+                                   device="cuda", **kw)
+    state = init()
+    state, ref = build_train_step(cfg, tcfg)(state, batch)
+    ref_params = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    ref_mu = dict(state.optimizer.mu)
+    del state
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, 1, device="cuda")
+    state = init(mesh=mesh)
+    tree = fsdp.train_state_tree(state)
+    specs = fsdp.fsdp_state_specs(tree, 1)
+    fsdp.shard_state(state, mesh, specs)
+    want_bytes = fsdp.sharded_bytes(tree, fsdp.held_specs(specs), {"data": 1})
+    step = build_train_step(cfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    CALLS.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expected_train_launches(cfg)
+    calls = {k: v for k, v in CALLS.items() if k.startswith("fsdp")}
+    print(f"zero3 one rank (NCCL, mesh 1x1, {len(state.fsdp.dims)} leaves sharded, "
+          f"sharded_bytes {want_bytes / 1e9:.3f} GB) on {card}: launches {counts} (expected "
+          f"{want}); collectives {calls}; peak memory "
+          f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB above the "
+          f"{held / 1e9:.2f} GB held before the step (torch.cuda.max_memory_allocated); step "
+          f"{seconds:.2f} s (host clock)", flush=True)
+    if counts != want:
+        raise AssertionError(f"zero3 one-rank step launches {counts}, expected {want}")
+    if not all(calls.get(k) for k in ("fsdp_gather", "fsdp_regather", "fsdp_reduce_scatter")):
+        raise AssertionError(f"the one-rank ZeRO-3 step skipped its gathers: {calls}")
+    layout = state.layout
+    params = gather_state_dict(state.model)
+    mu = {n: layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m
+          for n, m in state.optimizer.mu.items()}
+    _hold_step("zero3 one rank", metrics, ref, params, ref_params, mu, ref_mu,
+               tcfg.learning_rate)
+    return counts, (ref, ref_params, ref_mu)
+
+
+def _whole_weight_servers(cfg, mesh, rank=0):
+    """The int8 server (``quantize_for_serving`` of every tower) and the
+    fused-``w12`` server (``fuse_ffn_params``) of the seeded model at ``cfg``,
+    over ``mesh`` (None: without one), each on a fresh model (the transforms
+    share the untouched modules, which ``parallelize_model`` cuts): for the
+    same PAR_SERVE_ROWS rows a kind, rank 0's results, and each server's
+    launches and collectives."""
+    import torch
+
+    from vtp_tpu_torch import VTPModel
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel.sharding import CALLS
+    from vtp_tpu_torch.serve import VTPServer
+    from vtp_tpu_torch.utils.params import fuse_ffn_params
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    g = cfg.image_size // cfg.vision_patch_size
+    inputs = {"encode": torch.randn((PAR_SERVE_ROWS, 3, cfg.image_size, cfg.image_size),
+                                    generator=gen, device="cuda"),
+              "decode": torch.randn((PAR_SERVE_ROWS, cfg.vision_feature_bottleneck, g, g),
+                                    generator=gen, device="cuda"),
+              "clip_text": torch.randint(1, cfg.text_vocab_size - 1,
+                                         (PAR_SERVE_ROWS, cfg.text_context_length),
+                                         generator=gen, device="cuda")}
+    inputs["clip_image"] = inputs["encode"]
+    out = {}
+    for kind in ("int8", "fused"):
+        model = VTPModel.init(cfg, torch.Generator(device="cuda").manual_seed(SEED + 13),
+                              device="cuda")
+        model = (model.quantize_for_serving(("trunk", "text", "pixel_decoder"))
+                 if kind == "int8" else fuse_ffn_params(model))
+        reset_launch_counts()
+        CALLS.clear()
+        srv = VTPServer(model, batch_size=PAR_SERVE_BATCH, max_wait_ms=5, warmup=False,
+                        mesh=mesh)
+        try:
+            if rank == 0:
+                futs = {k: srv.submit(k, v) for k, v in inputs.items()}
+                res = {k: f.result(timeout=120).cpu() for k, f in futs.items()}
+        finally:
+            srv.shutdown()
+        torch.cuda.synchronize()
+        out[kind] = {"launches": launch_counts(), "calls": dict(CALLS)}
+        if rank == 0:
+            out[kind]["results"] = res
+        del model, srv
+        torch.cuda.empty_cache()
+    return out
+
+
+def _hold_whole_weight_servers(label, got, want, card):
+    """The int8 server's results bit for bit, the fused server's within
+    ``run_serve``'s gates (decode 1e-4, the bf16 kinds FEATURE_REL, of
+    max|ref|), each against the same server without a mesh; every server
+    launched the bf16 fused forward. Returns the launches summed."""
+    import torch
+
+    from vtp_tpu_torch.ops.flash_attention import ARM_NAME
+
+    totals = {}
+    for kind in ("int8", "fused"):
+        g, w = got[kind], want[kind]
+        print(f"{label} {kind} server on {card}: launches {g['launches']}, collectives "
+              f"{g['calls']}", flush=True)
+        if not g["launches"].get(ARM_NAME[torch.bfloat16]):
+            raise AssertionError(f"{label} {kind}: the server launched no fused forward")
+        for k, ref in w["results"].items():
+            out = g["results"][k]
+            if kind == "int8":
+                ok = out.shape == ref.shape and torch.equal(out, ref)
+                print(f"{label} int8 {k}: {'bit-equal' if ok else 'DIFFERS from'} the server "
+                      f"without a mesh", flush=True)
+            else:
+                limit = 1e-4 if k == "decode" else FEATURE_REL
+                err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+                ok = out.shape == ref.shape and err <= limit
+                print(f"{label} fused {k}: {err:.3e} of max|ref| from the server without a "
+                      f"mesh (limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label} {kind} {k} disagrees with the server without "
+                                     f"a mesh")
+        for n, c in g["launches"].items():
+            totals[n] = totals.get(n, 0) + c
+    return totals
+
+
+def _state_digest(tensors, world) -> float:
+    """How far apart (rel) the two ranks' float64 sums and sums of squares
+    of ``tensors`` are: 0 when their states agree bit for bit."""
+    import torch
+
+    from vtp_tpu_torch.parallel.sharding import _gather_dim
+
+    d = torch.stack([torch.stack([t.double().sum(), t.double().square().sum()])
+                     for t in tensors])
+    both = _gather_dim(d[None], world, 0)
+    return ((both[0] - both[1:]).abs() / both[0].abs().clamp_min(1e-300)).max().item()
+
+
+def _zero3_gloo_rank(rank, root):
+    """One of two ranks sharing the card over gloo (spawned). (b): the full
+    VTP-L ZeRO-3 state over (data 2, model 1), its bytes after
+    ``shard_state`` against ``sharded_bytes``, one step (B = ZERO3_BATCH,
+    remat off), its launches, collectives, peak and time, the gathered
+    state's digest against the other rank's (rank 0 writes the gathered
+    parameters and first moments). (d): the int8 and fused-w12 servers over
+    (1, 2) at depth PAR_DEPTH."""
+    import datetime
+
+    import torch
+
+    from vtp_tpu_torch import _build
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel import fsdp
+    from vtp_tpu_torch.parallel.mesh import AxisGroup, make_mesh
+    from vtp_tpu_torch.parallel.multihost import init_distributed
+    from vtp_tpu_torch.parallel.sharding import CALLS, gather_state_dict
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    torch.cuda.set_device(0)
+    _build.load_library()  # built by the parent: loaded, not rebuilt
+    init_distributed("cuda", backend="gloo", init_method=f"file://{root}/store_zero3",
+                     rank=rank, world_size=2,
+                     timeout=datetime.timedelta(seconds=ZERO3_TIMEOUT_S))
+    world = AxisGroup("world", torch.distributed.group.WORLD, 2, rank)
+    try:
+        cfg, tcfg = _parallel_config(), _parallel_train_config()
+        mesh = make_mesh(2, 1, device="cuda")
+        state = init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 3),
+                           device="cuda", mesh=mesh)
+        tree = fsdp.train_state_tree(state)  # holds the whole leaves it did not cut
+        specs = fsdp.fsdp_state_specs(tree, 2)
+        out = {"rank": rank,
+               "want": fsdp.sharded_bytes(tree, fsdp.held_specs(specs), {"data": 2}),
+               "replicated": fsdp.sharded_bytes(tree, fsdp.fsdp_state_specs(tree, 1),
+                                                {"data": 1})}
+        del tree
+        fsdp.shard_state(state, mesh, specs)
+        torch.cuda.synchronize()
+        out["held"] = torch.cuda.memory_allocated()
+        out["requested"] = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        batch = _parallel_batch(cfg, ZERO3_BATCH)
+        step = build_train_step(cfg, tcfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        CALLS.clear()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
+                   calls={k: v for k, v in CALLS.items() if k.startswith("fsdp")},
+                   metrics={k: float(v) for k, v in metrics.items()}, before=before,
+                   peak=torch.cuda.max_memory_allocated())
+        del batch, step
+        layout = state.layout
+        params = gather_state_dict(state.model)
+        mu = {n: layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m
+              for n, m in state.optimizer.mu.items()}
+        out["digest_rel"] = _state_digest([*params.values(), *mu.values()], world)
+        if rank == 0:
+            out["params"] = {n: t.cpu() for n, t in params.items()}
+            out["mu"] = {n: t.cpu() for n, t in mu.items()}
+        del params, mu, state
+        torch.cuda.empty_cache()
+        out["serve"] = _whole_weight_servers(_parallel_config(PAR_DEPTH),
+                                             make_mesh(1, 2, device="cuda"), rank)
+        torch.save(out, os.path.join(root, f"zero3_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _zero3_tp_rank(rank, root):
+    """One of four ranks sharing the card over gloo (spawned), (c): the
+    VTP-L step at depth PAR_DEPTH (B = PAR_BATCH, remat off) on a ZeRO-3
+    state over (data 2, model 2) with the trunk head-major, its bytes after
+    ``shard_state``, launches, collectives, peak, time and the gathered
+    state's digests (rank 0 writes the gathered parameters and first
+    moments, in the stored head-major layout)."""
+    import datetime
+
+    import torch
+
+    from vtp_tpu_torch import _build
+    from vtp_tpu_torch.ops.dispatch import launch_counts, reset_launch_counts
+    from vtp_tpu_torch.parallel import fsdp
+    from vtp_tpu_torch.parallel.mesh import AxisGroup, make_mesh
+    from vtp_tpu_torch.parallel.multihost import init_distributed
+    from vtp_tpu_torch.parallel.sharding import CALLS, gather_state_dict
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    torch.cuda.set_device(0)
+    _build.load_library()
+    init_distributed("cuda", backend="gloo", init_method=f"file://{root}/store_zero3_tp",
+                     rank=rank, world_size=4,
+                     timeout=datetime.timedelta(seconds=ZERO3_TIMEOUT_S))
+    world = AxisGroup("world", torch.distributed.group.WORLD, 4, rank)
+    try:
+        cfg = _parallel_config(PAR_DEPTH)
+        tcfg = _parallel_train_config(tp_head_major=2)
+        mesh = make_mesh(2, 2, device="cuda")
+        state = init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 5),
+                           device="cuda", mesh=mesh)
+        tree = fsdp.train_state_tree(state)
+        specs = fsdp.fsdp_state_specs(tree, 2, tensor_parallel=True)
+        fsdp.shard_state(state, mesh, specs)
+        sizes = {"data": 2, "model": 2}
+        out = {"rank": rank, "want": fsdp.sharded_bytes(tree, fsdp.held_specs(specs), sizes),
+               "jax_rule": fsdp.sharded_bytes(tree, specs, sizes),
+               "held": sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                            for t in [*state.optimizer.leaves.values(),
+                                      *state.optimizer.mu.values(),
+                                      *state.optimizer.nu.values(),
+                                      *state.teacher.state_dict().values(),
+                                      state.dino_center, state.ibot_center]}.values())}
+        del tree
+        batch = _parallel_batch(cfg, PAR_BATCH)
+        step = build_train_step(cfg, tcfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        CALLS.clear()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, torch.Generator(device="cuda").manual_seed(SEED + 9))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
+                   calls={k: v for k, v in CALLS.items()
+                          if k.startswith("fsdp") or k == "reduce_from_model"},
+                   metrics={k: float(v) for k, v in metrics.items()},
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   hm=state.model.config.vision_qkv_head_major)
+        layout = state.layout
+        params = gather_state_dict(state.model)
+        mu = {n: layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m
+              for n, m in state.optimizer.mu.items()}
+        out["digest_rel"] = _state_digest([*params.values(), *mu.values()], world)
+        if rank == 0:
+            out["params"] = {n: t.cpu() for n, t in params.items()}
+            out["mu"] = {n: t.cpu() for n, t in mu.items()}
+        torch.save(out, os.path.join(root, f"zero3_tp_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def zero3_two_ranks(card, root, ref):
+    """Phase 4d-2 (b), read: each rank's requested bytes after ``shard_state``
+    against ``sharded_bytes`` (within ZERO3_BYTES_SLACK), its launches
+    (exactly ``expected_train_launches``), collectives, peak and time; the
+    two ranks' gathered states equal; rank 0's against the one-process step
+    of phase (a) at ``_hold_step``'s gates. Returns rank 0's launches."""
+    import torch
+
+    cfg, tcfg = _parallel_config(), _parallel_train_config()
+    ranks = [torch.load(os.path.join(root, f"zero3_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    want = expected_train_launches(cfg)
+    for r in ranks:
+        diff = r["requested"] - r["want"]
+        print(f"zero3 (2, 1) full VTP-L rank {r['rank']} on {card}: after shard_state the "
+              f"allocator holds {r['requested']} B requested ({r['held']} B in its blocks, "
+              f"torch.cuda.memory_allocated) against sharded_bytes {r['want']} B (JAX's rule; "
+              f"{diff:+d} B; replicated {r['replicated']} B); step peak "
+              f"{r['peak'] / 1e9:.2f} GB, {(r['peak'] - r['before']) / 1e9:.2f} GB above the "
+              f"{r['before'] / 1e9:.2f} GB held with the batch (torch.cuda.max_memory_allocated); "
+              f"launches {r['launches']} (expected {want}); collectives {r['calls']}; step "
+              f"{r['seconds']:.2f} s (host clock, two ranks on one card over gloo: a "
+              f"correctness run); gathered states {r['digest_rel']:.3e} apart (rel)", flush=True)
+        if not abs(diff) <= ZERO3_BYTES_SLACK:
+            raise AssertionError(f"zero3 rank {r['rank']} holds {r['requested']} B, "
+                                 f"sharded_bytes says {r['want']} B")
+        if r["launches"] != want:
+            raise AssertionError(f"zero3 rank {r['rank']}: launches {r['launches']}, expected "
+                                 f"{want}")
+        if not all(r["calls"].get(k) for k in ("fsdp_gather", "fsdp_regather",
+                                               "fsdp_reduce_scatter")):
+            raise AssertionError(f"zero3 rank {r['rank']} skipped its gathers: {r['calls']}")
+        if r["digest_rel"] != 0.0:
+            raise AssertionError("the two ZeRO-3 ranks' gathered states differ")
+    metrics, ref_params, ref_mu = ref
+    _hold_step("zero3 (2, 1) full VTP-L", ranks[0]["metrics"], metrics, ranks[0]["params"],
+               ref_params, ranks[0]["mu"], ref_mu, tcfg.learning_rate)
+    return ranks[0]["launches"], [r["serve"] for r in ranks]
+
+
+def zero3_tp_ranks(card, root):
+    """Phase 4d-3 (c), read: each of the four ranks' held bytes (storages)
+    equal to ``sharded_bytes`` of ``held_specs``, launches exactly
+    ``expected_train_launches`` at depth PAR_DEPTH, its gathers and the
+    Megatron pair run, the ranks' gathered states equal; rank 0's, its trunk
+    permuted back to canonical, against the one-process step at depth
+    PAR_DEPTH at ``_hold_step``'s gates. Returns rank 0's launches."""
+    import torch
+
+    from vtp_tpu_torch.parallel.sharding import permute_qkv_state_dict
+    from vtp_tpu_torch.train.step import build_train_step, init_state
+
+    cfg, tcfg = _parallel_config(PAR_DEPTH), _parallel_train_config()
+    state = init_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 5),
+                       device="cuda")
+    state, ref = build_train_step(cfg, tcfg)(state, _parallel_batch(cfg, PAR_BATCH),
+                                             torch.Generator(device="cuda").manual_seed(SEED + 9))
+    ref_sd = {n: t.detach() for n, t in state.model.state_dict().items()}
+    ref_mu = dict(state.optimizer.mu)
+    del state
+    ranks = [torch.load(os.path.join(root, f"zero3_tp_rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    want = expected_train_launches(cfg)
+    for r in ranks:
+        print(f"zero3 x tp (2, 2) head-major VTP-L depth {PAR_DEPTH} rank {r['rank']} on {card}: "
+              f"held {r['held']} B, sharded_bytes {r['want']} B (the moments cut as their "
+              f"parameters; JAX's rule {r['jax_rule']} B); launches {r['launches']} (expected "
+              f"{want}); collectives {r['calls']}; peak {r['peak_gb']:.2f} GB; step "
+              f"{r['seconds']:.2f} s (host clock, four ranks on one card over gloo); gathered "
+              f"states {r['digest_rel']:.3e} apart (rel)", flush=True)
+        if r["held"] != r["want"] or r["launches"] != want or r["hm"] != 2:
+            raise AssertionError(f"zero3 x tp rank {r['rank']}: held {r['held']} / "
+                                 f"{r['want']} B, launches {r['launches']}, layout {r['hm']}")
+        if not all(r["calls"].get(k) for k in ("fsdp_gather", "fsdp_regather",
+                                               "fsdp_reduce_scatter", "reduce_from_model")):
+            raise AssertionError(f"zero3 x tp rank {r['rank']}: collectives {r['calls']}")
+        if r["digest_rel"] != 0.0:
+            raise AssertionError("the four ZeRO-3 x TP ranks' gathered states differ")
+    heads = cfg.vision_num_heads
+    canonical = lambda sd: permute_qkv_state_dict(sd, heads, 2, inverse=True)
+    _hold_step(f"zero3 x tp (2, 2) depth {PAR_DEPTH}", ranks[0]["metrics"], ref,
+               canonical(ranks[0]["params"]), ref_sd, canonical(ranks[0]["mu"]), ref_mu,
+               tcfg.learning_rate)
+    return ranks[0]["launches"]
+
+
+def run_parity_probe(card):
+    """Phase 4d-5 (e): ``python -m vtp_tpu_torch.tools.parity_probe --presets
+    PROBE_PRESETS`` as a subprocess (each preset in its own process, with a
+    timeout); its exit code must be 0. Prints its deltas beside the JAX
+    package's round-5 rows, which are TPU figures."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vtp_probe_") as root:
+        path = os.path.join(root, "probe.json")
+        cmd = [sys.executable, "-u", "-m", "vtp_tpu_torch.tools.parity_probe", "--presets",
+               ",".join(PROBE_PRESETS), "--json", path, "--timeout", str(PROBE_PRESET_TIMEOUT_S)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=PROBE_PRESET_TIMEOUT_S * len(PROBE_PRESETS) + 60)
+        seconds = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if line.startswith(("== preset", "kernel arm", "fallback arm", "PARITY")):
+                print(f"parity probe: {line}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+            raise AssertionError(f"the parity probe exited {proc.returncode}")
+        with open(path) as f:
+            result = json.load(f)
+    for r in result["probes"]:
+        tpu = JAX_PROBE_R5[r["preset"]]
+        d = r["deltas"]
+        print(f"parity probe {r['preset']} (B={r['batch']}) on {card}: encode rel "
+              f"{d['latents']['max_rel']:.2e}, clip image {d['clip_image']['max_rel']:.2e}, clip "
+              f"text {d['clip_text']['max_rel']:.2e}, decode {d['decode']['max_rel']:.2e}, "
+              f"loss/total rel {r['loss_rel']['loss/total']:.2e}, grad-norm rel "
+              f"{r['grad_norm_rel']:.2e}; the JAX package's round-5 row (a TPU v5e, not this "
+              f"card): encode {tpu[0]:.1e}, decode {tpu[1]:.1e}, loss/total {tpu[2]:.1e}, "
+              f"grad norm {tpu[3]:.1e}", flush=True)
+    print(f"parity probe: {seconds:.1f} s (host clock, one fresh process a preset)", flush=True)
+
+
+def run_zero3(card):
+    """Phase 4d: ZeRO-3 FSDP, tensor parallelism over int8 and fused-w12
+    weights, the parity probe (see the module docstring). Returns the
+    launch counts of its counted runs."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vtp_tpu_torch.parallel.mesh import make_mesh
+    from vtp_tpu_torch.parallel.multihost import init_distributed
+
+    t0 = time.perf_counter()
+    totals = {}
+
+    def add(run):
+        for k, n in run.items():
+            totals[k] = totals.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory(prefix="vtp_zero3_") as root:
+        init_distributed("cuda", init_method=f"file://{root}/store", rank=0, world_size=1)
+        try:
+            counts, ref = zero3_one_rank(card)
+            add(counts)
+            torch.cuda.empty_cache()
+            full = _parallel_config()
+            nccl = _whole_weight_servers(full, make_mesh(1, 1, device="cuda"))
+        finally:
+            dist.destroy_process_group()
+        add(_hold_whole_weight_servers("zero3 phase (1, 1) NCCL full VTP-L", nccl,
+                                       _whole_weight_servers(full, None), card))
+        del nccl
+        torch.cuda.empty_cache()
+        print(f"zero3: (a) and the (1, 1) servers in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t1 = time.perf_counter()
+        _spawn(_zero3_gloo_rank, 2, ZERO3_TIMEOUT_S, root)
+        print(f"zero3: the two gloo ranks (b, d) in {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        counts, served = zero3_two_ranks(card, root, ref)
+        add(counts)
+        del ref
+        torch.cuda.empty_cache()
+        add(_hold_whole_weight_servers(f"zero3 phase (1, 2) gloo VTP-L depth {PAR_DEPTH}",
+                                       served[0], _whole_weight_servers(
+                                           _parallel_config(PAR_DEPTH), None), card))
+        if any(s[k]["calls"].get("reduce_from_model", 0) == 0 for s in served
+               for k in ("int8", "fused")):
+            raise AssertionError("a (1, 2) server ran no model collective")
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _spawn(_zero3_tp_rank, 4, ZERO3_TIMEOUT_S, root)
+        print(f"zero3: the four gloo ranks (c) in {time.perf_counter() - t1:.1f} s", flush=True)
+        add(zero3_tp_ranks(card, root))
+    torch.cuda.empty_cache()
+    run_parity_probe(card)
+    print(f"zero3, int8 tp, probe: phase in {time.perf_counter() - t0:.1f} s (host clock) on "
+          f"{card}", flush=True)
+    return totals
 
 
 def time_tp_kernels(gen, card):
@@ -2889,7 +3398,7 @@ def run_dit_train(gen, latents):
     if counts != want:
         raise AssertionError(f"DiT train step launches {counts}, expected {want}")
 
-    with _plain_kernels():
+    with plain_kernels():
         plain_state, plain = step(plain_state, latents, labels, gen, draws)
     torch.cuda.synchronize()
     del plain_state
@@ -2962,7 +3471,7 @@ def run_sampling(gen, state, tokenizer, stats):
     noise = torch.randn(shape, generator=gen, device="cuda")
     short = make_sampler(cfg, num_steps=4)
     z = short(state.ema, labels, noise=noise)
-    with _plain_kernels():
+    with plain_kernels():
         z_ref = short(state.ema, labels, noise=noise)
     torch.cuda.synchronize()
     err = ((z - z_ref).abs().max() / z_ref.abs().max()).item()
@@ -3293,7 +3802,7 @@ def run_head_dim_vtp(gen, d):
     high = model.get_latents_decoded_images(latents, precision="high")
     torch.cuda.synchronize()
     tally("high decode", {at_head_dim(HIGH_NAME, d): cfg.decoder_depth})
-    with _plain_kernels():
+    with plain_kernels():
         ref_latents = model.get_reconstruction_latents(images)
         ref_recon = model.get_latents_decoded_images(latents)
         ref_high = model.get_latents_decoded_images(latents, precision="high")
@@ -3325,7 +3834,7 @@ def run_head_dim_vtp(gen, d):
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     tally("train step", expected_train_launches(cfg, d))
-    with _plain_kernels():
+    with plain_kernels():
         _, plain = step(plain_state, batch)
     torch.cuda.synchronize()
     _hold_metrics(f"head dim {d}: train", metrics,
@@ -3380,7 +3889,7 @@ def run_head_dim_dit(gen, d, latents):
     if counts != want:
         raise AssertionError(f"head dim {d} DiT train step launches {counts}, expected {want}")
     total.update(counts)
-    with _plain_kernels():
+    with plain_kernels():
         _, plain = step(plain_state, latents, labels, gen, draws)
     torch.cuda.synchronize()
     _hold_metrics(f"head dim {d}: dit train", metrics,
@@ -3400,7 +3909,7 @@ def run_head_dim_dit(gen, d, latents):
         raise AssertionError(f"head dim {d} sample launches {counts}, expected {want}")
     for name, n in counts.items():
         total[name] = total.get(name, 0) + n
-    with _plain_kernels():
+    with plain_kernels():
         z_ref = short(state.ema, sample_labels, noise=noise)
     torch.cuda.synchronize()
     err = ((z - z_ref).abs().max() / z_ref.abs().max()).item()
@@ -3599,7 +4108,7 @@ def run_recon_eval(gen, model):
           flush=True)
     if counts != want or res["num_samples"] != EVAL_IMAGES:
         raise AssertionError(f"reconstruction eval launches {counts}, expected {want}")
-    with _plain_kernels():
+    with plain_kernels():
         plain = run()
     _hold_metrics("reconstruction eval", res, plain,
                   {"psnr_abs": 0.5, "ssim_abs": 5e-2, "lpips": 5e-2, "rfid": 5e-2})
@@ -3663,7 +4172,7 @@ def run_zero_shot(gen, model):
         counts[name] = counts.get(name, 0) + n
     images = torch.cat([x for x, _ in batches])
     logits = 100.0 * model.get_clip_image_feature(images).float() @ classifier
-    with _plain_kernels():
+    with plain_kernels():
         plain_classifier = build_zero_shot_classifier(model, tokenizer, classnames, templates)
         plain_logits = 100.0 * model.get_clip_image_feature(images).float() @ plain_classifier
     torch.cuda.synchronize()
@@ -3759,7 +4268,7 @@ def run_linear_probe(gen, model):
     if counts != want:
         raise AssertionError(f"linear probe launches {counts}, expected {want}")
     logits = _probe_logits(model, state, val, pcfg)
-    with _plain_kernels():
+    with plain_kernels():
         p_state, p_losses, p_accs = run()
         p_logits = _probe_logits(model, p_state, val, pcfg)
     torch.cuda.synchronize()
@@ -3833,7 +4342,7 @@ def run_text_intermediates(gen, model):
           f"(host clock, one run); kernel launches {counts} (expected {want})", flush=True)
     if counts != want or tower.cfg.layers != cfg.text_depth:
         raise AssertionError(f"text intermediates launches {counts}, expected {want}")
-    with _plain_kernels():
+    with plain_kernels():
         ref = run()
     torch.cuda.synchronize()
     err = max(_rel_err(a, b) for a, b in zip(got, ref))
@@ -3896,7 +4405,7 @@ def run_extras(gen, model):
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             got = launch_counts()
-            with _plain_kernels():
+            with plain_kernels():
                 ref = fn(tower)
         err = _rel_err(out, ref)
         ok = got == want and err <= FEATURE_REL and torch.isfinite(out).all().item()
@@ -3980,7 +4489,7 @@ def gen_extract(gen, tokenizer, lat_dir):
     if not same:
         raise AssertionError("the latent shards or statistics read back differ")
 
-    with _plain_kernels():
+    with plain_kernels():
         refs = [tokenizer.encode_images(x).cpu().numpy() for b in batches for x in b[:2]]
     err = max(float(np.abs(z - r).max() / np.abs(r).max()) for z, r in zip(written, refs))
     ok = err <= FEATURE_REL and all(np.isfinite(z).all() for z in written)
@@ -4041,7 +4550,7 @@ def gen_train(gen, lat_dir):
     # the plain run first, from a copy freed before the counted steps, so
     # that their peak memory is the trainer's own
     plain_state = copy.deepcopy(state)
-    with _plain_kernels():
+    with plain_kernels():
         plain = [step(plain_state, *split(*batches[i]), torch.Generator("cuda").manual_seed(i))[1]
                  for i in range(GEN_TRAIN_STEPS)]
     del plain_state
@@ -4215,7 +4724,7 @@ def gen_sample(model_state, tokenizer, lat_dir, ckpt):
         return counts, z
 
     counts, z = run(model_state.ema, "sample_batches on the DiT-XL/1 EMA")
-    with _plain_kernels():
+    with plain_kernels():
         ((z_ref, _),) = list(sample_batches(model_state.ema, tokenizer, stats, **kw))
     err = ((z - z_ref).abs().max() / z_ref.abs().max()).item()
     ok = err <= FEATURE_REL and torch.isfinite(z).all().item()
@@ -4482,6 +4991,11 @@ def main() -> int:
     del latents
     torch.cuda.empty_cache()
 
+    # its own seeds: the phases before it drew what they drew before
+    _set_phase("fsdp zero3, int8 tp, probe")
+    zero3_counts = run_zero3(card_line)
+    torch.cuda.empty_cache()
+
     # launches: each arm's count summed over the main paths' runs (one
     # roundtrip, one high roundtrip, the serve run, the int8 serving phase's
     # counted runs, the int8 sampling phase's, one head-major roundtrip,
@@ -4495,7 +5009,8 @@ def main() -> int:
     for run in (high_counts, serve_counts, int8_counts, int8_sample_counts, hm_counts,
                 text_counts, eval_counts, zs_counts,
                 probe_counts, ti_counts, extras_counts, train_counts, vtp_counts, parallel_counts,
-                cp_pp_counts, dit_counts, sample_counts, gen_counts, *head_dim_counts):
+                cp_pp_counts, dit_counts, sample_counts, gen_counts, *head_dim_counts,
+                zero3_counts):
         for name, n in run.items():
             counts[name] = counts.get(name, 0) + n
     _set_phase("timing")

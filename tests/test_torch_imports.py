@@ -55,6 +55,7 @@ def test_port_and_chip_smoke_import_with_jax_and_extras_refused():
                 "vtp_tpu_torch.parallel", "vtp_tpu_torch.parallel.sharding",
                 "vtp_tpu_torch.parallel.mesh", "vtp_tpu_torch.parallel.multihost",
                 "vtp_tpu_torch.parallel.fsdp", "vtp_tpu_torch.tools.fsdp_plan",
+                "vtp_tpu_torch.tools.parity_probe", "vtp_tpu_torch.ops.dispatch",
                 "vtp_tpu_torch.ops.attention", "vtp_tpu_torch.utils.image",
                 "vtp_tpu_torch.data", "vtp_tpu_torch.data.imagefolder", "vtp_tpu_torch.data.loader",
                 "vtp_tpu_torch.metrics", "vtp_tpu_torch.metrics.psnr", "vtp_tpu_torch.metrics.ssim",

@@ -15,6 +15,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_dist import run_ranks
 from tests.torch_parallel_workers import shard_slabs
@@ -104,6 +105,110 @@ def test_fsdp_specs_and_sharded_bytes_match_jax():
         assert fsdp._add_data_axis((None,) * len(shape), shape, n, 1) == tuple(
             jfsdp._add_data_axis(jax.sharding.PartitionSpec(*((None,) * len(shape))), shape,
                                  n, 1))
+
+
+_OWNERS = {"qkv", "w1", "w2", "fc1", "c_fc", "in_proj", "proj", "w3", "fc2", "c_proj",
+           "out_proj"}
+
+
+def _jax_view(flat):
+    """A flat port tree (leaves by port name, torch layout) as a nested tree
+    under JAX's leaf names, of ``jax.ShapeDtypeStruct``s: a 2-D weight of a
+    column or row owner (the text ``in_proj`` included) becomes its owner's
+    ``kernel`` in JAX's (in, out) layout, the token embedding JAX's
+    ``token_embedding`` leaf, and every other leaf keeps its path and layout.
+    Returns the view and each port name's JAX path and whether it was
+    transposed."""
+    import jax.numpy as jnp
+
+    view, where = {}, {}
+    for name, t in flat.items():
+        parts = name.split(".")
+        shape, flip = tuple(t.shape), False
+        if parts[-1] in ("in_proj_weight", "in_proj_bias"):
+            parts = parts[:-1] + ["in_proj", parts[-1][len("in_proj_"):]]
+        if parts[-2:] == ["token_embedding", "weight"]:
+            parts = parts[:-1]
+        elif parts[-1] == "weight" and len(shape) == 2 and parts[-2] in _OWNERS:
+            parts, shape, flip = parts[:-1] + ["kernel"], shape[::-1], True
+        node = view
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        dtype = jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32
+        node[parts[-1]] = jax.ShapeDtypeStruct(shape, dtype)
+        where[name] = (tuple(parts), flip)
+    return view, where
+
+
+def _at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tuple(tree)
+
+
+def _state_view(tree):
+    parts = {k: _jax_view(tree[k]) for k in ("params", "teacher")}
+    parts["opt_state"] = {m: _jax_view(tree["opt_state"][m]) for m in ("mu", "nu")}
+    view = {"params": parts["params"][0], "teacher": parts["teacher"][0],
+            "opt_state": {m: v[0] for m, v in parts["opt_state"].items()},
+            "centers": {k: jax.ShapeDtypeStruct(tuple(v.shape), np.float32)
+                        for k, v in tree["centers"].items()}}
+    return view, parts
+
+
+def _meta_tree(cfg, train_kw):
+    from vtp_tpu_torch.tools.fsdp_plan import meta_train_state
+    from vtp_tpu_torch.train.step import TrainConfig
+
+    return fsdp.train_state_tree(meta_train_state(cfg, TrainConfig(**train_kw)))
+
+
+def test_fsdp_tensor_parallel_specs_match_jax():
+    """``fsdp_state_specs(..., tensor_parallel=True)`` on the port's tree
+    (port names, torch layout) against JAX's on the same tree under JAX's
+    names: the parameters' and the teacher's specs dim for dim (a kernel's
+    transposed), the moments' axes leaf for leaf (a square kernel's tie
+    breaks on another dim in the other layout), and ``sharded_bytes`` at
+    (2, 2) equal, with the data axis on a dim other than the model's."""
+    from vtp_tpu_torch.config import VTPConfig
+
+    tree = _meta_tree(VTPConfig(**CFG), TRAIN)
+    view, parts = _state_view(tree)
+    mesh = jax_make_mesh(2, 2, devices=jax.devices()[:4])
+    n_both = 0
+    for min_elems in (256, jfsdp.DEFAULT_MIN_ELEMS):
+        got = fsdp.fsdp_state_specs(tree, 2, tensor_parallel=True, min_elems=min_elems)
+        want = jfsdp.fsdp_state_specs(view, 2, tensor_parallel=True, min_elems=min_elems)
+        for key in ("params", "teacher"):
+            for name, (path, flip) in parts[key][1].items():
+                w = _at(want[key], path)
+                w = w + (None,) * (len(got[key][name]) - len(w))
+                assert got[key][name] == (w[::-1] if flip else w), (key, name)
+                n_both += {"data", "model"} <= set(got[key][name])
+        for m in ("mu", "nu"):
+            for name, (path, _) in parts["opt_state"][m][1].items():
+                assert sorted(a for a in got["opt_state"][m][name] if a) == \
+                    sorted(a for a in _at(want["opt_state"][m], path) if a), name
+        assert fsdp.sharded_bytes(tree, got, {"data": 2, "model": 2}) == \
+            jfsdp.sharded_bytes(view, want, mesh)
+    assert n_both > 0
+
+
+def test_fsdp_plan_vtp_large_matches_jax_sharded_bytes():
+    """``tools/fsdp_plan.py``'s VTP-L figures at data 2 / 4 / 8 (host
+    arithmetic on the meta-device state): both columns equal JAX's
+    ``sharded_bytes`` of its own ``fsdp_state_specs`` on the same tree."""
+    from vtp_tpu_torch.tools import fsdp_plan
+
+    rows = fsdp_plan.plan("vtp-large", [2, 4, 8], 65536, "fp32")
+    from vtp_tpu_torch.config import vtp_large
+
+    view, _ = _state_view(_meta_tree(vtp_large(), {"dino_out_dim": 65536}))
+    for n in (2, 4, 8):
+        mesh = jax_make_mesh(n, 1, devices=jax.devices()[:n])
+        want = jfsdp.sharded_bytes(view, jfsdp.fsdp_state_specs(view, n), mesh)
+        assert rows["jax_rule"][f"data={n}"] == rows["port"][f"data={n}"] == want, n
+    assert rows["jax_rule"]["data=2"] < rows["replicated_bytes"]
 
 
 @pytest.fixture(scope="module")

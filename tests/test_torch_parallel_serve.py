@@ -13,7 +13,10 @@ within 1e-4 abs of direct calls (fp32, as the JAX test), the tokenizer and
 the reconstruction within 1e-5 rel (the same rows, split), the hit counts
 and the resumed run exactly. A second spawn of two ranks breaks one rank's
 encode: the batch fails on rank 0, the server stops there, and the broken
-rank's ``shutdown()`` raises its error."""
+rank's ``shutdown()`` raises its error; before it, in the same spawn,
+``VTPServer`` over a (1, 2) mesh serves a model with every tower in int8
+(bit-equal to one process) and one with fused ``w12`` FFNs (fp32 within
+1e-5), the counterparts of JAX's replicated ``{q, scale}`` and ``w12``."""
 
 import json
 import os
@@ -24,7 +27,13 @@ import torch
 from PIL import Image
 
 from tests.torch_dist import run_ranks
-from tests.torch_parallel_workers import serve_and_data, serve_worker_failure
+from tests.torch_parallel_workers import (
+    run_both,
+    serve_and_data,
+    serve_whole_weights,
+    serve_worker_failure,
+    whole_weight_model,
+)
 from vtp_tpu_torch import VTPConfig, VTPModel
 from vtp_tpu_torch.convert import save_hf_checkpoint
 from vtp_tpu_torch.convert.safetensors_io import load_safetensors
@@ -165,17 +174,78 @@ def test_train_vtp_mesh_tp_head_major_sp_resumes(runs):
         assert json.load(f) == {"qkv_head_major": 2}
 
 
-def test_server_worker_failure_stops_every_rank(tmp_path):
-    """A worker rank whose model raises ends its loop and re-raises from its
-    ``shutdown()``; rank 0's futures for that batch fail (its all-gather
-    loses the peer), it serves no more requests, and nothing hangs."""
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """One spawn of two ranks: the int8 and fused-``w12`` servers over a (1,
+    2) mesh (``serve_whole_weights``), then the broken worker
+    (``serve_worker_failure``); and the same whole-weight models' direct
+    calls in one process."""
     model = VTPModel.init(VTPConfig(**CFG), torch.Generator().manual_seed(0), device="cpu",
                           encode_dtype=None)
     from vtp_tpu_torch.convert.to_torch import export_state_dict
 
-    images = np.random.default_rng(1).standard_normal((4, 3, 32, 32)).astype(np.float32)
-    ranks = run_ranks(serve_worker_failure, 2, tmp_path, CFG, export_state_dict(model), images,
-                      timeout=240)
+    sd = export_state_dict(model)
+    rng = np.random.default_rng(1)
+    images = rng.standard_normal((4, 3, 32, 32)).astype(np.float32)
+    text = rng.integers(1, 127, (4, 8)).astype(np.int64)
+    latents = rng.standard_normal((4, 16, 2, 2)).astype(np.float32)
+    ranks = run_ranks(run_both, 2, tmp_path_factory.mktemp("two"),
+                      (serve_whole_weights, (CFG, sd, images, text, latents)),
+                      (serve_worker_failure, (CFG, sd, images)), timeout=300)
+    one = {}
+    for kind in ("int8", "fused"):
+        m = whole_weight_model(CFG, sd, kind)
+        x = torch.tensor(images)
+        with torch.no_grad():
+            one[kind] = {"encode": m.get_reconstruction_latents(x),
+                         "decode": m.get_latents_decoded_images(torch.tensor(latents)),
+                         "clip_image": m.get_clip_image_feature(x, True, None),
+                         "clip_text": m.get_clip_text_feature(torch.tensor(text), True, None)}
+        one[kind] = {k: v.float().numpy() for k, v in one[kind].items()}
+        one[f"{kind}_shapes"] = {n: tuple(t.shape) for n, t in m.state_dict().items()
+                                 if n.endswith((".q", ".scale"))}
+    return [r[0] for r in ranks], [r[1] for r in ranks], one
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode", "clip_image", "clip_text"])
+def test_int8_server_over_model_axis_is_bit_equal(two_ranks, kind):
+    """Every tower in int8 over a (1, 2) mesh: each int8 unit keeps its
+    codes, scales and heads whole on both ranks and runs with no model
+    collective (only the float token embedding is cut, and its sum adds
+    zeros), so the server equals the one-process model bit for bit; the
+    same model with ``tp_head_major`` stores its trunk qkv head-major and
+    runs it whole on the split path, within 1e-4."""
+    whole, _, one = two_ranks
+    for r in whole:
+        assert r["int8"]["tp_units"] == 0 and r["int8"]["units"] > 0
+        assert r["int8"]["int8_shapes"] == one["int8_shapes"]
+        assert r["int8"]["hm"] == 1 and r["int8_head_major"]["hm"] == 2
+    assert "reduce_from_model" in whole[0]["int8"]["collectives"]  # the embedding
+    got = whole[0]["int8"]["serve"][kind]
+    np.testing.assert_array_equal(got, one["int8"][kind])
+    np.testing.assert_allclose(whole[0]["int8_head_major"]["serve"][kind], one["int8"][kind],
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode", "clip_image", "clip_text"])
+def test_fused_w12_server_over_model_axis(two_ranks, kind):
+    """The SwiGLU FFNs fused over a (1, 2) mesh: ``w12`` whole on both ranks
+    (each takes its columns of the hidden), ``w3`` and the attention cut;
+    fp32 within 1e-5 of the one-process model."""
+    whole, _, one = two_ranks
+    for r in whole:
+        assert r["fused"]["tp_units"] == r["fused"]["units"] > 0
+    got = whole[0]["fused"]["serve"][kind]
+    assert got.shape == one["fused"][kind].shape
+    np.testing.assert_allclose(got, one["fused"][kind], atol=1e-5, rtol=1e-5)
+    assert whole[0]["fused"]["calls"][kind] == 1
+
+
+def test_server_worker_failure_stops_every_rank(two_ranks):
+    """A worker rank whose model raises ends its loop and re-raises from its
+    ``shutdown()``; rank 0's futures for that batch fail (its all-gather
+    loses the peer), it serves no more requests, and nothing hangs."""
+    _, ranks, _ = two_ranks
     assert ranks[1]["raised"] == "rank 1 encode failed"
     assert ranks[0]["first"] is not None
     assert ranks[0]["later"] is not None and "shut down" in ranks[0]["later"]

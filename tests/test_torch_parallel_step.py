@@ -10,8 +10,10 @@ JAX step's draws. Arms, each one train step from the JAX state:
   * one process without a mesh (drop_shards alone, as the JAX package runs
     it on one device);
   * DP (2, 1) and head-major TP (1, 2) on two ranks;
-  * DP x TP + SP (2, 2) and FSDP (4, 1) on four ranks (FSDP with
-    ``min_elems = 256`` so that the tiny model's leaves shard);
+  * DP x TP + SP (2, 2), ZeRO-3 FSDP (4, 1) and ZeRO-3 FSDP x head-major
+    TP (2, 2) on four ranks (FSDP with ``min_elems = 256`` so that the tiny
+    model's leaves shard); the (4, 1) state is also saved and restored into
+    a replicated state and back;
   * the DiT step data-parallel on two ranks, against the JAX reference
     step of ``test_torch_dit.py``.
 
@@ -62,7 +64,9 @@ B, N_LOCAL, SHARDS = 4, 2, 2
 ARMS2 = [("dp_2x1", (2, 1), {}, False),
          ("tp_1x2_head_major", (1, 2), {"tp_head_major": 2}, False)]
 ARMS4 = [("dp_tp_sp_2x2", (2, 2), {"sequence_parallel": True}, False),
-         ("fsdp_4x1", (4, 1), {}, True)]
+         ("fsdp_4x1", (4, 1), {}, True),
+         ("fsdp_tp_2x2", (2, 2), {"tp_head_major": 2}, True)]
+HEAD_MAJOR = {"tp_1x2_head_major", "fsdp_tp_2x2"}
 ARMS = [a[0] for a in ARMS2 + ARMS4]
 DIT = dict(input_size=4, in_channels=8, dim=128, depth=2, num_heads=2, num_classes=10)
 DIT_TRAIN = dict(learning_rate=1e-3, total_steps=3, ema_decay=0.5, class_dropout_prob=0.5,
@@ -214,7 +218,7 @@ def runs(tmp_path_factory):
                     (vtp_step_arms, (CFG, TRAIN, ARMS2, params, teacher, batch, draws)),
                     (dit_dp_step, (DIT, DIT_TRAIN, port_params, latents, labels, ddraws)))
     four = run_ranks(vtp_step_arms, 4, tmp_path_factory.mktemp("step4"), CFG, TRAIN, ARMS4,
-                     params, teacher, batch, draws)
+                     params, teacher, batch, draws, str(tmp_path_factory.mktemp("ckpt4")))
     got.update(two[0][0])
     got.update(four[0])
     return want, got, dit_want, two[0][1], (two, four)
@@ -229,7 +233,7 @@ def _gate_metrics(got, want):
 
 
 def _canonical(sd, arm):
-    if "head_major" in arm:
+    if arm in HEAD_MAJOR:
         return permute_qkv_state_dict(sd, CFG["vision_num_heads"], 2, inverse=True)
     return sd
 
@@ -259,22 +263,47 @@ def test_vtp_step_state_matches_jax(runs, arm):
 
 
 def test_arms_layouts(runs):
-    """The head-major arm keeps its trunk declared head-major; the FSDP
-    arm's slabs gather to the parameters the forward reads, and its rank
-    holds ``resident_bytes`` of storage; SP runs its
+    """The head-major arms keep their trunk declared head-major; the ZeRO-3
+    arms' optimizer leaves are the modules' own slabs, read whole through
+    their gathers (each reduce-scattered in the backward), and a rank holds
+    ``sharded_bytes`` of its state: JAX's rule at a model axis of 1, and
+    over a model axis that rule with the moments cut as their parameters
+    (``fsdp.held_specs``; JAX's moments take no model dim); SP runs its
     row collectives, plain TP only the Megatron pair, DP none of them."""
     _, got, *_ = runs
     assert got["tp_1x2_head_major"]["config_hm"] == 2
+    assert got["fsdp_tp_2x2"]["config_hm"] == 2
     assert got["dp_2x1"]["config_hm"] == 1
-    assert got["fsdp_4x1"]["leaves_match_modules"]
-    # a rank holds what fsdp.resident_bytes says, less than the replicated state
+    for arm in ("fsdp_4x1", "fsdp_tp_2x2"):
+        assert got[arm]["leaves_are_modules"], arm
+        calls = got[arm]["calls"]
+        assert calls["fsdp_gather"] > 0 and calls["fsdp_reduce_scatter"] > 0, (arm, calls)
+        assert calls["fsdp_regather"] > 0, (arm, calls)
     held = got["fsdp_4x1"]["bytes"]
-    assert held["held"] == held["predicted"] < held["replicated"]
+    assert held["held"] == held["jax_rule"] == held["held_specs"] < held["replicated"]
+    held = got["fsdp_tp_2x2"]["bytes"]
+    assert held["held"] == held["held_specs"] < held["jax_rule"] < held["replicated"]
+    assert got["fsdp_tp_2x2"]["calls"].get("reduce_from_model", 0) > 0
     assert got["dp_tp_sp_2x2"]["calls"].get("gather_seq", 0) > 0
     assert got["dp_tp_sp_2x2"]["calls"].get("reduce_scatter_seq", 0) > 0
     assert got["tp_1x2_head_major"]["calls"].get("gather_seq", 0) == 0
     assert got["tp_1x2_head_major"]["calls"].get("reduce_from_model", 0) > 0
     assert got["dp_2x1"]["calls"].get("gather_with_grad", 0) > 0
+
+
+@pytest.mark.parametrize("arm", ["fsdp_4x1", "fsdp_tp_2x2"])
+def test_zero3_checkpoint_roundtrip(runs, arm):
+    """A ZeRO-3 state (the (2, 2) arm's beside a head-major model axis),
+    saved, restores into a replicated state equal to its gathered slabs, and
+    that state, saved, restores into a fresh ZeRO-3 state equal to the
+    first, each bit for bit: the format on disk is the whole tensors,
+    whatever the layout that wrote it. ``slab`` and ``gather`` invert each
+    other on every sharded leaf, the trunk stored canonical or head-major."""
+    *_, (two, four) = runs
+    for r in four:
+        assert r[arm]["roundtrip"] == {"to_replicated": True, "to_zero3": True}
+        assert all(r[arm]["slab_gather"].values()) and len(r[arm]["slab_gather"]) == (
+            2 if arm == "fsdp_tp_2x2" else 1)
 
 
 def test_ranks_agree(runs):

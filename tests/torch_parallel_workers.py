@@ -6,6 +6,7 @@ rank's where the test compares ranks)."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -151,30 +152,99 @@ def _gathered_state(state, fsdp_on: bool):
            "mu": {n: _np(layout.gather(n, m) if layout.is_sharded(n, m.ndim) else m)
                   for n, m in state.optimizer.mu.items()},
            "dino_center": _np(state.dino_center), "ibot_center": _np(state.ibot_center)}
-    if fsdp_on:  # the slabs the optimizer holds gather to the module's parameters
-        out["leaves_match_modules"] = all(
-            torch.equal(layout.gather(n, p), state.fsdp.full[n])
-            for n, p in state.optimizer.leaves.items() if n in state.fsdp.dims)
+    if fsdp_on:  # ZeRO-3: the optimizer's sharded leaves are the modules' own slabs
+        own = dict(state.model.named_parameters())
+        own.update((f"dino_head.{n}", p) for n, p in state.dino_head.named_parameters())
+        out["leaves_are_modules"] = all(state.optimizer.leaves[n] is own[n]
+                                        for n in state.fsdp.dims)
     return out
 
 
 def _held_bytes(state) -> int:
     """Bytes of the distinct storages behind a train state's tensors (the
-    modules' trained leaves, the optimizer's leaves and moments, the teacher
-    and the centers)."""
+    optimizer's leaves, which are the modules' trained leaves, its moments,
+    the teacher and the centers)."""
     opt = state.optimizer
-    tensors = [*opt.leaves.values(), *state.fsdp.full.values(), *opt.mu.values(),
-               *opt.nu.values(), *state.teacher.state_dict().values(), state.dino_center,
-               state.ibot_center]
+    tensors = [*opt.leaves.values(), *opt.mu.values(), *opt.nu.values(),
+               *state.teacher.state_dict().values(), state.dino_center, state.ibot_center]
     return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
                 for t in tensors}.values())
 
 
-def vtp_step_arms(rank, world, cfg_kw, train_kw, arms, params, teacher, batch, draws):
+def _slab_gather_identity(state):
+    """For the state's layout with the trunk stored canonical (1) and
+    head-major for the model axis: ``gather(slab(t)) == t`` for a seeded
+    whole ``t`` of every sharded leaf's shape (the same on every rank)."""
+    import dataclasses
+
+    layout, out = state.layout, {}
+    tp = layout.model.size if layout.model is not None else 1
+    for hm in sorted({1, tp}):
+        lay = dataclasses.replace(layout, head_major={"trunk": hm})
+        gen = torch.Generator().manual_seed(0)
+        ok = True
+        for n, t in state.optimizer.leaves.items():
+            if lay.is_sharded(n, t.ndim):
+                full = torch.randn(lay.full_shape(n, t.shape), generator=gen)
+                ok &= torch.equal(lay.gather(n, lay.slab(n, full)), full)
+        out[hm] = ok
+    return out
+
+
+def _state_tensors(state):
+    from vtp_tpu_torch.checkpoint import train_state_tensors
+
+    return {k: v.detach().clone() for k, v in train_state_tensors(state).items()}
+
+
+def _zero3_roundtrip(rank, state, cfg, tcfg, mesh, specs, ckpt_dir):
+    """The ZeRO-3 ``state`` saved and restored into a replicated state (no
+    mesh), which is saved and restored into a fresh ZeRO-3 state: whether
+    the replicated state equals the gathered slabs and the second ZeRO-3
+    state the first, each bit for bit (counters included)."""
+    import os
+
+    from vtp_tpu_torch.checkpoint import restore_train_state, save_train_state
+    from vtp_tpu_torch.train.step import init_state
+
+    layout = state.layout
+    first = os.path.join(ckpt_dir, "zero3")
+    save_train_state(first, state)
+    dist.barrier()
+    whole = restore_train_state(first, init_state(cfg, tcfg, device="cpu"))
+    mine = _state_tensors(state)
+    from vtp_tpu_torch.checkpoint import _sharded
+
+    gathered = {k: (layout.gather(leaf, v) if (leaf := _sharded(layout, k, v)) else v)
+                for k, v in mine.items()}
+    whole_t = _state_tensors(whole)
+    to_whole = (set(gathered) == set(whole_t) and whole.step == state.step
+                and whole.optimizer.count == state.optimizer.count
+                and all(torch.equal(gathered[k], whole_t[k]) for k in gathered))
+    second = os.path.join(ckpt_dir, "replicated")
+    save_train_state(second, whole)  # rank 0 writes its replicated copy
+    dist.barrier()
+    fresh = init_state(cfg, tcfg, device="cpu", mesh=mesh)
+    from vtp_tpu_torch.parallel import fsdp as fsdp_mod
+
+    fsdp_mod.shard_state(fresh, mesh, specs)
+    back = _state_tensors(restore_train_state(second, fresh))
+    to_zero3 = (set(back) == set(mine) and fresh.step == state.step
+                and all(torch.equal(back[k], mine[k]) for k in mine))
+    dist.barrier()
+    return {"to_replicated": to_whole, "to_zero3": to_zero3}
+
+
+def vtp_step_arms(rank, world, cfg_kw, train_kw, arms, params, teacher, batch, draws,
+                  ckpt_dir=None):
     """Each arm ``(name, (n_data, n_model), TrainConfig overrides, fsdp)``:
     one VTP train step from the state ``params`` / ``teacher`` (numpy, the
     reference names) on the global ``batch`` with the global ``draws``;
-    rank 0 returns the metrics and the gathered state."""
+    rank 0 returns the metrics and the gathered state. An FSDP arm shards
+    the state ZeRO-3 (``fsdp_state_specs(..., tensor_parallel=n_model > 1)``),
+    reports the bytes a rank holds, checks ``slab`` and ``gather`` against
+    each other and, with ``ckpt_dir``, saves and restores its state
+    (``_zero3_roundtrip``)."""
     from vtp_tpu_torch.train.state import load_numpy_train_state
     from vtp_tpu_torch.train.step import build_train_step, distribute_state, init_state
 
@@ -188,9 +258,12 @@ def vtp_step_arms(rank, world, cfg_kw, train_kw, arms, params, teacher, batch, d
         distribute_state(state, tcfg_arm, mesh)
         if fsdp_on:
             tree = fsdp_mod.train_state_tree(state)
-            specs = fsdp_mod.fsdp_state_specs(tree, shape[0], min_elems=256)
+            specs = fsdp_mod.fsdp_state_specs(tree, shape[0], tensor_parallel=shape[1] > 1,
+                                              min_elems=256)
             fsdp_mod.shard_state(state, mesh, specs)
-            held = {"predicted": fsdp_mod.resident_bytes(tree, specs, shape[0]),
+            sizes = {"data": shape[0], "model": shape[1]}
+            held = {"jax_rule": fsdp_mod.sharded_bytes(tree, specs, sizes),
+                    "held_specs": fsdp_mod.sharded_bytes(tree, fsdp_mod.held_specs(specs), sizes),
                     "replicated": fsdp_mod.sharded_bytes(
                         tree, fsdp_mod.fsdp_state_specs(tree, 1), {"data": 1}),
                     "held": _held_bytes(state)}
@@ -202,6 +275,10 @@ def vtp_step_arms(rank, world, cfg_kw, train_kw, arms, params, teacher, batch, d
         res.update(_gathered_state(state, fsdp_on))
         if fsdp_on:
             res["bytes"] = held
+            res["slab_gather"] = _slab_gather_identity(state)
+            if ckpt_dir is not None:
+                res["roundtrip"] = _zero3_roundtrip(rank, state, cfg, tcfg_arm, mesh, specs,
+                                                    os.path.join(ckpt_dir, name))
         out[name] = res
     return out
 
@@ -304,6 +381,55 @@ def serve_and_data(rank, world, cfg_kw, sd, images, text, latents, classifier, t
     out["cli"] = {"straight": straight["metrics"], "first": first["metrics"],
                   "resumed": resumed["metrics"], "start": resumed["start_step"],
                   "hm": straight["state"].model.config.vision_qkv_head_major}
+    return out
+
+
+def whole_weight_model(cfg_kw, sd, kind):
+    """The model ``sd`` with every tower's linears in int8 (``"int8"``,
+    ``quantize_for_serving``) or its SwiGLU FFNs fused (``"fused"``,
+    ``fuse_ffn_params``)."""
+    from vtp_tpu_torch.utils.params import fuse_ffn_params
+
+    model = VTPModel(VTPConfig(**cfg_kw), device="cpu", encode_dtype=None)
+    model.load_numpy_state_dict(sd)
+    if kind.startswith("int8"):
+        return model.quantize_for_serving(("trunk", "text", "pixel_decoder"))
+    return fuse_ffn_params(model)
+
+
+def serve_whole_weights(rank, world, cfg_kw, sd, images, text, latents):
+    """``VTPServer`` over a (1, 2) mesh on the int8 model, on the int8 model
+    with ``tp_head_major`` and on the fused-``w12`` model: rank 0's results
+    of every kind, the model calls and the collectives; every rank's
+    declared trunk layout and whether its int8 units stayed whole."""
+    from vtp_tpu_torch.models.blocks import Attention, Mlp, SwiGLUFFN
+    from vtp_tpu_torch.models.text_encoder import ResidualAttentionBlock
+    from vtp_tpu_torch.serve import VTPServer
+
+    UNITS = (Attention, SwiGLUFFN, Mlp, ResidualAttentionBlock)
+    mesh = make_mesh(1, 2, device="cpu")
+    images, latents = torch.from_numpy(images), torch.from_numpy(latents)
+    text = torch.from_numpy(text).long()
+    out = {}
+    for kind in ("int8", "int8_head_major", "fused"):
+        model = whole_weight_model(cfg_kw, sd, kind)
+        sharding.CALLS.clear()
+        srv = VTPServer(model, batch_size=4, max_wait_ms=20, warmup=False, mesh=mesh,
+                        tp_head_major=kind.endswith("head_major"))
+        units = [m for m in model.modules() if isinstance(m, UNITS)]
+        res = {"hm": model.config.vision_qkv_head_major,
+               "tp_units": sum(m.tp is not None for m in units), "units": len(units),
+               "int8_shapes": {n: tuple(t.shape) for n, t in model.state_dict().items()
+                               if n.endswith((".q", ".scale"))}}
+        if rank == 0:
+            futs = {"encode": srv.submit_encode(images), "decode": srv.submit_decode(latents),
+                    "clip_image": srv.submit_clip_image(images),
+                    "clip_text": srv.submit_clip_text(text)}
+            res["serve"] = {k: f.result(timeout=120).float().numpy() for k, f in futs.items()}
+            res["calls"] = dict(srv.calls)
+        srv.shutdown()
+        res["collectives"] = dict(sharding.CALLS)
+        out[kind] = res
     return out
 
 

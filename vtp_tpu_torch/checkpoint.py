@@ -157,22 +157,26 @@ def train_state_tensors(state: Any) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _leaf_of(name: str) -> Tuple[Optional[str], bool]:
-    """A train-state tensor's model leaf name and whether it is an optimizer
-    moment (which FSDP shards too); (None, False) for the others."""
+def _leaf_of(name: str) -> Optional[str]:
+    """A train-state tensor's leaf name in the shard layout (the student's,
+    the teacher's and the moments' share it); None for the others."""
     head, _, rest = name.partition("/")
     if head in ("model", "teacher"):
-        return rest, False
+        return rest
+    if head == "dino_head":
+        return f"dino_head.{rest}"
     if head == "optimizer":
-        return rest.partition("/")[2], True
-    return None, False
+        return rest.partition("/")[2]
+    return None
 
 
-def _sharded(layout, name: str, t: torch.Tensor) -> Tuple[Optional[str], bool]:
-    leaf, fsdp = _leaf_of(name)
-    if layout is None or leaf is None or not layout.is_sharded(leaf, t.ndim, fsdp):
-        return None, False
-    return leaf, fsdp
+def _sharded(layout, name: str, t: torch.Tensor) -> Optional[str]:
+    """The layout's leaf name of a train-state tensor that a distributed
+    state holds as a slab (model- or data-sharded), else None."""
+    leaf = _leaf_of(name)
+    if layout is None or leaf is None or not layout.is_sharded(leaf, t.ndim):
+        return None
+    return leaf
 
 
 def _counters(state: Any) -> Dict[str, int]:
@@ -216,9 +220,9 @@ def save_train_state(directory: str, state: Any, step: Optional[int] = None,
     layout = getattr(state, "layout", None)
     arrays, bf16 = {}, []
     for name, t in train_state_tensors(state).items():
-        leaf, fsdp = _sharded(layout, name, t)
+        leaf = _sharded(layout, name, t)
         if leaf is not None:  # a collective: every rank gathers, rank 0 writes
-            t = layout.gather(leaf, t, fsdp)
+            t = layout.gather(leaf, t)
         if not is_main_process():
             continue
         t = t.detach().to("cpu", copy=True)
@@ -281,8 +285,8 @@ def restore_train_state(directory: str, template: Any, step: Optional[int] = Non
                          f"{missing[:10]}, unexpected {extra[:10]}")
     bad = []
     for name, t in tensors.items():
-        leaf, fsdp = _sharded(layout, name, t)
-        shape = tuple(t.shape) if leaf is None else layout.full_shape(leaf, t.shape, fsdp)
+        leaf = _sharded(layout, name, t)
+        shape = tuple(t.shape) if leaf is None else layout.full_shape(leaf, t.shape)
         if tuple(header[name]["shape"]) != shape:
             raise ValueError(f"checkpoint {path}: {name} has shape {header[name]['shape']}, "
                              f"the template {shape}")
@@ -297,9 +301,7 @@ def restore_train_state(directory: str, template: Any, step: Optional[int] = Non
     with torch.no_grad():
         for name, t in tensors.items():
             full = torch.from_numpy(arrays[name])
-            leaf, fsdp = _sharded(layout, name, t)
-            t.copy_(full if leaf is None else layout.slab(leaf, full, fsdp))
+            leaf = _sharded(layout, name, t)
+            t.copy_(full if leaf is None else layout.slab(leaf, full))
     _set_counters(template, {k: int(arrays[k]) for k in counters})
-    if getattr(template, "fsdp", None) is not None:
-        template.fsdp.refresh(template)
     return template

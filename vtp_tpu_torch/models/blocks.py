@@ -95,6 +95,7 @@ from vtp_tpu_torch.parallel.pipeline import maybe_pipeline_blocks
 from vtp_tpu_torch.parallel.sharding import (
     ContextParallel,
     PipelineParallel,
+    copy_to_model,
     sp_param,
     split_seq,
     tp_enter,
@@ -315,9 +316,19 @@ class SwiGLUFFN(nn.Module):
         if self.tp is None:
             return swiglu(x, self.w1, self.w2, self.w3, compute_dtype, precision, self.w12)
         x = tp_enter(x, self.tp, sp)
-        h = (F.silu(linear(x, self.w1.weight, self.w1.bias, compute_dtype, precision))
-             * linear(x, self.w2.weight, self.w2.bias, compute_dtype, precision))
-        return _row_parallel(h, self.w3, self.tp, sp, compute_dtype, precision)
+        if self.w12 is not None:
+            # a fused w12 stays whole: the whole product, then this rank's
+            # columns of each half (its gradient sums over the model group)
+            axis = self.tp.axis
+            w12 = self.w12
+            bias = None if w12.bias is None else copy_to_model(w12.bias, axis)
+            x1, x2 = (t.chunk(axis.size, dim=-1)[axis.rank] for t in linear(
+                x, copy_to_model(w12.weight, axis), bias, compute_dtype,
+                precision).chunk(2, dim=-1))
+        else:
+            x1 = linear(x, self.w1.weight, self.w1.bias, compute_dtype, precision)
+            x2 = linear(x, self.w2.weight, self.w2.bias, compute_dtype, precision)
+        return _row_parallel(F.silu(x1) * x2, self.w3, self.tp, sp, compute_dtype, precision)
 
 
 class Mlp(nn.Module):

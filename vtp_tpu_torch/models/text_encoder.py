@@ -299,16 +299,18 @@ class TextTransformer(nn.Module):
         same arithmetic, no launch in the recompute)."""
         x, mask, is_causal = self.embeds(text)
         run = checkpoint_policy(remat)
-        sp = self.tp is not None and self.tp.seq_split(x.shape[1])
+        blocks = self.text_transformer.resblocks
+        tp = blocks[0].tp if len(blocks) else None  # None where the blocks run whole (int8)
+        sp = tp is not None and tp.seq_split(x.shape[1])
         if sp:
-            x = split_seq(x, self.tp.axis, dim=1)
-        for blk in self.text_transformer.resblocks:
+            x = split_seq(x, tp.axis, dim=1)
+        for blk in blocks:
             if run is not None and torch.is_grad_enabled():
                 x = run(blk, x, mask, is_causal, compute_dtype, sp)
             else:
                 x = blk(x, mask, is_causal, compute_dtype, sp)
         if sp:
-            x = unsplit_seq(x, self.tp.axis, dim=1)
+            x = unsplit_seq(x, tp.axis, dim=1)
         pooled, tokens = self.pool_project(x, text, compute_dtype)
         if normalize:
             pooled = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),

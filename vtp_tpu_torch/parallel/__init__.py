@@ -5,7 +5,7 @@ explicit DeviceMesh over ``data`` with ``model`` (tensor and sequence
 parallelism: Megatron collectives as autograd functions, rank-local weight
 slabs), ``seq`` (context parallelism: the ring and Ulysses attention of
 ``ops/ring_attention.py``, CP x TP beside ``model``) or ``pipe`` (GPipe over
-the block stacks), and FSDP over ``data``."""
+the block stacks), and ZeRO-3 FSDP over ``data`` (beside ``model`` too)."""
 
 from vtp_tpu_torch.parallel.mesh import (
     DATA_AXIS,

@@ -1,22 +1,28 @@
-"""FSDP/ZeRO-style sharding of the train state over the ``data`` axis (port
-of ``vtp_tpu/parallel/fsdp.py``).
+"""FSDP/ZeRO-3 sharding of the train state over the ``data`` axis (port of
+``vtp_tpu/parallel/fsdp.py``).
 
 The shape rules are the JAX package's, with its exact outputs on the same
 tree (``_add_data_axis``, ``fsdp_partition_specs``, ``fsdp_state_specs``,
 ``sharded_bytes``): every leaf of at least ``DEFAULT_MIN_ELEMS`` elements
-shards its largest divisible dim over ``data``. A tree is nested dicts,
-lists or tuples of tensors or arrays (anything with ``shape`` and
-``dtype``); a spec is a tuple of axis names (or None) a dim.
+shards its largest divisible dim over ``data`` (with ``tensor_parallel``,
+a dim other than its model dim). A tree is nested dicts, lists or tuples of
+tensors or arrays (anything with ``shape`` and ``dtype``); a spec is a
+tuple of axis names (or None) a dim.
 
-``shard_state`` applies them to a ``TrainState``: each rank keeps its slab
-of every sharded trained leaf and of its Adam moments. The train step
-differentiates the modules' whole parameters, reduce-scatters each sharded
-gradient to its slab, runs AdamW on the slabs, and all-gathers the updated
-slabs into the parameters the next forward reads; the teacher EMA then runs
-on the whole tensors, as without FSDP. The parameters and the teacher stay
-resident and whole between steps, so only the moments and the master slabs
-are divided (ZeRO-2); sharding the parameters as well is not ported. FSDP
-runs on a mesh without a model axis (size 1).
+``shard_state`` applies them to a ``TrainState`` as JAX's ZeRO-3 does (its
+:10-16): each rank keeps only its slab of every sharded leaf of the
+parameters, of the teacher and of both Adam moments, and the optimizer's
+leaf is the module's slab itself. A module reads a sharded parameter whole
+through one autograd function (``gather_param``, reached from the module's
+own attribute access): its forward all-gathers the slab over ``data``, its
+backward reduce-scatters the gradient to the slab. No whole parameter is
+kept: each read gathers anew, the backward re-gathers what the forward saved
+(``saved_whole_tensors``: a saved whole parameter, or its cast, is packed as
+its slab), and a checkpointed block's recompute gathers inside the block.
+So a rank holds ``sharded_bytes`` of its state (over a model axis, with the
+moments cut as their parameters), and beyond it the activations and the
+whole tensors of the one weight in use. The teacher's forward gathers its
+slabs without gradient, and its EMA runs on the slabs.
 """
 
 from __future__ import annotations
@@ -26,9 +32,23 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from vtp_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group, mesh_axis_size
-from vtp_tpu_torch.parallel.sharding import ShardLayout, _gather_dim, _reduce_scatter_dim, leaf_spec
+from vtp_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    AxisGroup,
+    axis_group,
+    mesh_axis_size,
+)
+from vtp_tpu_torch.parallel.sharding import (
+    CALLS,
+    ShardLayout,
+    _gather_dim,
+    _reduce_scatter_dim,
+    _set_leaf,
+    leaf_spec,
+)
 
 # leaves smaller than this stay replicated: the all-gather latency for
 # tiny tensors (norm scales, biases) outweighs the bytes saved
@@ -136,116 +156,211 @@ def sharded_bytes(tree: Any, specs: Any, mesh) -> int:
     return total
 
 
-def _nbytes(leaf: Any) -> int:
-    return math.prod(_shape(leaf) or (1,)) * _itemsize(leaf)
-
-
-def resident_bytes(tree: Dict[str, Any], specs: Dict[str, Any], n_shards: int) -> int:
-    """Bytes a rank holds of ``tree`` (``train_state_tree``) once
-    ``shard_state`` applied ``specs`` over ``n_shards``: not JAX's rule
-    (``sharded_bytes``), since the parameters and the teacher stay whole.
-    Each parameter sharded over ``data`` adds its slab, and its two Adam
-    moments are slabs; every other tensor is whole. Per sharded leaf that is
-    2 + 3 / n parameter-sized units against 4 replicated (fp32 moments)."""
-    whole = sum(_nbytes(leaf) for leaf in _leaves(tree))
-    for name, spec in specs["params"].items():
-        if DATA_AXIS not in spec:
-            continue
-        whole += _nbytes(tree["params"][name]) // n_shards
-        for m in ("mu", "nu"):
-            b = _nbytes(tree["opt_state"][m][name])
-            whole -= b - b // n_shards
-    return whole
-
-
-def _leaves(tree: Any) -> list:
-    out = []
-    _tree_map(out.append, tree)
-    return out
-
-
 def train_state_tree(state) -> Dict[str, Any]:
-    """A ``TrainState`` as the tree ``fsdp_state_specs`` takes: ``params``
-    (the trained leaves by name), ``teacher`` (by the same names), the
-    optimizer's ``mu`` / ``nu`` under ``opt_state``, and the centers."""
+    """A ``TrainState`` as the tree ``fsdp_state_specs`` takes, each leaf in
+    its whole (global) shape: ``params`` (the trained leaves by name),
+    ``teacher`` (by the same names), the optimizer's ``mu`` / ``nu`` under
+    ``opt_state``, and the centers. A leaf that a distributed state holds
+    as a slab stands as a meta tensor of the whole shape."""
+    layout = getattr(state, "layout", None)
+
+    def whole(tensors: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        if layout is None:
+            return dict(tensors)
+        return {n: torch.empty(layout.full_shape(n, t.shape), dtype=t.dtype, device="meta")
+                if layout.is_sharded(n, t.ndim) else t for n, t in tensors.items()}
+
     opt = state.optimizer
-    tree: Dict[str, Any] = {"params": dict(opt.leaves),
-                            "opt_state": {"mu": dict(opt.mu), "nu": dict(opt.nu)}}
+    tree: Dict[str, Any] = {"params": whole(opt.leaves),
+                            "opt_state": {"mu": whole(opt.mu), "nu": whole(opt.nu)}}
     if state.teacher is not None:
-        tree["teacher"] = dict(state.teacher.state_dict())
+        tree["teacher"] = whole(state.teacher.state_dict())
         tree["centers"] = {"dino": state.dino_center, "ibot": state.ibot_center}
     return tree
 
 
-class FSDP:
-    """A train state's data-axis sharding: for each sharded trained leaf its
-    dim and the module parameter the forward reads (``full``)."""
+def held_specs(specs: Dict[str, Any]) -> Dict[str, Any]:
+    """``specs`` (``fsdp_state_specs``) as ``shard_state`` lays the state out:
+    the moments cut as their parameters. The same tree at a model axis of 1;
+    over a model axis, JAX's moments take no model dim (its :104-108) while
+    this port's are cut with their parameters."""
+    params = specs["params"]
+    return dict(specs, opt_state={"mu": dict(params), "nu": dict(params)})
 
-    def __init__(self, layout: ShardLayout, full: Dict[str, torch.Tensor]):
-        self.layout, self.full = layout, full
+
+# ------------------------------------------------------- reading a slab whole
+
+
+def _gather_whole(slab: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+    """Every rank's slab concatenated along ``dim`` into a new contiguous
+    tensor, not a view: ``_pack`` finds a gathered parameter as the base of
+    what autograd saves."""
+    return _gather_dim(slab, g, dim).contiguous()
+
+
+class _GatherParam(torch.autograd.Function):
+    """A slab all-gathered along ``dim`` into the whole (contiguous)
+    parameter; backward reduce-scatters the gradient back to the slab."""
+
+    @staticmethod
+    def forward(ctx, slab, g, dim):
+        ctx.slab, ctx.g, ctx.dim = slab, g, dim
+        return _gather_whole(slab, g, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        CALLS["fsdp_reduce_scatter"] += 1
+        return _reduce_scatter_dim(grad, ctx.g, ctx.dim).contiguous(), None, None
+
+
+def gather_param(slab: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
+    """The whole parameter of ``slab`` (a collective over ``g``)."""
+    CALLS["fsdp_gather"] += 1
+    return _GatherParam.apply(slab, g, dim)
+
+
+class _Whole:
+    """A saved whole parameter (or its cast), kept as its slab until the
+    backward reads it: ``unpack`` gathers it again."""
+
+    __slots__ = ("slab", "g", "dim", "dtype", "size", "stride", "offset")
+
+    def __init__(self, node, t: torch.Tensor):
+        self.slab, self.g, self.dim = node.slab, node.g, node.dim
+        self.dtype, self.size, self.stride, self.offset = (
+            t.dtype, t.size(), t.stride(), t.storage_offset())
+
+    def unpack(self) -> torch.Tensor:
+        CALLS["fsdp_regather"] += 1
+        whole = _gather_whole(self.slab, self.g, self.dim).to(self.dtype)
+        return whole.as_strided(self.size, self.stride, self.offset)
+
+
+def _pack(t: torch.Tensor):
+    """A tensor that autograd saves: a view of a gathered parameter, or of
+    its cast (``.to``, which keeps the whole's contiguous layout), becomes
+    a ``_Whole``; anything else is kept."""
+    node = (t if t._base is None else t._base).grad_fn
+    if type(node).__name__ == "ToCopyBackward0":
+        node = node.next_functions[0][0]
+    return _Whole(node, t) if isinstance(node, _GatherParam._backward_cls) else t
+
+
+def _unpack(x):
+    return x.unpack() if isinstance(x, _Whole) else x
+
+
+def saved_whole_tensors():
+    """The context a forward of a ZeRO-3 state runs in: every whole
+    parameter that autograd would save for the backward is saved as its
+    slab and gathered again when the backward reads it."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
+_ZERO3_CLASSES: Dict[type, type] = {}
+
+
+def _zero3_class(cls: type) -> type:
+    """``cls`` whose attribute access of a sharded parameter (named in the
+    instance's ``_zero3``) returns it whole through ``gather_param``."""
+    if cls not in _ZERO3_CLASSES:
+        def __getattr__(self, name):
+            shards = self.__dict__.get("_zero3")
+            if shards is not None and name in shards:
+                return gather_param(self._parameters[name], *shards[name])
+            return cls.__getattr__(self, name)
+
+        _ZERO3_CLASSES[cls] = type(f"ZeRO3{cls.__name__}", (cls,),
+                                   {"__getattr__": __getattr__, "__module__": __name__})
+    return _ZERO3_CLASSES[cls]
+
+
+def _owner(root: nn.Module, name: str):
+    *path, leaf = name.split(".")
+    return root.get_submodule(".".join(path)) if path else root, leaf
+
+
+@torch.no_grad()
+def _shard_leaf(root: nn.Module, name: str, g: AxisGroup, dim: int) -> torch.Tensor:
+    """``root``'s parameter ``name`` replaced by this rank's slab of it along
+    ``dim``, read whole through ``gather_param``. Returns the slab."""
+    module, leaf = _owner(root, name)
+    if leaf not in module._parameters:
+        raise ValueError(f"{name}: only parameters are sharded (a buffer of "
+                         f"{getattr(module, leaf).numel()} elements is not)")
+    _set_leaf(root, name, module._parameters[leaf].chunk(g.size, dim)[g.rank].clone())
+    shards = module.__dict__.setdefault("_zero3", {})
+    shards[leaf] = (g, dim)
+    if type(module) not in _ZERO3_CLASSES.values():
+        module.__class__ = _zero3_class(type(module))
+    return module._parameters[leaf]
+
+
+class FSDP:
+    """A ZeRO-3 train state's data-axis sharding: each sharded leaf's data dim
+    by name (``dims``), over the layout's data axis."""
+
+    def __init__(self, layout: ShardLayout):
+        self.layout = layout
 
     @property
     def dims(self) -> Dict[str, int]:
         return self.layout.fsdp
 
     def reduce_grads(self, names, grads):
-        """Each gradient summed over the data axis: a sharded leaf's as its
-        slab (reduce-scatter), the others whole (all-reduce)."""
-        data = self.layout.data
-        out = []
-        rest = []
-        for n, g in zip(names, grads):
-            if n in self.dims:
-                out.append(_reduce_scatter_dim(g, data, self.dims[n]))
-            else:
-                out.append(g)
-                rest.append(len(out) - 1)
+        """Each gradient summed over the data axis: a sharded leaf's came out
+        of its gathers' backward already summed and cut to the slab
+        (reduce-scatter); the others are all-reduced whole."""
         from vtp_tpu_torch.train.optim import all_reduce_flat
 
-        reduced = all_reduce_flat([out[i] for i in rest], data)
-        for i, g in zip(rest, reduced):
+        out = list(grads)
+        rest = [i for i, n in enumerate(names) if n not in self.dims]
+        for i, g in zip(rest, all_reduce_flat([out[i] for i in rest], self.layout.data)):
             out[i] = g
         return out
 
-    @torch.no_grad()
-    def refresh(self, state) -> None:
-        """The slabs re-cut from the parameters (after a restore filled
-        those whole)."""
-        for n in self.dims:
-            state.optimizer.leaves[n].copy_(self.layout.slab(n, self.full[n]))
-
-    @torch.no_grad()
-    def gather_params(self, slabs: Dict[str, torch.Tensor]) -> None:
-        """Every sharded parameter all-gathered from the updated slabs."""
-        for n, dim in self.dims.items():
-            self.full[n].copy_(_gather_dim(slabs[n], self.layout.data, dim))
-
 
 def shard_state(state, mesh, specs: Dict[str, Any]):
-    """Shard ``state`` (a ``TrainState``; data-parallel or not yet
-    distributed) over ``mesh``'s data axis by ``specs["params"]``
-    (``fsdp_state_specs(train_state_tree(state), n)``), in place: the
-    optimizer's sharded leaves and their moments become this rank's slabs.
-    Returns the state."""
-    if mesh_axis_size(mesh, MODEL_AXIS) > 1:
-        raise NotImplementedError("FSDP with a model axis > 1 is not ported")
+    """Shard ``state`` (a ``TrainState``, whole or spread over ``mesh`` by
+    ``train.step.distribute_state``) over ``mesh``'s data axis in place, as
+    ``specs`` says: ``fsdp_state_specs(train_state_tree(state), n_data,
+    tensor_parallel=n_model > 1)``. Every parameter of the student and the
+    teacher with a data dim there becomes this rank's slab (the optimizer's
+    leaf is the student's slab itself), and so do its two moments. Returns
+    the state."""
     data = axis_group(mesh, DATA_AXIS)
     layout = getattr(state, "layout", None)
     if layout is None:
         layout = ShardLayout.for_config(state.model.config, mesh)
         layout.model = None
-    dims = {n: spec.index(DATA_AXIS) for n, spec in specs["params"].items()
-            if DATA_AXIS in spec}
+        state.model.shard_layout = layout
+    dims: Dict[str, int] = {}
+    for part in ("params", "teacher"):
+        for n, spec in specs.get(part, {}).items():
+            if DATA_AXIS not in spec:
+                continue
+            dim = spec.index(DATA_AXIS)
+            if dims.setdefault(n, dim) != dim:
+                raise ValueError(f"{n}: the parameter and the teacher shard different dims")
+    if layout.model is not None and layout.model.size > 1:
+        for n, dim in dims.items():
+            ndim = len(specs["params"].get(n) or specs["teacher"][n])
+            if leaf_spec(n, ndim, layout.whole)[dim] == MODEL_AXIS:
+                raise ValueError(f"{n}: data dim {dim} is its model dim; compute the specs "
+                                 f"with fsdp_state_specs(..., tensor_parallel=True)")
+    opt = state.optimizer
     layout.fsdp = dims
     layout.data = data
-    opt = state.optimizer
-    full = {n: opt.leaves[n] for n in dims}
-    for n in dims:
-        p = opt.leaves[n]
-        opt.leaves[n] = layout.slab(n, p).requires_grad_(p.requires_grad)
-        opt.mu[n] = layout.slab(n, opt.mu[n])
-        opt.nu[n] = layout.slab(n, opt.nu[n])
-    state.fsdp = FSDP(layout, full)
+    head = state.dino_head
+    for n, dim in dims.items():
+        if n in opt.leaves:
+            root, name = ((head, n[len("dino_head."):]) if n.startswith("dino_head.")
+                          else (state.model, n))
+            opt.leaves[n] = _shard_leaf(root, name, data, dim)
+            opt.mu[n] = opt.mu[n].chunk(data.size, dim)[data.rank].clone()
+            opt.nu[n] = opt.nu[n].chunk(data.size, dim)[data.rank].clone()
+        if state.teacher is not None and n in specs.get("teacher", {}):
+            _shard_leaf(state.teacher, n, data, dim)
+    state.fsdp = FSDP(layout)
     state.layout = layout
     return state
-

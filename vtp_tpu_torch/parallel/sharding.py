@@ -158,15 +158,24 @@ def permute_qkv_state_dict(sd: dict, num_heads: int, tp: int, *, inverse: bool =
 # ------------------------------------------------------- partition rules
 
 
-def leaf_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+def leaf_spec(name: str, ndim: int, whole: Iterable[str] = ()) -> Tuple[Optional[str], ...]:
     """The JAX rule ``_spec_for`` (:33-50) on a port leaf: ``name`` is its
     state-dict key, in torch layout (a ``Linear`` weight is ``(out, in)``),
-    one leaf a layer. Returns one mesh-axis name or None a dim."""
+    one leaf a layer. Returns one mesh-axis name or None a dim. A leaf of a
+    unit in ``whole`` (``whole_units``: a block's attention or FFN, or a
+    text block, that holds an int8 weight) is replicated: the unit runs
+    whole on every rank. The codes and scales of an int8 weight
+    (``<owner>.weight.q`` / ``.scale``) are replicated by the rule itself,
+    as JAX's ``{q, scale}`` leaves are; the unit's column bias, which JAX's
+    rule still cuts, stays whole with it here. A fused ``w12`` is no
+    column owner, so it stays whole too, as in JAX."""
     parts = name.split(".")
+    none = (None,) * ndim
+    if whole and _unit(name) in whole:
+        return none
     kind = parts[-1]
     owner = parts[-2] if len(parts) >= 2 else ""
     owner = _JAX_OWNER.get(tuple(parts[-3:-1]), owner)
-    none = (None,) * ndim
     if kind in ("in_proj_weight", "in_proj_bias"):  # the text tower's bare in_proj
         owner, kind = "in_proj", kind[len("in_proj_"):]
     if owner == "token_embedding" and kind == "weight":
@@ -181,9 +190,30 @@ def leaf_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
     return none
 
 
+def _unit(name: str) -> Optional[str]:
+    """The tensor-parallel unit a leaf belongs to: ``<tower>.blocks.<i>.attn``
+    or ``.mlp`` (each carries its own ``TensorParallel``), or a text block
+    ``<...>.resblocks.<i>``; None outside the block stacks."""
+    parts = name.split(".")
+    for i, p in enumerate(parts[:-2]):
+        if p == "resblocks" and parts[i + 1].isdigit():
+            return ".".join(parts[:i + 2])
+        if p == "blocks" and parts[i + 1].isdigit():
+            return ".".join(parts[:i + 3])
+    return None
+
+
+def whole_units(names: Iterable[str]) -> frozenset:
+    """The units (``_unit``) among the state-dict keys ``names`` that hold
+    an int8 weight (``utils.quantization.Int8Weight``: ``<weight>.q``)."""
+    return frozenset(u for n in names if n.endswith(".q") and (u := _unit(n)) is not None)
+
+
 def param_partition_specs(sd: Dict[str, Any]) -> Dict[str, Tuple[Optional[str], ...]]:
-    """``leaf_spec`` of every entry of a state dict (tensors or arrays)."""
-    return {k: leaf_spec(k, len(v.shape)) for k, v in sd.items()}
+    """``leaf_spec`` of every entry of a state dict (tensors or arrays),
+    its int8 units whole."""
+    whole = whole_units(sd)
+    return {k: leaf_spec(k, len(v.shape), whole) for k, v in sd.items()}
 
 
 def _qkv_tower(name: str) -> Optional[str]:
@@ -195,16 +225,19 @@ def _qkv_tower(name: str) -> Optional[str]:
 @dataclasses.dataclass
 class ShardLayout:
     """Where each leaf of a model (by port state-dict name) lives on the
-    mesh: ``leaf_spec``'s model-axis dim, and ``fsdp``'s data-axis dim by
-    name. ``heads`` and ``head_major`` give each tower's head count and its
-    stored qkv layout (1 canonical, else the head-major factor), which a
-    qkv slab is cut and gathered by."""
+    mesh: ``leaf_spec``'s model-axis dim (its units in ``whole`` replicated),
+    and ``fsdp``'s data-axis dim by name (``parallel.fsdp.shard_state``: the
+    module's tensor, the teacher's and the optimizer's moments alike).
+    ``heads`` and ``head_major`` give each tower's head count and its stored
+    qkv layout (1 canonical, else the head-major factor), which a qkv slab
+    is cut and gathered by."""
 
     model: Optional[AxisGroup]
     data: Optional[AxisGroup]
     heads: Dict[str, int]
     head_major: Dict[str, int]
     fsdp: Dict[str, int] = dataclasses.field(default_factory=dict)
+    whole: frozenset = frozenset()
 
     def __deepcopy__(self, memo):
         return self
@@ -217,16 +250,18 @@ class ShardLayout:
                     "text": cfg.text_num_heads},
                    {"trunk": cfg.vision_qkv_head_major})
 
-    def spec(self, name: str, ndim: int, fsdp: bool = True) -> Tuple[Optional[str], ...]:
-        """The leaf's axis a dim: the model axis's rule and, with ``fsdp``
-        (an optimizer leaf or moment, not a module's tensor), its data dim."""
-        spec = list(leaf_spec(name, ndim)) if self.model is not None else [None] * ndim
-        if fsdp and name in self.fsdp:
+    def spec(self, name: str, ndim: int) -> Tuple[Optional[str], ...]:
+        """The leaf's axis a dim: the model axis's rule and its data dim.
+        A data dim on a model dim (specs computed without the model rule,
+        at a model axis of 1) takes it over."""
+        spec = (list(leaf_spec(name, ndim, self.whole)) if self.model is not None
+                else [None] * ndim)
+        if name in self.fsdp:
             spec[self.fsdp[name]] = DATA_AXIS
         return tuple(spec)
 
-    def is_sharded(self, name: str, ndim: int, fsdp: bool = True) -> bool:
-        return any(a is not None for a in self.spec(name, ndim, fsdp))
+    def is_sharded(self, name: str, ndim: int) -> bool:
+        return any(a is not None for a in self.spec(name, ndim))
 
     def _permute(self, name: str, t: torch.Tensor, inverse: bool) -> torch.Tensor:
         """A canonical qkv leaf to (or from) the tp-rank-major order whose
@@ -244,17 +279,17 @@ class ShardLayout:
             return qkv_head_major(t.t(), heads, tp, inverse=inverse).t()
         return qkv_head_major(t, heads, tp, inverse=inverse)
 
-    def full_shape(self, name: str, shape, fsdp: bool = True) -> Tuple[int, ...]:
+    def full_shape(self, name: str, shape) -> Tuple[int, ...]:
         """The whole leaf's shape from a slab's."""
-        spec = self.spec(name, len(shape), fsdp)
+        spec = self.spec(name, len(shape))
         return tuple(n * {MODEL_AXIS: getattr(self.model, "size", 1),
                           DATA_AXIS: getattr(self.data, "size", 1)}.get(a, 1)
                      for n, a in zip(shape, spec))
 
     @torch.no_grad()
-    def slab(self, name: str, full: torch.Tensor, fsdp: bool = True) -> torch.Tensor:
+    def slab(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's slab of ``full`` (a copy)."""
-        spec = self.spec(name, full.ndim, fsdp)
+        spec = self.spec(name, full.ndim)
         t = full
         if MODEL_AXIS in spec and _qkv_tower(name):
             t = self._permute(name, t, inverse=False)
@@ -265,10 +300,10 @@ class ShardLayout:
         return t.contiguous().clone()
 
     @torch.no_grad()
-    def gather(self, name: str, local: torch.Tensor, fsdp: bool = True) -> torch.Tensor:
+    def gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
         """The whole leaf from every rank's slab (a collective over the axes
         it is sharded on), in the stored layout."""
-        spec = self.spec(name, local.ndim, fsdp)
+        spec = self.spec(name, local.ndim)
         t = local
         for dim, axis in reversed(list(enumerate(spec))):
             if axis is not None:
@@ -326,7 +361,7 @@ def _gather_dim(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((g.size * x.shape[0], *x.shape[1:]))
     _all_gather_single(out, x, g.group)
-    return out.movedim(0, dim)
+    return out if dim == 0 else out.movedim(0, dim)
 
 
 def _reduce_scatter_dim(x: torch.Tensor, g: AxisGroup, dim: int) -> torch.Tensor:
@@ -345,6 +380,12 @@ def _all_gather_single(out, x, group) -> None:
 
 
 def _reduce_scatter_single(out, x, group) -> None:
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        # gloo reduce-scatters host tensors only: the whole sum, then this rank's chunk
+        full = x.clone()
+        dist.all_reduce(full, group=group)
+        out.copy_(full.chunk(dist.get_world_size(group))[dist.get_rank(group)])
+        return
     fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     fn(out, x, group=group)
 
@@ -686,27 +727,39 @@ def _block_towers(root) -> List[nn.Module]:
 def _tensor_parallelize(model, roots, axis: AxisGroup, layout: ShardLayout, head_major: bool,
                         sequence_parallel: bool) -> None:
     """``parallelize_model``'s model axis: the slabs, the per-rank heads and
-    each parallel module's ``TensorParallel``."""
+    each parallel module's ``TensorParallel``. A unit that holds an int8
+    weight (``whole_units``) keeps every leaf and every head and runs whole,
+    with no model collective, as JAX replicates its ``{q, scale}``; a fused
+    ``w12`` stays whole and its FFN takes its own columns of the hidden
+    before the cut ``w3``."""
     from vtp_tpu_torch.models.blocks import Attention, Mlp, SwiGLUFFN
     from vtp_tpu_torch.models.text_encoder import ResidualAttentionBlock, TextTransformer
-    from vtp_tpu_torch.utils.quantization import Int8Weight
 
-    if any(isinstance(m, Int8Weight) for r in roots for m in r.modules()):
-        raise NotImplementedError("tensor parallelism of int8 weights is not ported")
     tp = axis.size
     for tower, h in layout.heads.items():
         if getattr(model, tower, None) is not None and h % tp:
             raise ValueError(f"{tower}: {h} heads do not divide over a model axis of {tp}")
+    layout.whole = whole_units(n for r in roots for n in r.state_dict())
+    declare = head_major and tp > 1 and model.config.vision_qkv_head_major == 1
     par = TensorParallel(axis, sequence_parallel)
     with torch.no_grad():
         for root in roots:
             for name, t in list(root.state_dict(keep_vars=True).items()):
-                if MODEL_AXIS in leaf_spec(name, t.ndim):
+                if MODEL_AXIS in leaf_spec(name, t.ndim, layout.whole):
                     _set_leaf(root, name, layout.slab(name, t.detach()))
+                elif declare and _unit(name) in layout.whole and is_trunk_qkv_key(name):
+                    # a whole trunk qkv stored head-major, as JAX's server permutes it
+                    perm = (lambda w: qkv_head_major(w.t(), layout.heads["trunk"], tp).t()
+                            if name.endswith((".weight", ".weight.q"))
+                            else qkv_head_major(w, layout.heads["trunk"], tp))
+                    _set_leaf(root, name, perm(t.detach()).contiguous())
     for root in roots:
-        for m in root.modules():
-            if isinstance(m, SwiGLUFFN) and m.w12 is not None:
-                raise NotImplementedError("tensor parallelism of a fused w12 is not ported")
+        for name, m in root.named_modules():
+            if isinstance(m, (Attention, SwiGLUFFN, Mlp, ResidualAttentionBlock)) and \
+                    _unit(f"{name}.x") in layout.whole:
+                if isinstance(m, Attention) and name.startswith("trunk.") and declare:
+                    m.cfg = dataclasses.replace(m.cfg, qkv_head_major=tp)
+                continue
             if isinstance(m, Attention):
                 c = m.cfg
                 m.cfg = dataclasses.replace(c, dim=c.dim // tp, num_heads=c.num_heads // tp,
@@ -714,7 +767,7 @@ def _tensor_parallelize(model, roots, axis: AxisGroup, layout: ShardLayout, head
             if isinstance(m, (Attention, SwiGLUFFN, Mlp, ResidualAttentionBlock,
                               TextTransformer)):
                 m.tp = par
-    if head_major and tp > 1 and model.config.vision_qkv_head_major == 1:
+    if declare:
         model.config = model.config.replace(vision_qkv_head_major=tp)
         layout.head_major["trunk"] = tp
     for root in roots:
@@ -732,5 +785,5 @@ def gather_state_dict(module, layout: Optional[ShardLayout] = None) -> Dict[str,
     sd = module.state_dict()
     if layout is None:
         return sd
-    return {k: layout.gather(k, v, fsdp=False) if layout.is_sharded(k, v.ndim, fsdp=False)
-            else v for k, v in sd.items()}
+    return {k: layout.gather(k, v) if layout.is_sharded(k, v.ndim) else v
+            for k, v in sd.items()}

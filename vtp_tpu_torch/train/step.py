@@ -45,8 +45,11 @@ arrays. The semantics are the JAX step's under GSPMD:
   * tensor (and sequence) parallelism: the towers hold their slabs
     (``parallel.sharding.parallelize_model``), ``tp_head_major`` stores the
     trunk head-major (it must equal the model axis);
-  * FSDP: a state that ``parallel.fsdp.shard_state`` sharded reduce-scatters
-    its sharded gradients and all-gathers the updated slabs.
+  * FSDP (ZeRO-3): on a state that ``parallel.fsdp.shard_state`` sharded,
+    the parameters, the teacher and the moments are slabs; each forward
+    reads a parameter whole through its all-gather, whose backward
+    reduce-scatters the gradient to the slab, and AdamW and the EMA run on
+    the slabs.
 
 Over a ``(data, seq[, model])`` mesh (``parallel.mesh.make_cp_mesh``;
 ``init_state``'s and ``distribute_state``'s ``cp_mode`` picks the arm)
@@ -67,6 +70,7 @@ The grad norm is global: sharded leaves sum their squares over their axes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -94,6 +98,7 @@ from vtp_tpu_torch.parallel.mesh import (
     axis_group,
     mesh_axis_size,
 )
+from vtp_tpu_torch.parallel.fsdp import saved_whole_tensors
 from vtp_tpu_torch.parallel.sharding import all_reduce_, parallelize_model, shard_batch
 from vtp_tpu_torch.train.optim import (
     ACCUM_DTYPES,
@@ -525,10 +530,16 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
         return [n for n, t in state.optimizer.leaves.items() if t.requires_grad]
 
     def params(state: TrainState, names: Sequence[str]) -> List[torch.Tensor]:
-        """The tensors the forward reads for trained leaves ``names`` (an FSDP
-        state's optimizer holds slabs of them)."""
-        full = state.fsdp.full if getattr(state, "fsdp", None) is not None else {}
-        return [full.get(n, state.optimizer.leaves[n]) for n in names]
+        """The tensors the step differentiates for trained leaves ``names``:
+        the modules' own (on a ZeRO-3 state, their slabs)."""
+        return [state.optimizer.leaves[n] for n in names]
+
+    def saving(state: TrainState):
+        """The context of a forward that the step differentiates: on a
+        ZeRO-3 state, whole parameters are saved as their slabs."""
+        if getattr(state, "fsdp", None) is None:
+            return contextlib.nullcontext()
+        return saved_whole_tensors()
 
     def localize(batch: Dict[str, Any], draws):
         """This data shard's part of a global microbatch and its draws."""
@@ -543,6 +554,18 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
         teacher heads (or None) and the SSL batch they ran on. Over a mesh,
         ``batch`` and ``draws`` are global and the gradients this rank's."""
         batch, draws = localize(batch, draws)
+        with saving(state):
+            metrics, total, aux = losses(state, batch, draws)
+        names = trained(state)
+        grads = torch.autograd.grad(total, params(state, names), allow_unused=True)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data is not None:
+            metrics = dict(zip(metrics, all_reduce_flat(list(metrics.values()), data)))
+        return list(grads), metrics, aux, batch.get("ssl")
+
+    def losses(state: TrainState, batch: Dict[str, Any], draws):
+        """The branches' losses on this rank's ``batch``: (metrics, total,
+        the teacher heads or None)."""
         model = state.model
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -561,12 +584,7 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
             total = (total + tcfg.dino_weight * l_dino + tcfg.ibot_weight * l_ibot
                      + tcfg.koleo_weight * l_koleo)
         metrics["loss/total"] = total
-        names = trained(state)
-        grads = torch.autograd.grad(total, params(state, names), allow_unused=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if data is not None:
-            metrics = dict(zip(metrics, all_reduce_flat(list(metrics.values()), data)))
-        return list(grads), metrics, aux, batch.get("ssl")
+        return metrics, total, aux
 
     def sharded_over(state: TrainState) -> Dict[str, tuple]:
         """The axes each sharded trained leaf is split over (for the norm)."""
@@ -587,10 +605,14 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
         return [i for i, n in enumerate(names) if n.startswith(tuple(towers))] if towers else []
 
     def reduce_grads(state: TrainState, grads: Sequence[Optional[torch.Tensor]]):
-        """The gradients summed over the data axis (an FSDP state's sharded
-        ones reduce-scattered to its slabs), those of context-parallel
+        """The gradients summed over the data axis, those of context-parallel
         blocks over ``seq`` first; a leaf without one on this rank
-        contributes zeros."""
+        contributes zeros. A ZeRO-3 state's sharded gradients are already
+        summed over ``data`` and cut to the slab: the backward of each whole
+        read reduce-scattered them. Under accumulation that runs in every
+        microbatch's backward, not once: a whole gradient lives only inside
+        the backward that made it (whole-sized sums across microbatches
+        would hold ZeRO-2's memory), so the sums are slab-sized."""
         names = trained(state)
         grads = [g if g is not None else torch.zeros_like(p)
                  for g, p in zip(grads, params(state, names))]
@@ -609,14 +631,11 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
                metrics: Dict[str, torch.Tensor], centers) -> Tuple[TrainState, Dict]:
         """The data-axis gradient sum, the optimizer step, the teacher EMA
         and ``centers(state)``."""
-        fsdp = getattr(state, "fsdp", None)
         norm_sq = None
         if mesh is not None:
             grads = reduce_grads(state, grads)
             norm_sq = functools.partial(global_norm_sq, sharded_over=sharded_over(state))
         metrics["grad_norm"] = state.optimizer.step(dict(zip(trained(state), grads)), norm_sq)
-        if fsdp is not None:
-            fsdp.gather_params(state.optimizer.leaves)
         state.step += 1
         if state.teacher is not None:
             ema_update(state.teacher, student_parts(state.model, state.dino_head),
@@ -711,7 +730,9 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
         names = trained(state)
         leaf_params = params(state, names)
 
-        def norm(loss):
+        def norm(loss_fn):
+            with saving(state):
+                loss = loss_fn()
             gs = torch.autograd.grad(loss, leaf_params, allow_unused=True)
             if mesh is None:
                 return torch.sqrt(sum(g.float().square().sum() for g in gs if g is not None))
@@ -720,14 +741,15 @@ def build_train_step(cfg: VTPConfig, tcfg: TrainConfig, mesh=None):
 
         model, norms = state.model, {}
         if "clip" in branches(batch):
-            norms["grad_norm/clip"] = norm(clip_branch(model, batch["image"], batch["text"],
-                                                       draws.get("clip")))
+            norms["grad_norm/clip"] = norm(lambda: clip_branch(
+                model, batch["image"], batch["text"], draws.get("clip")))
         if "rec" in branches(batch):
-            norms["grad_norm/rec"] = norm(rec_branch(model, batch["rec_image"], draws.get("rec")))
+            norms["grad_norm/rec"] = norm(lambda: rec_branch(model, batch["rec_image"],
+                                                             draws.get("rec")))
         if "ssl" in branches(batch):
             for i, name in enumerate(("dino", "ibot", "koleo")):
                 norms[f"grad_norm/{name}"] = norm(
-                    ssl_branch(state, batch["ssl"], draws.get("ssl"))[i])
+                    lambda i=i: ssl_branch(state, batch["ssl"], draws.get("ssl"))[i])
         return {k: v.detach() for k, v in norms.items()}
 
     train_step.sample_draws = sample_draws
